@@ -1,0 +1,60 @@
+"""LR schedules with mmcv LrUpdaterHook semantics.
+
+Port of ``mscl_tpu/core/lr_schedule.py`` for the 'fixed' and
+'CosineAnnealing' policies with optional linear/constant/exp warmup
+(``warmup_by_epoch`` converts warmup_iters from epochs). Warmup applies only
+when the ``warmup`` key is set, as in the JAX package. Returns a
+step -> lr function of python floats.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict
+
+
+def build_lr_schedule(lr_config: Dict, base_lr: float, total_epochs: int,
+                      steps_per_epoch: int) -> Callable[[int], float]:
+    cfg = dict(lr_config or {})
+    policy = cfg.pop('policy', 'fixed')
+    by_epoch = cfg.pop('by_epoch', True)
+    warmup = cfg.pop('warmup', None)
+    warmup_iters = cfg.pop('warmup_iters', 0)
+    warmup_ratio = cfg.pop('warmup_ratio', 0.1)
+    if cfg.pop('warmup_by_epoch', False):
+        warmup_iters = warmup_iters * steps_per_epoch
+
+    if policy == 'fixed':
+        def regular(step):
+            return base_lr
+    elif policy == 'CosineAnnealing':
+        min_lr = cfg.get('min_lr', 0.0)
+        if cfg.get('min_lr_ratio') is not None:
+            min_lr = base_lr * cfg['min_lr_ratio']
+        max_progress = total_epochs if by_epoch else \
+            total_epochs * steps_per_epoch
+
+        def regular(step):
+            progress = step / steps_per_epoch if by_epoch else step
+            frac = min(max(progress / max_progress, 0.0), 1.0)
+            return min_lr + (base_lr - min_lr) * 0.5 * (
+                math.cos(math.pi * frac) + 1.0)
+    else:
+        raise NotImplementedError(f'lr policy {policy}')
+
+    if warmup is None or warmup_iters == 0:
+        return regular
+
+    def with_warmup(step):
+        reg = regular(step)
+        if step >= warmup_iters:
+            return reg
+        frac = min(max(step / max(warmup_iters, 1), 0.0), 1.0)
+        if warmup == 'linear':
+            return reg * (1 - (1 - frac) * (1 - warmup_ratio))
+        if warmup == 'constant':
+            return reg * warmup_ratio
+        if warmup == 'exp':
+            return reg * warmup_ratio ** (1 - frac)
+        raise NotImplementedError(f'warmup {warmup}')
+
+    return with_warmup

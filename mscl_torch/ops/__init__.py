@@ -1,0 +1,6 @@
+from .batch_norm import BatchNorm3d
+from .decayed_infonce import (decay_weights, decayed_neg, dq, dq_plain,
+                              l_neg, l_neg_plain)
+
+__all__ = ['BatchNorm3d', 'decay_weights', 'decayed_neg', 'dq', 'dq_plain',
+           'l_neg', 'l_neg_plain']

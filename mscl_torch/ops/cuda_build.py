@@ -1,0 +1,75 @@
+"""Build the hand-written CUDA kernels under ``mscl_torch/csrc`` and load them.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface. It is compiled by
+``nvcc`` for ``sm_90a`` into ``build/<name>-<hash>.so`` at the root of the
+checkout (the hash is of the source, so an edited source rebuilds) and
+loaded with ``ctypes``. Nothing is compiled or loaded at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable
+
+CSRC = Path(__file__).resolve().parent.parent / 'csrc'
+BUILD_DIR = Path(__file__).resolve().parents[2] / 'build'
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
+              '-shared', '-Xcompiler', '-fPIC')
+
+
+def nvcc() -> str:
+    path = shutil.which('nvcc') or '/usr/local/cuda/bin/nvcc'
+    if not os.path.exists(path):
+        raise RuntimeError('nvcc not found: the CUDA kernels of mscl_torch '
+                           'need the CUDA toolkit')
+    return path
+
+
+def library_path(name: str) -> Path:
+    digest = hashlib.sha1((CSRC / f'{name}.cu').read_bytes()).hexdigest()
+    return BUILD_DIR / f'{name}-{digest[:12]}.so'
+
+
+def build(names: Iterable[str]) -> Dict[str, Path]:
+    """Compile the named sources that are not built yet, one nvcc process
+    each, all started together."""
+    names = list(names)
+    jobs = []
+    try:
+        for name in names:
+            out = library_path(name)
+            if out.exists():
+                continue
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f'.{os.getpid()}.tmp')
+            cmd = [nvcc(), *NVCC_FLAGS, '-o', str(tmp),
+                   str(CSRC / f'{name}.cu')]
+            jobs.append((subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT,
+                                          text=True), tmp, out))
+        for proc, tmp, out in jobs:
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f'nvcc failed for {out.name}:\n{log}')
+            os.replace(tmp, out)
+    finally:
+        for proc, _, _ in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return {n: library_path(n) for n in names}
+
+
+def all_sources() -> list:
+    return sorted(p.stem for p in CSRC.glob('*.cu'))
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` if needed and load it (once per process)."""
+    return ctypes.CDLL(str(build([name])[name]))
