@@ -6,20 +6,29 @@ Run from the root of a checkout. Phases, in order; any failure raises and
 the exit code is nonzero:
 
 1. build every kernel under mscl_torch/csrc with nvcc (sm_90a), in parallel;
-2. hold each kernel against its plain PyTorch version at the flagship
-   shapes (B=32, C=128, K=65536, float32) and time it, its plain version
-   and the one PyTorch call that computes the same product;
-3. hold the port on the card against the port on the CPU (kernels and
-   cuDNN against the plain versions) for two train steps of a narrow
-   MSCLWithAug;
-4. drive the flagship MSCLWithAug r18 pretrain step (full width, K=65536,
+2. hold the decayed-InfoNCE kernels against their plain PyTorch versions and
+   float64 at the flagship shapes (B=32, C=128, K=65536, float32) and time
+   them, their plain versions and the one PyTorch call that computes the same
+   product;
+3. hold the correlation-lookup kernel against its plain version and float64
+   at the flow-extraction shape (N=8, 16x22: 128x171 frames padded to
+   128x176, at 1/8) and at RAFT's 440x1024 (N=1, 55x128), C=256, L=4, r=4,
+   with coords the grid plus normal noise of scale 8; coords at -1000 must
+   give exact zeros; time the kernel and its plain version with L2 flushed;
+4. hold the port on the card against the port on the CPU (kernels and
+   cuDNN against the plain versions): two train steps of a narrow
+   MSCLWithAug, and RAFT (full width, 64x64 images, 3 iterations);
+5. drive the flagship MSCLWithAug r18 pretrain step (full width, K=65536,
    IdentityAug, float32, batch 32) through build_model_from_cfg,
-   build_optimizer and make_train_step for 3 steps, with the kernel launch
-   counters set to 0 just before and read just after;
-5. print the kernel table, the card's name and power limit, and the result.
+   build_optimizer and make_train_step for 3 steps, then profile one;
+6. drive flow extraction through make_raft_fn(None, iters=12) (RAFT large
+   at full width, random weights from a seed): 3 batches of 8 synthetic
+   frame pairs at 128x171, then profile one;
+7. print the kernel table, the card's name and power limit, and the result.
 
-It needs a CUDA device: without one it exits nonzero before printing any
-result.
+Every kernel launch counter is set to 0 just before each of the paths 5 and
+6 and read just after. It needs a CUDA device: without one it exits nonzero
+before printing any result.
 """
 from __future__ import annotations
 
@@ -35,9 +44,12 @@ import torch
 from mscl_torch.apis import (MOCO_FREEZE, build_model_from_cfg,
                              flagship_batch, load_flagship_config,
                              narrow_flagship_cfg, to_torch)
+from mscl_torch.apis.flow_extraction import make_raft_fn
 from mscl_torch.core import build_lr_schedule, build_optimizer, \
     make_train_step
+from mscl_torch.flow import build_raft
 from mscl_torch.models.recognizers import build_ema_fn
+from mscl_torch.ops import corr_lookup as cl
 from mscl_torch.ops import cuda_build
 from mscl_torch.ops import decayed_infonce as di
 
@@ -57,6 +69,15 @@ LOSS_KEYS = ['loss_cls', 'loss_cls_flow', 'loss_cls_flow_aug', 'loss_cls_mx',
              'loss_cls_mx_r', 'loss_cls_mx_aug', 'loss_cls_mx_r_aug',
              'loss_pos']
 STEPS = 3
+# correlation lookup: (shape name, N, H, W) at C=256, 4 levels, radius 4
+CORR_SHAPES = (('extraction_16x22', 8, 16, 22), ('raft_55x128', 1, 55, 128))
+CORR_C, CORR_LEVELS, CORR_RADIUS = 256, 4, 4
+CORR_TOL = dict(rtol=1e-5, atol=1e-5)  # tests/test_ops.py atol; C=256 sums
+# RAFT card vs CPU: the CPU's float32 flows differ from float64 ones by
+# about 7e-6 at a largest flow of 10 (64x64, 3 iterations); cuDNN sums in
+# other orders (and may take Winograd), so 100 times that
+RAFT_TOL = dict(rtol=1e-3, atol=1e-3)
+EXTRACT_PAIRS, EXTRACT_HW, EXTRACT_BATCHES, RAFT_ITERS = 8, (128, 171), 3, 12
 
 
 def log(**kw):
@@ -158,6 +179,94 @@ def phase_kernels(dev):
     return rows
 
 
+def reset_launch_counts():
+    di.l_neg.launches = di.dq.launches = cl.corr_lookup.launches = 0
+
+
+def corr_inputs(dev, n, h, w, seed):
+    rng = np.random.default_rng(seed)
+    f1, f2 = (rng.normal(size=(n, h, w, CORR_C)).astype(np.float32)
+              for _ in range(2))
+    ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing='ij')
+    coords = np.stack([xs, ys], -1)[None].repeat(n, 0) + rng.normal(
+        scale=8.0, size=(n, h, w, 2))
+    return (torch.from_numpy(x).to(dev) for x in
+            (f1, f2, coords.astype(np.float32)))
+
+
+def smooth_coords(dev, n, h, w):
+    """The grid plus a smooth flow of amplitude 8, as a real flow field is
+    (neighbouring windows overlap, unlike under per-pixel noise)."""
+    ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing='ij')
+    flow = 8 * np.stack([np.sin(ys / 5.0), np.cos(xs / 7.0)], -1)
+    coords = (np.stack([xs, ys], -1) + flow)[None].repeat(n, 0)
+    return torch.from_numpy(coords.astype(np.float32)).to(dev)
+
+
+def corr_corners(coords, h, w):
+    """In-range integer corners that the lookup at these coords reads, over
+    all levels: 2*C operations each."""
+    kc, total = 2 * CORR_RADIUS + 2, 0
+    for l in range(CORR_LEVELS):
+        start = torch.floor(coords / 2 ** l).clamp(-65536, 65536) - \
+            CORR_RADIUS
+        span = []
+        for i, size in ((0, w >> l), (1, h >> l)):
+            lo = start[..., i].clamp(min=0)
+            hi = (start[..., i] + kc).clamp(max=size)
+            span.append((hi - lo).clamp(min=0))
+        total += int((span[0] * span[1]).sum().item())
+    return total
+
+
+def phase_corr_lookup(dev):
+    """The lookup kernel against its plain version and float64, at the
+    extraction shape and at RAFT's 440x1024, and far off the image."""
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    rows = {}
+    for i, (name, n, h, w) in enumerate(CORR_SHAPES):
+        f1, f2, coords = corr_inputs(dev, n, h, w, seed=10 + i)
+        pyr = cl.corr_pyramid(f2, CORR_LEVELS)
+        out = cl.corr_lookup(f1, pyr, coords, CORR_LEVELS, CORR_RADIUS)
+        want = cl.corr_lookup_plain(f1, pyr.levels, coords, CORR_RADIUS)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, want, **CORR_TOL)
+        ref = cl.corr_lookup_plain(f1.double(),
+                                   [v.double() for v in pyr.levels],
+                                   coords.double(), CORR_RADIUS)
+        err64 = (out.double() - ref).abs().max().item()
+        limit = F64_REL * ref.abs().max().item()
+        if not err64 <= limit:
+            raise AssertionError(f'corr_lookup {name}: {err64} from float64 '
+                                 f'> {limit}')
+        far = cl.corr_lookup(f1, pyr, torch.full_like(coords, -1000.0),
+                             CORR_LEVELS, CORR_RADIUS)
+        if far.any():
+            raise AssertionError(f'corr_lookup {name}: nonzero far off the '
+                                 'image')
+        corners = corr_corners(coords, h, w)
+        smooth = smooth_coords(dev, n, h, w)
+        nbytes = 4 * (f1.numel() + pyr.flat.numel() + coords.numel() +
+                      out.numel())
+        bound_ms, bound_by = bound(nbytes, 2 * CORR_C * corners)
+        row = dict(
+            shape=name, n=n, h=h, w=w, max_abs_err=(out - want).abs().max()
+            .item(), f64_err=err64, f64_limit=limit, corners=corners,
+            corners_max=n * h * w * CORR_LEVELS * (2 * CORR_RADIUS + 2) ** 2,
+            bytes=nbytes,
+            kernel_ms=time_ms(lambda: cl.corr_lookup(
+                f1, pyr, coords, CORR_LEVELS, CORR_RADIUS), flush=flush),
+            kernel_ms_smooth=time_ms(lambda: cl.corr_lookup(
+                f1, pyr, smooth, CORR_LEVELS, CORR_RADIUS), flush=flush),
+            corners_smooth=corr_corners(smooth, h, w),
+            plain_ms=time_ms(lambda: cl.corr_lookup_plain(
+                f1, pyr.levels, coords, CORR_RADIUS), iters=5, flush=flush),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        log(phase='corr_lookup_kernel', **row)
+        rows[name] = row
+    return rows
+
+
 def phase_card_vs_cpu():
     """Two train steps of a narrow model on the card and on the CPU, from
     the same weights and batches."""
@@ -188,6 +297,28 @@ def phase_card_vs_cpu():
            enumerate(logs['cuda'])})
 
 
+def phase_raft_card_vs_cpu():
+    """RAFT at full width on the card and on the CPU, from the same seeded
+    weights and images: 64x64, 4 levels, radius 4, 3 iterations."""
+    rng = np.random.default_rng(2)
+    img1 = rng.uniform(0, 255, (2, 3, 64, 64)).astype(np.float32)
+    img2 = np.roll(img1, (3, -2), axis=(2, 3)) + rng.normal(
+        scale=4.0, size=img1.shape).astype(np.float32)
+    flows = {}
+    for dev in ('cpu', 'cuda'):
+        model = build_raft(device=dev, seed=1, iters=3)
+        with torch.inference_mode():
+            flows[dev] = [f.cpu() for f in model(*(
+                torch.from_numpy(x).to(dev) for x in (img1, img2)))]
+    for cpu, card in zip(flows['cpu'], flows['cuda']):
+        torch.testing.assert_close(card, cpu, **RAFT_TOL)
+    diff = [(card - cpu).abs().max().item()
+            for cpu, card in zip(flows['cpu'], flows['cuda'])]
+    log(phase='raft_card_vs_cpu', hw=64, iters=3,
+        max_abs_flow=flows['cpu'][1].abs().max().item(),
+        max_abs_diff_low=diff[0], max_abs_diff_up=diff[1])
+
+
 def phase_flagship(dev):
     cfg = load_flagship_config()
     model = build_model_from_cfg(cfg.model.to_dict(), device=dev, seed=0)
@@ -202,8 +333,7 @@ def phase_flagship(dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    di.l_neg.launches = 0
-    di.dq.launches = 0
+    reset_launch_counts()
     step_ms, losses = [], []
     for _ in range(STEPS):
         t0 = time.perf_counter()
@@ -242,7 +372,49 @@ def phase_flagship(dev):
         step_ms=step_ms, peak_bytes=peak, launches=launches, state=state,
         neck_k_ms=neck_k_ms,
         losses=[{k: lv[k] for k in LOSS_KEYS + ['loss']} for lv in losses])
-    profile_step(step, batch)
+    profile('flagship_step', lambda: step(batch))
+    return launches
+
+
+def phase_flow_extraction():
+    """RAFT large through the extraction entry point, on synthetic frame
+    pairs (the second frame the first shifted, plus noise)."""
+    raft_fn = make_raft_fn(None, iters=RAFT_ITERS)
+    rng = np.random.default_rng(3)
+    h, w = EXTRACT_HW
+    batches = []
+    for _ in range(EXTRACT_BATCHES):
+        img1 = rng.integers(0, 256, (EXTRACT_PAIRS, h, w, 3), dtype=np.uint8)
+        img2 = np.clip(np.roll(img1, (2, -3), axis=(1, 2)).astype(np.int16) +
+                       rng.integers(-8, 9, img1.shape), 0, 255).astype(
+                           np.uint8)
+        batches.append((img1, img2))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_launch_counts()
+    batch_ms, flow_max = [], 0.0
+    for img1, img2 in batches:
+        t0 = time.perf_counter()
+        flow = raft_fn(img1, img2)       # numpy: the copy back synchronises
+        batch_ms.append((time.perf_counter() - t0) * 1e3)
+        if flow.shape != (EXTRACT_PAIRS, h, w, 2) or \
+                not np.isfinite(flow).all():
+            raise AssertionError(f'flow {flow.shape}, finite '
+                                 f'{np.isfinite(flow).all()}')
+        flow_max = max(flow_max, float(np.abs(flow).max()))
+    launches = cl.corr_lookup.launches
+    if launches != RAFT_ITERS * EXTRACT_BATCHES:
+        raise AssertionError(f'corr_lookup launches {launches} != '
+                             f'{RAFT_ITERS * EXTRACT_BATCHES}')
+    steady = batch_ms[1:]
+    log(phase='flow_extraction', batches=EXTRACT_BATCHES,
+        pairs=EXTRACT_PAIRS, hw=list(EXTRACT_HW), iters=RAFT_ITERS,
+        batch_ms=batch_ms,
+        pairs_per_s=EXTRACT_PAIRS * len(steady) / sum(steady) * 1e3,
+        peak_bytes=torch.cuda.max_memory_allocated(), launches=launches,
+        max_abs_flow=flow_max)
+    profile('flow_extraction', lambda: raft_fn(*batches[0]))
     return launches
 
 
@@ -252,6 +424,7 @@ def _kernel_class(name):
     n = name.lower()
     for cls, keys in (('decayed_infonce', ('l_neg_kernel', 'dq_partial',
                                            'dq_reduce')),
+                      ('corr_lookup', ('corr_lookup',)),
                       ('batch_norm', ('bn_fw', 'bn_bw', 'batch_norm',
                                       'batchnorm')),
                       ('upsample', ('upsample',)),
@@ -264,15 +437,15 @@ def _kernel_class(name):
     return 'elementwise_other'
 
 
-def profile_step(step, batch):
-    """Device time by kernel class over one more flagship step, and the
-    device's busy share of that step's wall time."""
-    from torch.profiler import ProfilerActivity, profile
+def profile(path, fn):
+    """Device time by kernel class over one more call of a path, and the
+    device's busy share of that call's wall time."""
+    from torch.profiler import ProfilerActivity
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(batch)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_class, top = {}, []
@@ -287,7 +460,7 @@ def profile_step(step, batch):
         top.append((us / 1e3, e.count, e.key[:90]))
     busy = sum(by_class.values())
     top.sort(reverse=True)
-    log(phase='profile', wall_ms=wall_ms, device_busy_ms=busy,
+    log(phase='profile', path=path, wall_ms=wall_ms, device_busy_ms=busy,
         device_idle_share=(1 - busy / wall_ms) if busy else None,
         by_class_ms=dict(sorted(by_class.items(), key=lambda kv: -kv[1])),
         top_kernels=[dict(ms=ms, count=n, name=k) for ms, n, k in top[:12]])
@@ -304,21 +477,33 @@ def main():
         seconds=time.perf_counter() - t0)
 
     rows = phase_kernels(dev)
+    corr = phase_corr_lookup(dev)
     phase_card_vs_cpu()
+    phase_raft_card_vs_cpu()
     launches = phase_flagship(dev)
+    corr_launches = phase_flow_extraction()
 
-    # the TPU functions that reach pl.pallas_call: _pallas_l_neg, _pallas_dq
+    # the TPU functions that reach pl.pallas_call, and the row of each
+    # kernel at the shape its main path gives it
+    rows.append(dict(corr['extraction_16x22'], name='corr_lookup'))
     replaces = {'decayed_infonce_l_neg': 'mscl_tpu/ops/decayed_infonce.py:62',
-                'decayed_infonce_dq': 'mscl_tpu/ops/decayed_infonce.py:86'}
+                'decayed_infonce_dq': 'mscl_tpu/ops/decayed_infonce.py:86',
+                'corr_lookup': 'mscl_tpu/ops/corr_lookup.py:336 '
+                               '(corr_lookup_pallas_v2) and '
+                               'mscl_tpu/ops/corr_lookup.py:198 '
+                               '(corr_lookup_pallas)'}
     counts = {'decayed_infonce_l_neg': launches['l_neg'],
-              'decayed_infonce_dq': launches['dq']}
+              'decayed_infonce_dq': launches['dq'],
+              'corr_lookup': corr_launches}
+    sources = {'decayed_infonce_l_neg': 'mscl_torch/csrc/decayed_infonce.cu',
+               'decayed_infonce_dq': 'mscl_torch/csrc/decayed_infonce.cu',
+               'corr_lookup': 'mscl_torch/csrc/corr_lookup.cu'}
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(smi)
     print(json.dumps({'kernels': [dict(
-        name=r['name'], route='cuda',
-        source='mscl_torch/csrc/decayed_infonce.cu',
+        name=r['name'], route='cuda', source=sources[r['name']],
         replaces=replaces[r['name']], launches=counts[r['name']],
         max_abs_err=r['max_abs_err'], ms=r['kernel_ms'],
         plain_ms=r['plain_ms'],

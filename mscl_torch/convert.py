@@ -16,7 +16,8 @@ time:
   (integers as int64).
 
 Leaves are read with ``np.asarray``, so JAX arrays work without importing
-JAX here.
+JAX here. RAFT has its own mapping onto the official RAFT names:
+``raft_jax_to_state_dict``.
 """
 from __future__ import annotations
 
@@ -57,24 +58,63 @@ def _leaf(collection: str, name: str, value: np.ndarray):
     return _LEAF[collection][name], value
 
 
+def _leaves(node, path=()):
+    """(path, leaf as numpy) of a nested dict, depth first."""
+    if isinstance(node, dict):
+        for k, v in node.items():
+            yield from _leaves(v, path + (k,))
+    else:
+        yield path, np.asarray(node)
+
+
 def jax_to_state_dict(variables: Dict) -> Dict[str, np.ndarray]:
     """{'params': ..., 'batch_stats': ..., 'moco_state': ...} (nested
     dicts, any subtree root) -> flat torch state_dict of numpy arrays."""
     out = {}
-
-    def walk(collection, node, path):
-        if isinstance(node, dict):
-            for k, v in node.items():
-                walk(collection, v, path + [k])
-            return
-        name, value = _leaf(collection, path[-1], np.asarray(node))
-        key = '.'.join([_segment(s) for s in path[:-1]] + [name])
-        out[key] = np.array(value, order='C')
-
     for collection, tree in variables.items():
         if collection not in ('params', 'batch_stats', 'moco_state'):
             raise KeyError(f'unknown collection {collection!r}')
-        walk(collection, tree, [])
+        for path, value in _leaves(tree):
+            name, value = _leaf(collection, path[-1], value)
+            key = '.'.join([_segment(s) for s in path[:-1]] + [name])
+            out[key] = np.array(value, order='C')
+    return out
+
+
+def _raft_keys(path):
+    """A flax RAFT module path -> the official state_dict prefixes it fills.
+    RAFT has a real conv named ``conv`` (``update_block/encoder/conv``), so
+    the r3d ``_segment`` rule (conv -> 0, bn -> 1) does not apply here."""
+    segs = []
+    for seg in path:
+        if seg in ('bn', 'gn'):             # _Norm's inner module
+            continue
+        m = re.fullmatch(r'(layer\d+)_(\d+)', seg)
+        segs.append(f'{m.group(1)}.{m.group(2)}' if m else
+                    {'downsample': 'downsample.0', 'mask_conv1': 'mask.0',
+                     'mask_conv2': 'mask.2'}.get(seg, seg))
+    keys = ['.'.join(segs)]
+    if segs[-1] == 'norm3':                 # the official downsample.1 too
+        keys.append('.'.join(segs[:-1] + ['downsample.1']))
+    return keys
+
+
+def raft_jax_to_state_dict(variables: Dict) -> Dict[str, np.ndarray]:
+    """Flax RAFT variables ({'params', 'batch_stats'}) -> the port's RAFT
+    state_dict (the official names): conv kernels HWIO -> OIHW, BN scale ->
+    weight, mean/var -> running_mean/var (with num_batches_tracked 0)."""
+    out = {}
+    for collection, tree in variables.items():
+        if collection not in ('params', 'batch_stats'):
+            raise KeyError(f'unknown collection {collection!r}')
+        for path, value in _leaves(tree):
+            name = _LEAF[collection][path[-1]]
+            if path[-1] == 'kernel':
+                value = np.transpose(value, (3, 2, 0, 1))
+            for key in _raft_keys(path[:-1]):
+                out[f'{key}.{name}'] = np.array(value, order='C')
+                if name == 'running_mean':
+                    out[f'{key}.num_batches_tracked'] = np.array(0, np.int64)
     return out
 
 

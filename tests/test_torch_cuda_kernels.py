@@ -1,11 +1,15 @@
-"""The decayed-InfoNCE CUDA kernels against their plain PyTorch versions on
-the card, at shapes that take every path of the kernels: more than 32 rows
-(the forward's row chunks, the backward's chunk loop), a width that does not
-divide 256, one K-tile and many. Skipped where there is no CUDA device."""
+"""The CUDA kernels against their plain PyTorch versions on the card.
+Decayed InfoNCE at shapes that take every path of its kernels: more than 32
+rows (the forward's row chunks, the backward's chunk loop), a width that
+does not divide 256, one K-tile and many. The correlation lookup at odd
+level sizes, C of 32, 100 and 256 (one, four and eight float4 chunks a
+lane), N of 1 and 8, and windows off every edge. Skipped where there is no
+CUDA device."""
 import numpy as np
 import pytest
 import torch
 
+from mscl_torch.ops import corr_lookup as cl
 from mscl_torch.ops import decayed_infonce as di
 
 pytestmark = pytest.mark.cuda
@@ -51,3 +55,31 @@ def test_in_place_queue_change_is_caught(dev):
     queue[:, :4] = 0
     with pytest.raises(RuntimeError, match='inplace'):
         out.sum().backward()
+
+
+@pytest.mark.parametrize('n,h,w,c,levels,radius', [
+    (8, 16, 22, 256, 4, 4), (1, 55, 128, 256, 4, 4), (2, 13, 19, 100, 3, 3),
+    (1, 9, 7, 32, 2, 1), (3, 6, 5, 64, 4, 0)])
+def test_corr_lookup_matches_plain(dev, n, h, w, c, levels, radius):
+    rng = np.random.default_rng(n * h * w + c)
+    f1, f2 = (torch.from_numpy(rng.normal(size=(n, h, w, c)).astype(
+        np.float32)).to(dev) for _ in range(2))
+    ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing='ij')
+    coords = np.stack([xs, ys], -1)[None].repeat(n, 0) + rng.normal(
+        scale=4.0, size=(n, h, w, 2))
+    # windows partly off the left, right, top and bottom edges, and far off
+    coords[:, 0, :, 1] = -radius - 0.5
+    coords[:, -1, :, 1] = h + 2.25
+    coords[:, :, 0, 0] = -1.75
+    coords[:, :, -1, 0] = w + radius - 1.5
+    coords[:, h // 2, w // 2] = (-1000.0, 1000.0)
+    coords = torch.from_numpy(coords.astype(np.float32)).to(dev)
+    pyramid = cl.corr_pyramid(f2, levels)
+    launches = cl.corr_lookup.launches
+    got = cl.corr_lookup(f1, pyramid, coords, levels, radius)
+    torch.cuda.synchronize()
+    assert cl.corr_lookup.launches == launches + 1
+    want = cl.corr_lookup_plain(f1, pyramid.levels, coords, radius)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert not got[:, h // 2, w // 2].any()
+    assert got.abs().max() > 0

@@ -1,7 +1,8 @@
-"""Guards on the PyTorch port: it imports neither JAX nor mscl_tpu, runs on
-the card unless told otherwise, never falls back from a kernel to its plain
-version on a CUDA tensor, and its copy of the flagship recipe agrees with
-the config file."""
+"""Guards on the PyTorch port: it imports neither JAX nor mscl_tpu (nor cv2
+or msgpack, which only the functions that read frames and pack blobs import),
+runs on the card unless told otherwise, never falls back from a kernel to its
+plain version on a CUDA tensor, and its copy of the flagship recipe agrees
+with the config file."""
 import os
 import subprocess
 import sys
@@ -11,6 +12,8 @@ import torch
 
 from mscl_torch.apis import (build_model_from_cfg, flagship_model_cfg,
                              load_flagship_config)
+from mscl_torch.apis.flow_extraction import make_raft_fn
+from mscl_torch.ops import corr_lookup as cl
 from mscl_torch.ops import cuda_build
 from mscl_torch.ops import decayed_infonce as di
 
@@ -25,7 +28,8 @@ def test_port_imports_no_jax_and_no_mscl_tpu():
         '    importlib.import_module(m.name)\n'
         'import chip_smoke\n'
         'bad = sorted(m for m in sys.modules if m.split(".")[0] in\n'
-        '             ("jax", "jaxlib", "flax", "optax", "mscl_tpu"))\n'
+        '             ("jax", "jaxlib", "flax", "optax", "mscl_tpu", "cv2",\n'
+        '                               "msgpack"))\n'
         'print(len([m for m in sys.modules if m.startswith("mscl_torch.")]))\n'
         'assert not bad, bad\n')
     out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
@@ -41,7 +45,14 @@ def test_build_model_needs_the_card_unless_told():
         build_model_from_cfg(flagship_model_cfg(K=64, dim=16))
 
 
-@pytest.mark.parametrize('fn', ['l_neg', 'dq'])
+def test_flow_extraction_needs_the_card_unless_told():
+    if torch.cuda.is_available():
+        pytest.skip('this box has a CUDA device')
+    with pytest.raises(RuntimeError, match='CUDA'):
+        make_raft_fn(None, iters=1)
+
+
+@pytest.mark.parametrize('fn', ['l_neg', 'dq', 'corr_lookup'])
 def test_cuda_path_raises_without_kernel(monkeypatch, fn):
     """A tensor taken for a CUDA one, with no kernel library to be had,
     raises; the plain version is never called in its place."""
@@ -51,18 +62,24 @@ def test_cuda_path_raises_without_kernel(monkeypatch, fn):
     def plain_called(*args):
         raise AssertionError('fell back to the plain version')
 
-    monkeypatch.setattr(di, '_on_cuda', lambda t: True)
-    monkeypatch.setattr(di, '_lib', lambda: cuda_build.load('missing'))
+    for mod in (di, cl):
+        monkeypatch.setattr(mod, '_on_cuda', lambda t: True)
+        monkeypatch.setattr(mod, '_lib', lambda: cuda_build.load('missing'))
     monkeypatch.setattr(cuda_build, 'load', no_library)
     monkeypatch.setattr(di, 'l_neg_plain', plain_called)
     monkeypatch.setattr(di, 'dq_plain', plain_called)
+    monkeypatch.setattr(cl, 'corr_lookup_plain', plain_called)
     queue, decay = torch.zeros(8, 256), torch.ones(256)
+    launches = di.l_neg.launches, di.dq.launches, cl.corr_lookup.launches
     with pytest.raises(RuntimeError, match='no kernel library'):
         if fn == 'l_neg':
             di.l_neg(torch.zeros(2, 8), queue, decay)
-        else:
+        elif fn == 'dq':
             di.dq(torch.zeros(2, 256), queue, decay)
-    assert di.l_neg.launches == 0 and di.dq.launches == 0
+        else:
+            cl.corr_lookup(*_corr_operands())
+    assert (di.l_neg.launches, di.dq.launches,
+            cl.corr_lookup.launches) == launches
 
 
 @pytest.mark.parametrize('case', ['q_width', 'g_width', 'device', 'dtype',
@@ -94,6 +111,49 @@ def test_cuda_path_refuses_what_the_kernel_cannot_take(monkeypatch, case):
             di.dq(g, queue, decay)
         else:
             di.l_neg(q, queue, decay)
+
+
+def _corr_operands(n=2, h=6, w=10, c=32):
+    return (torch.zeros(n, h, w, c), torch.zeros(n, h, w, c),
+            torch.zeros(n, h, w, 2), 2, 2)
+
+
+@pytest.mark.parametrize('case', ['f1_rank', 'coords_shape', 'c_ragged',
+                                  'c_wide', 'radius', 'levels', 'pyramid',
+                                  'device', 'dtype', 'strided', 'grad'])
+def test_corr_lookup_refuses_what_the_kernel_cannot_take(monkeypatch, case):
+    """Operands the lookup kernel would read out of bounds, misread or
+    leave without a gradient are refused before any launch."""
+    def no_launch():
+        raise AssertionError('reached the kernel library')
+
+    monkeypatch.setattr(cl, '_on_cuda', lambda t: True)
+    monkeypatch.setattr(cl, '_lib', no_launch)
+    f1, f2, coords, levels, radius = _corr_operands()
+    if case == 'f1_rank':
+        f1 = f1[0]
+    elif case == 'coords_shape':
+        coords = torch.zeros(2, 6, 10, 3)
+    elif case == 'c_ragged':
+        f1, f2 = torch.zeros(2, 6, 10, 30), torch.zeros(2, 6, 10, 30)
+    elif case == 'c_wide':
+        f1, f2 = torch.zeros(2, 6, 10, 260), torch.zeros(2, 6, 10, 260)
+    elif case == 'radius':
+        radius = cl.MAX_RADIUS + 1
+    elif case == 'levels':
+        f2 = cl.corr_pyramid(f2, 3)            # a pyramid of 3 levels, not 2
+    elif case == 'pyramid':
+        f2 = cl.corr_pyramid(torch.zeros(2, 6, 8, 32), levels)
+    elif case == 'device':
+        coords = torch.zeros(2, 6, 10, 2, device='meta')
+    elif case == 'dtype':
+        coords = coords.double()
+    elif case == 'strided':
+        f1 = torch.zeros(2, 6, 32, 10).transpose(2, 3)
+    else:
+        f1.requires_grad_(True)
+    with pytest.raises((ValueError, TypeError)):
+        cl.corr_lookup(f1, f2, coords, levels, radius)
 
 
 def test_flagship_copy_matches_config_file():
