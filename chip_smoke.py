@@ -15,31 +15,39 @@ the exit code is nonzero:
    128x176, at 1/8) and at RAFT's 440x1024 (N=1, 55x128), C=256, L=4, r=4,
    with coords the grid plus normal noise of scale 8; coords at -1000 must
    give exact zeros; time the kernel and its plain version with L2 flushed;
-4. hold the port on the card against the port on the CPU (kernels and
+4. the tensor-core fill probes (mxu_fill): each kernel against its plain
+   version and float64 at the first case of each of the tool's case lists
+   (M=3248; carry also at mt=1624), then timed at 132 steps with L2 flushed
+   beside its plain version (and, for bigdot, one batched torch.matmul);
+   then the tool's three case lists through its main() at its own steps,
+   and cuDNN's r3d_18 layer1 convolution as the yardstick;
+5. hold the port on the card against the port on the CPU (kernels and
    cuDNN against the plain versions): two train steps of a narrow
    MSCLWithAug, and RAFT (full width, 64x64 images, 3 iterations);
-5. drive the flagship MSCLWithAug r18 pretrain step (full width, K=65536,
+6. drive the flagship MSCLWithAug r18 pretrain step (full width, K=65536,
    IdentityAug, float32, batch 32) through build_model_from_cfg,
    build_optimizer and make_train_step for 3 steps, then profile one;
-6. drive flow extraction through make_raft_fn(None, iters=12) (RAFT large
+7. drive flow extraction through make_raft_fn(None, iters=12) (RAFT large
    at full width, random weights from a seed): 3 batches of 8 synthetic
    frame pairs at 128x171, then profile one;
-7. print the kernel table, the card's name and power limit, and the result.
+8. print the kernel table, the card's name and power limit, and the result.
 
-Every kernel launch counter is set to 0 just before each of the paths 5 and
-6 and read just after. It needs a CUDA device: without one it exits nonzero
-before printing any result.
+Every kernel launch counter is set to 0 just before each of the paths 6 and
+7 and the probe tool's run in 4, and read just after. It needs a CUDA
+device: without one it exits nonzero before printing any result.
 """
 from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from mscl_torch.apis import (MOCO_FREEZE, build_model_from_cfg,
                              flagship_batch, load_flagship_config,
@@ -52,10 +60,13 @@ from mscl_torch.models.recognizers import build_ema_fn
 from mscl_torch.ops import corr_lookup as cl
 from mscl_torch.ops import cuda_build
 from mscl_torch.ops import decayed_infonce as di
+from mscl_torch.ops import mxu_fill as mf
+from mscl_torch.tools import bench_mxu_fill as bm
 
 B, C, K = 32, 128, 65536
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12            # H100 SXM float32 outside tensor cores
+BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 tensor cores
 FWD_TOL = dict(rtol=1e-5, atol=1e-5)   # tests/test_ops.py forward
 DQ_TOL = dict(rtol=1e-4, atol=1e-4)    # tests/test_ops.py gradient
 # each kernel against float64, relative to its output's largest entry: f32
@@ -78,16 +89,29 @@ CORR_TOL = dict(rtol=1e-5, atol=1e-5)  # tests/test_ops.py atol; C=256 sums
 # other orders (and may take Winograd), so 100 times that
 RAFT_TOL = dict(rtol=1e-3, atol=1e-3)
 EXTRACT_PAIRS, EXTRACT_HW, EXTRACT_BATCHES, RAFT_ITERS = 8, (128, 171), 3, 12
+# fill probes: a block for each 64-row tile and step, 6,732 blocks at 132
+# steps, enough to fill 132 SMs; the tool's first case of each probe
+MXU_STEPS = 132
+MXU_TOL = dict(rtol=1e-2, atol=1e-2)   # one bf16 rounding, sums reordered
+MXU_F64_REL = 8e-3                     # one bf16 rounding (2^-7) of the max
+MXU_CLI_ITERS = 3                      # the tool's default
+MXU_ROWS = (('mxu_fill_probe', '', 0), ('mxu_fill_carry', 'carry', 0),
+            ('mxu_fill_bigdot', 'kchain', 2), ('mxu_fill_imcat', 'kchain', 4),
+            ('mxu_fill_paircat', 'kchain', 6))
+MXU_REPLACES = {'probe': 34, 'carry': 72, 'bigdot': 117, 'imcat': 151,
+                'paircat': 195}
+# r3d_18 layer1: (32, 64, 8, 56, 56) -> 64, 3x3x3, padding 1
+CONV_SHAPE, CONV_FLOP = (32, 64, 8, 56, 56), 2 * 32 * 8 * 56 * 56 * 64 * 1728
 
 
 def log(**kw):
     print(json.dumps(kw), flush=True)
 
 
-def time_ms(fn, iters=20, flush=None):
+def time_ms(fn, iters=20, flush=None, warmup=3):
     """Mean device time of fn over iters launches (CUDA events around each
     launch), after a warm-up; with flush, L2 is overwritten before each."""
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     total = 0.0
     for _ in range(iters):
@@ -103,9 +127,9 @@ def time_ms(fn, iters=20, flush=None):
     return total / iters
 
 
-def bound(bytes_moved, flops):
+def bound(bytes_moved, flops, flop_per_s=FP32_FLOP_PER_S):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_per_s * 1e3
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
@@ -181,6 +205,8 @@ def phase_kernels(dev):
 
 def reset_launch_counts():
     di.l_neg.launches = di.dq.launches = cl.corr_lookup.launches = 0
+    for fn in mf.ENTRY_POINTS.values():
+        fn.launches = 0
 
 
 def corr_inputs(dev, n, h, w, seed):
@@ -265,6 +291,129 @@ def phase_corr_lookup(dev):
         log(phase='corr_lookup_kernel', **row)
         rows[name] = row
     return rows
+
+
+def mxu_check(dev, case):
+    """A probe's kernel at MXU_STEPS steps against its plain version, and
+    both against float64, at the tool's M and inputs."""
+    x, w = bm.inputs(case, dev)
+    shape = dict(m=bm.M, **case.shape)
+    got = bm.call(case, x, w, steps=MXU_STEPS)
+    want = mf.PLAIN_VERSIONS[case.kind](x, w, **shape)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **MXU_TOL)
+    ref = mf.reference(case.kind, x, w, **shape)
+    limit = MXU_F64_REL * ref.abs().max().item()
+    errs = {}
+    for label, out in (('f64_err', got), ('plain_f64_err', want)):
+        errs[label] = (out.double() - ref).abs().max().item()
+        if not errs[label] <= limit:
+            raise AssertionError(f'{case.name}: {label} {errs[label]} > '
+                                 f'{limit}')
+    return x, w, dict(errs, f64_limit=limit, max_abs_err=(
+        got.float() - want.float()).abs().max().item())
+
+
+def bigdot_library(x, w, flush):
+    """One torch.matmul computing the MXU_STEPS products of a bigdot launch
+    on a stride-0 batch of x and w, timed, and the device kernels it runs."""
+    from torch.profiler import ProfilerActivity
+    xb, wb = x.expand(MXU_STEPS, *x.shape), w.expand(MXU_STEPS, *w.shape)
+    ms = time_ms(lambda: torch.matmul(xb, wb), flush=flush)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.matmul(xb, wb)
+        torch.cuda.synchronize()
+    kernels = sorted({e.key[:90] for e in prof.key_averages() if getattr(
+        e, 'device_type', None) == torch.autograd.DeviceType.CUDA})
+    return ms, kernels
+
+
+def ptxas_short(kernel):
+    m = re.search(r'([a-z][a-z_]*_kernel)ILi(\d+)EL[ib](\d+)E', kernel)
+    return f'{m[1]}<{m[2]}, {m[3]}>' if m else kernel
+
+
+def phase_mxu_fill(dev):
+    """Each fill-probe kernel against its plain version and float64 at the
+    first case of its case list, then timed at MXU_STEPS steps with L2
+    flushed beside its plain version (and bigdot beside torch.matmul)."""
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    rows = {}
+    for name, mode, index in MXU_ROWS:
+        case = bm.cases(mode)[index]
+        x, w, errs = mxu_check(dev, case)
+        flops = bm.flops_per_pass(case) * MXU_STEPS
+        nbytes = 2 * (x.numel() + w.numel() + bm.M * case.shape['n'])
+        bound_ms, bound_by = bound(nbytes, flops, BF16_FLOP_PER_S)
+        kernel_ms = time_ms(lambda: bm.call(case, x, w, steps=MXU_STEPS),
+                            flush=flush)
+        plain_ms = time_ms(lambda: mf.PLAIN_VERSIONS[case.kind](
+            x, w, m=bm.M, steps=MXU_STEPS, **case.shape), iters=2, warmup=1,
+            flush=flush)
+        library_ms, library_kernels = (bigdot_library(x, w, flush)
+                                       if case.kind == 'bigdot' else
+                                       (None, None))
+        row = dict(name=name, case=case.name.strip(), steps=MXU_STEPS,
+                   kernel_ms=kernel_ms, tflops=flops / kernel_ms / 1e9,
+                   peak_share=bound_ms / kernel_ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   library_ms=library_ms, library_kernels=library_kernels,
+                   **errs)
+        log(phase='mxu_fill_kernel', **row)
+        rows[name] = row
+    # carry at mt=1624, whose accumulator spills by construction
+    case = bm.cases('carry')[4]
+    x, w, errs = mxu_check(dev, case)
+    kernel_ms = time_ms(lambda: bm.call(case, x, w, steps=MXU_STEPS),
+                        iters=5, flush=flush)
+    log(phase='mxu_fill_check', case=case.name.strip(), steps=MXU_STEPS,
+        kernel_ms=kernel_ms, tflops=bm.flops_per_pass(case) * MXU_STEPS /
+        kernel_ms / 1e9, **errs)
+    log(phase='mxu_fill_ptxas', kernels=[
+        dict(v, kernel=ptxas_short(k)) for k, v in
+        cuda_build.ptxas_report('mxu_fill').items()])
+    return rows
+
+
+def phase_mxu_fill_tool():
+    """The probe tool's three case lists through its main(), at its own
+    steps and iters; returns each kernel's launches in that run."""
+    reset_launch_counts()
+    results = []
+    for flags in ([], ['--carry'], ['--kchain']):
+        results += bm.main(flags + ['--iters', str(MXU_CLI_ITERS)])
+    launches = {kind: fn.launches for kind, fn in mf.ENTRY_POINTS.items()}
+    want = dict.fromkeys(mf.ENTRY_POINTS, 0)
+    for mode in ('', 'carry', 'kchain'):
+        for case in bm.cases(mode):
+            want[case.kind] += MXU_CLI_ITERS + 1
+    for r in results:
+        log(phase='mxu_fill_tool', **r)
+    if launches != want:
+        raise AssertionError(f'probe launches {launches} != {want}')
+    return launches
+
+
+def phase_conv_yardstick(dev):
+    """cuDNN's r3d_18 layer1 convolution at the flagship shape, in bf16
+    channels-last-3d and in float32 with TF32 off (as the step runs it)."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn(CONV_SHAPE, device=dev, generator=g)
+    wt = 0.05 * torch.randn((64, 64, 3, 3, 3), device=dev, generator=g)
+    saved = torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = False
+        fp32_ms = time_ms(lambda: F.conv3d(x, wt, padding=1), iters=10)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    xb, wb = (t.to(dtype=torch.bfloat16, memory_format=torch.channels_last_3d)
+              for t in (x, wt))
+    bf16_ms = time_ms(lambda: F.conv3d(xb, wb, padding=1), iters=10)
+    log(phase='conv_yardstick', shape=list(CONV_SHAPE), out_channels=64,
+        gflop=CONV_FLOP / 1e9, bf16_channels_last_ms=bf16_ms,
+        bf16_tflops=CONV_FLOP / bf16_ms / 1e9, fp32_no_tf32_ms=fp32_ms,
+        fp32_tflops=CONV_FLOP / fp32_ms / 1e9)
 
 
 def phase_card_vs_cpu():
@@ -478,6 +627,9 @@ def main():
 
     rows = phase_kernels(dev)
     corr = phase_corr_lookup(dev)
+    mxu = phase_mxu_fill(dev)
+    mxu_launches = phase_mxu_fill_tool()
+    phase_conv_yardstick(dev)
     phase_card_vs_cpu()
     phase_raft_card_vs_cpu()
     launches = phase_flagship(dev)
@@ -498,6 +650,13 @@ def main():
     sources = {'decayed_infonce_l_neg': 'mscl_torch/csrc/decayed_infonce.cu',
                'decayed_infonce_dq': 'mscl_torch/csrc/decayed_infonce.cu',
                'corr_lookup': 'mscl_torch/csrc/corr_lookup.cu'}
+    for name, _, _ in MXU_ROWS:
+        kind = name[len('mxu_fill_'):]
+        rows.append(mxu[name])
+        replaces[name] = ('tools/analysis/bench_mxu_fill.py:'
+                          f'{MXU_REPLACES[kind]}')
+        counts[name] = mxu_launches[kind]
+        sources[name] = 'mscl_torch/csrc/mxu_fill.cu'
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True).stdout.strip()

@@ -3,7 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface. It is compiled by
 ``nvcc`` for ``sm_90a`` into ``build/<name>-<hash>.so`` at the root of the
 checkout (the hash is of the source, so an edited source rebuilds) and
-loaded with ``ctypes``. Nothing is compiled or loaded at import time.
+loaded with ``ctypes``; ptxas's report of each kernel's registers, shared
+memory and spills goes to ``build/<name>-<hash>.log``. Nothing is compiled
+or loaded at import time.
 """
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -19,7 +22,7 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-              '-shared', '-Xcompiler', '-fPIC')
+              '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 
 def nvcc() -> str:
@@ -56,6 +59,7 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
             log, _ = proc.communicate()
             if proc.returncode != 0:
                 raise RuntimeError(f'nvcc failed for {out.name}:\n{log}')
+            out.with_suffix('.log').write_text(log)
             os.replace(tmp, out)
     finally:
         for proc, _, _ in jobs:
@@ -63,6 +67,28 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
                 proc.kill()
                 proc.wait()
     return {n: library_path(n) for n in names}
+
+
+def ptxas_report(name: str) -> Dict[str, dict]:
+    """Registers, stack frame and spill bytes of each kernel of a built
+    source, by mangled name, from its ptxas log (empty if the library was
+    built without one)."""
+    log = library_path(name).with_suffix('.log')
+    text = log.read_text() if log.exists() else ''
+    report = {}
+    for entry in re.split(r"Compiling entry function '", text)[1:]:
+        kernel = entry.split("'", 1)[0]
+        info = dict(kernel=kernel)
+        frame = re.search(r'(\d+) bytes stack frame, (\d+) bytes spill '
+                          r'stores, (\d+) bytes spill loads', entry)
+        regs = re.search(r'Used (\d+) registers', entry)
+        if frame:
+            info.update(stack_bytes=int(frame[1]), spill_store_bytes=int(
+                frame[2]), spill_load_bytes=int(frame[3]))
+        if regs:
+            info['registers'] = int(regs[1])
+        report[kernel] = info
+    return report
 
 
 def all_sources() -> list:

@@ -3,14 +3,17 @@ Decayed InfoNCE at shapes that take every path of its kernels: more than 32
 rows (the forward's row chunks, the backward's chunk loop), a width that
 does not divide 256, one K-tile and many. The correlation lookup at odd
 level sizes, C of 32, 100 and 256 (one, four and eight float4 chunks a
-lane), N of 1 and 8, and windows off every edge. Skipped where there is no
-CUDA device."""
+lane), N of 1 and 8, and windows off every edge. The five tensor-core fill
+probes at M=3248 (ragged against every tile) and M=40, K of 64 to 1792, N of
+64 and 128, carry's mt of 112, 464 and 1624 (spilled, and not a multiple of
+16), and 1 and 8 steps. Skipped where there is no CUDA device."""
 import numpy as np
 import pytest
 import torch
 
 from mscl_torch.ops import corr_lookup as cl
 from mscl_torch.ops import decayed_infonce as di
+from mscl_torch.ops import mxu_fill as mf
 
 pytestmark = pytest.mark.cuda
 
@@ -83,3 +86,43 @@ def test_corr_lookup_matches_plain(dev, n, h, w, c, levels, radius):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     assert not got[:, h // 2, w // 2].any()
     assert got.abs().max() > 0
+
+
+# kind, m, shape parameters, steps
+MXU_CASES = [
+    ('probe', 3248, dict(k=64, n=64, inner=27), 1),
+    ('probe', 3248, dict(k=128, n=64, inner=27), 8),
+    ('probe', 40, dict(k=256, n=128, inner=27), 8),
+    ('probe', 3248, dict(k=256, n=128, inner=27), 1),
+    ('carry', 3248, dict(mt=112, k=64, n=64, inner=27), 1),
+    ('carry', 3248, dict(mt=464, k=128, n=64, inner=27), 8),
+    ('carry', 3248, dict(mt=1624, k=128, n=64, inner=27), 1),
+    ('carry', 40, dict(mt=40, k=256, n=128, inner=27), 8),
+    ('bigdot', 3248, dict(k=1792, n=64), 1),
+    ('bigdot', 40, dict(k=448, n=128), 8),
+    ('bigdot', 3248, dict(k=896, n=128), 8),
+    ('imcat', 3248, dict(k=64, n=64, inner=28), 1),
+    ('imcat', 40, dict(k=64, n=128, inner=28), 8),
+    ('imcat', 3248, dict(k=128, n=128, inner=16), 1),
+    ('paircat', 3248, dict(k=64, n=64, inner=28), 1),
+    ('paircat', 40, dict(k=128, n=128, inner=28), 8),
+    ('paircat', 3248, dict(k=64, n=128, inner=28), 8),
+]
+
+
+@pytest.mark.parametrize('kind,m,shape,steps', MXU_CASES)
+def test_mxu_fill_matches_plain(dev, kind, m, shape, steps):
+    x_shape, w_shape = mf._shapes(kind, m, **shape)
+    g = torch.Generator().manual_seed(m + shape['k'] + shape['n'])
+    x = torch.randn(x_shape, generator=g).to(dev, torch.bfloat16)
+    w = (0.05 * torch.randn(w_shape, generator=g)).to(dev, torch.bfloat16)
+    entry = mf.ENTRY_POINTS[kind]
+    launches = entry.launches
+    got = entry(x, w, m=m, steps=steps, **shape)
+    torch.cuda.synchronize()
+    assert entry.launches == launches + 1
+    want = mf.PLAIN_VERSIONS[kind](x, w, m=m, **shape)
+    # one bf16 rounding of a float32 sum taken in another order
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=1e-2)
+    assert got.float().abs().max() > 0.1

@@ -16,6 +16,7 @@ from mscl_torch.apis.flow_extraction import make_raft_fn
 from mscl_torch.ops import corr_lookup as cl
 from mscl_torch.ops import cuda_build
 from mscl_torch.ops import decayed_infonce as di
+from mscl_torch.ops import mxu_fill as mf
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -31,7 +32,9 @@ def test_port_imports_no_jax_and_no_mscl_tpu():
         '             ("jax", "jaxlib", "flax", "optax", "mscl_tpu", "cv2",\n'
         '                               "msgpack"))\n'
         'print(len([m for m in sys.modules if m.startswith("mscl_torch.")]))\n'
-        'assert not bad, bad\n')
+        'assert not bad, bad\n'
+        'assert {"mscl_torch.tools.bench_mxu_fill", "mscl_torch.ops.mxu_fill"}'
+        ' <= set(sys.modules)\n')
     out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
@@ -52,7 +55,9 @@ def test_flow_extraction_needs_the_card_unless_told():
         make_raft_fn(None, iters=1)
 
 
-@pytest.mark.parametrize('fn', ['l_neg', 'dq', 'corr_lookup'])
+@pytest.mark.parametrize('fn', ['l_neg', 'dq', 'corr_lookup', 'probe',
+                                'probe_carry', 'probe_bigdot', 'probe_imcat',
+                                'probe_paircat'])
 def test_cuda_path_raises_without_kernel(monkeypatch, fn):
     """A tensor taken for a CUDA one, with no kernel library to be had,
     raises; the plain version is never called in its place."""
@@ -62,24 +67,30 @@ def test_cuda_path_raises_without_kernel(monkeypatch, fn):
     def plain_called(*args):
         raise AssertionError('fell back to the plain version')
 
-    for mod in (di, cl):
+    for mod in (di, cl, mf):
         monkeypatch.setattr(mod, '_on_cuda', lambda t: True)
         monkeypatch.setattr(mod, '_lib', lambda: cuda_build.load('missing'))
     monkeypatch.setattr(cuda_build, 'load', no_library)
     monkeypatch.setattr(di, 'l_neg_plain', plain_called)
     monkeypatch.setattr(di, 'dq_plain', plain_called)
     monkeypatch.setattr(cl, 'corr_lookup_plain', plain_called)
+    for plain in mf.PLAIN_VERSIONS.values():
+        monkeypatch.setattr(mf, plain.__name__, plain_called)
     queue, decay = torch.zeros(8, 256), torch.ones(256)
-    launches = di.l_neg.launches, di.dq.launches, cl.corr_lookup.launches
+    counters = [di.l_neg, di.dq, cl.corr_lookup, *mf.ENTRY_POINTS.values()]
+    launches = [f.launches for f in counters]
     with pytest.raises(RuntimeError, match='no kernel library'):
         if fn == 'l_neg':
             di.l_neg(torch.zeros(2, 8), queue, decay)
         elif fn == 'dq':
             di.dq(torch.zeros(2, 256), queue, decay)
-        else:
+        elif fn == 'corr_lookup':
             cl.corr_lookup(*_corr_operands())
-    assert (di.l_neg.launches, di.dq.launches,
-            cl.corr_lookup.launches) == launches
+        else:
+            kind = 'probe' if fn == 'probe' else fn[len('probe_'):]
+            x, w, shape = _probe_operands(kind)
+            getattr(mf, fn)(x, w, **shape)
+    assert [f.launches for f in counters] == launches
 
 
 @pytest.mark.parametrize('case', ['q_width', 'g_width', 'device', 'dtype',
@@ -154,6 +165,68 @@ def test_corr_lookup_refuses_what_the_kernel_cannot_take(monkeypatch, case):
         f1.requires_grad_(True)
     with pytest.raises((ValueError, TypeError)):
         cl.corr_lookup(f1, f2, coords, levels, radius)
+
+
+def _probe_operands(kind, m=40, k=64, n=64, inner=4, mt=20):
+    """bf16 zeros of a probe's shapes, and its shape parameters."""
+    shape = dict(m=m, k=k, n=n)
+    if kind != 'bigdot':
+        shape['inner'] = inner
+    if kind == 'carry':
+        shape['mt'] = mt
+    x, w = mf._shapes(kind, **shape)
+    return (torch.zeros(x, dtype=torch.bfloat16),
+            torch.zeros(w, dtype=torch.bfloat16), shape)
+
+
+@pytest.mark.parametrize('case', [
+    'carry_m_mt', 'imcat_odd_inner', 'paircat_odd_inner', 'imcat_k',
+    'probe_x_shape', 'paircat_w_shape', 'n', 'probe_depth', 'paircat_depth',
+    'carry_mt_max', 'bigdot_k', 'imcat_kcat', 'imcat_depth', 'steps',
+    'device', 'dtype',
+    'strided', 'unaligned'])
+def test_mxu_fill_refuses_what_the_kernel_cannot_take(monkeypatch, case):
+    """What the JAX probes assert (m % mt, an odd inner for imcat and
+    paircat, imcat's k not a multiple of 64) and what the kernels cannot
+    take are refused before any launch."""
+    def no_launch():
+        raise AssertionError('reached the kernel library')
+
+    monkeypatch.setattr(mf, '_on_cuda', lambda t: True)
+    monkeypatch.setattr(mf, '_lib', no_launch)
+    kind = case.split('_')[0] if case.split('_')[0] in mf.ENTRY_POINTS \
+        else 'probe'
+    size = dict(n=dict(n=96), probe_depth=dict(k=272),
+                paircat_depth=dict(k=144), carry_mt_max=dict(m=4096, mt=4096),
+                bigdot_k=dict(k=96), imcat_kcat=dict(k=128, inner=18),
+                imcat_depth=dict(k=320, inner=2)).get(
+                    case, {})
+    x, w, shape = _probe_operands(kind, **size)
+    steps = 1
+    if case.endswith('odd_inner'):
+        shape['inner'] = 3
+    elif case == 'carry_m_mt':
+        shape['mt'] = 16                                    # 40 % 16 != 0
+    elif case == 'imcat_k':
+        x = torch.zeros(48, 32, dtype=torch.bfloat16)
+        w = torch.zeros(4 * 32, 64, dtype=torch.bfloat16)
+        shape['k'] = 32
+    elif case == 'probe_x_shape':
+        x = torch.zeros(40, 64, dtype=torch.bfloat16)       # no halo rows
+    elif case == 'paircat_w_shape':
+        w = w.reshape(4, 64, 64)                            # taps, not pairs
+    elif case == 'steps':
+        steps = 0
+    elif case == 'device':
+        w = torch.zeros(w.shape, dtype=torch.bfloat16, device='meta')
+    elif case == 'dtype':
+        x = x.float()
+    elif case == 'strided':
+        x = torch.zeros(x.shape[::-1], dtype=torch.bfloat16).T
+    elif case == 'unaligned':
+        x = torch.zeros(x.numel() + 1, dtype=torch.bfloat16)[1:].view(x.shape)
+    with pytest.raises((ValueError, TypeError)):
+        mf.ENTRY_POINTS[kind](x, w, steps=steps, **shape)
 
 
 def test_flagship_copy_matches_config_file():
