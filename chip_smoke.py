@@ -8,8 +8,10 @@ the exit code is nonzero:
 1. build every kernel under mscl_torch/csrc with nvcc (sm_90a), in parallel;
 2. hold the decayed-InfoNCE kernels against their plain PyTorch versions and
    float64 at the flagship shapes (B=32, C=128, K=65536, float32) and time
-   them, their plain versions and the one PyTorch call that computes the same
-   product;
+   them in turns with the one PyTorch call that computes the same product
+   (kernel, library, library, kernel), then their plain versions, and one
+   plain read of the queue as the floor of their bytes; log each kernel's
+   device time in one profiled call, their ptxas report and launch shape;
 3. hold the correlation-lookup kernel against its plain version and float64
    at the flow-extraction shape (N=8, 16x22: 128x171 frames padded to
    128x176, at 1/8) and at RAFT's 440x1024 (N=1, 55x128), C=256, L=4, r=4,
@@ -102,6 +104,7 @@ MXU_REPLACES = {'probe': 34, 'carry': 72, 'bigdot': 117, 'imcat': 151,
                 'paircat': 195}
 # r3d_18 layer1: (32, 64, 8, 56, 56) -> 64, 3x3x3, padding 1
 CONV_SHAPE, CONV_FLOP = (32, 64, 8, 56, 56), 2 * 32 * 8 * 56 * 56 * 64 * 1728
+SPIN_CYCLES = 200_000              # about 0.1 ms of the card's clock
 
 
 def log(**kw):
@@ -110,13 +113,17 @@ def log(**kw):
 
 def time_ms(fn, iters=20, flush=None, warmup=3):
     """Mean device time of fn over iters launches (CUDA events around each
-    launch), after a warm-up; with flush, L2 is overwritten before each."""
+    launch), after a warm-up; with flush, L2 is overwritten before each.
+    The device spins for about 0.1 ms before the start event, so the host
+    has enqueued fn before the event is reached: the host's own time for
+    the call (tens of microseconds in Python) stays out of the window."""
     for _ in range(warmup):
         fn()
     total = 0.0
     for _ in range(iters):
         if flush is not None:
             flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -192,15 +199,49 @@ def phase_kernels(dev):
              (qg.grad - want_dq).abs().max().item(),
              f4 * (B * K + C * K + K + B * C))):
         bound_ms, bound_by = bound(nbytes, 2 * B * C * K + C * K)
+        # kernel and library in turns on this card: kernel, library,
+        # library, kernel, after one untimed round of each (the first
+        # timed turn ran slow without it); each the mean of its two turns
+        for fn in (kernel, library):
+            time_ms(fn, iters=5, flush=flush)
+        turns = [time_ms(fn, flush=flush)
+                 for fn in (kernel, library, library, kernel)]
         row = dict(name=name, max_abs_err=err,
-                   kernel_ms=time_ms(kernel, flush=flush),
-                   plain_ms=time_ms(plain, flush=flush),
-                   library_ms=time_ms(library, flush=flush),
+                   kernel_ms=(turns[0] + turns[3]) / 2,
+                   library_ms=(turns[1] + turns[2]) / 2,
+                   turns_ms=turns, plain_ms=time_ms(plain, flush=flush),
                    bound_ms=bound_ms, bound_by=bound_by,
                    launches_per_step=7)
+        row['bound_share'] = bound_ms / row['kernel_ms']
+        row['device_ms_by_kernel'] = device_ms_by_kernel(kernel, flush)
         log(phase='kernel', **row)
         rows.append(row)
+    # what one plain read of the queue takes under the same flush: the
+    # practical floor of both kernels' bytes on this card
+    log(phase='queue_read', bytes=f4 * C * K,
+        ms=time_ms(lambda: queue.sum(), flush=flush))
+    log(phase='decayed_infonce_ptxas', launch=di.launch_info(C), kernels=[
+        dict(v, kernel=ptxas_short(k)) for k, v in
+        cuda_build.ptxas_report('decayed_infonce').items()])
     return rows
+
+
+def device_ms_by_kernel(fn, flush):
+    """Device time of each kernel that one call of fn runs, L2 flushed."""
+    from torch.profiler import ProfilerActivity
+    flush.zero_()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {ptxas_short(e.key): device_us(e) / 1e3 for e in prof.key_averages()
+            if getattr(e, 'device_type', None) ==
+            torch.autograd.DeviceType.CUDA}
+
+
+def device_us(event):
+    us = getattr(event, 'self_device_time_total', None)
+    return getattr(event, 'self_cuda_time_total', 0.0) if us is None else us
 
 
 def reset_launch_counts():
@@ -330,8 +371,13 @@ def bigdot_library(x, w, flush):
 
 
 def ptxas_short(kernel):
-    m = re.search(r'([a-z][a-z_]*_kernel)ILi(\d+)EL[ib](\d+)E', kernel)
-    return f'{m[1]}<{m[2]}, {m[3]}>' if m else kernel
+    """A kernel's mangled name as name<template arguments>."""
+    m = re.search(r'([a-z][a-z_]*_kernel)((?:IL[ib]\d+E(?:L[ib]\d+E)*E)?)',
+                  kernel)
+    if not m:
+        return kernel
+    args = re.findall(r'L[ib](\d+)E', m[2])
+    return f'{m[1]}<{", ".join(args)}>' if args else m[1]
 
 
 def phase_mxu_fill(dev):
@@ -601,9 +647,7 @@ def profile(path, fn):
     for e in prof.key_averages():
         if getattr(e, 'device_type', None) != torch.autograd.DeviceType.CUDA:
             continue
-        us = getattr(e, 'self_device_time_total', None)
-        if us is None:
-            us = getattr(e, 'self_cuda_time_total', 0.0)
+        us = device_us(e)
         cls = _kernel_class(e.key)
         by_class[cls] = by_class.get(cls, 0.0) + us / 1e3
         top.append((us / 1e3, e.count, e.key[:90]))

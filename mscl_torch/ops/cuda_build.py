@@ -70,9 +70,9 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
 
 
 def ptxas_report(name: str) -> Dict[str, dict]:
-    """Registers, stack frame and spill bytes of each kernel of a built
-    source, by mangled name, from its ptxas log (empty if the library was
-    built without one)."""
+    """Registers, static shared memory, stack frame and spill bytes of each
+    kernel of a built source, by mangled name, from its ptxas log (empty if
+    the library was built without one)."""
     log = library_path(name).with_suffix('.log')
     text = log.read_text() if log.exists() else ''
     report = {}
@@ -82,11 +82,13 @@ def ptxas_report(name: str) -> Dict[str, dict]:
         frame = re.search(r'(\d+) bytes stack frame, (\d+) bytes spill '
                           r'stores, (\d+) bytes spill loads', entry)
         regs = re.search(r'Used (\d+) registers', entry)
+        smem = re.search(r'(\d+) bytes smem', entry)
         if frame:
             info.update(stack_bytes=int(frame[1]), spill_store_bytes=int(
                 frame[2]), spill_load_bytes=int(frame[3]))
         if regs:
             info['registers'] = int(regs[1])
+        info['static_smem_bytes'] = int(smem[1]) if smem else 0
         report[kernel] = info
     return report
 

@@ -21,8 +21,14 @@ import torch
 
 from . import cuda_build
 
-FWD_TILE_K = 128           # forward K-tile: K=65536 gives 512 blocks
-DQ_TILE_K = 512            # backward split-K slab: 128 partial (B, C) sums
+FWD_TILE_K = 128           # K-tile of both kernels: K=65536 gives 512 blocks
+# K granularity the backward has always checked, kept so that both wrappers
+# take the same K as before; its kernel splits K into runs of whole
+# FWD_TILE_K tiles, DQ_SLABS of them at most
+DQ_TILE_K = 512
+# backward split-K slabs: a constant, not the card's SM count, so the
+# order of dq's sum, and so its bits, are the same on any card
+DQ_SLABS = 256
 MAX_C = 256                # widest feature the kernels' shared tiles take
 
 
@@ -82,12 +88,11 @@ def _on_cuda(t: torch.Tensor) -> bool:
     return t.is_cuda
 
 
-def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
-
-
 def _stream(device):
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    """PyTorch's current stream on device, as the raw handle (the public
+    ``torch.cuda.current_stream`` builds a Stream object, several
+    microseconds of host time a launch)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 @functools.lru_cache(maxsize=None)
@@ -98,7 +103,23 @@ def _lib():
     lib.decayed_infonce_l_neg.restype = i
     lib.decayed_infonce_dq.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.decayed_infonce_dq.restype = i
+    lib.decayed_infonce_launch_info.argtypes = [i, i, p, p, p]
+    lib.decayed_infonce_launch_info.restype = i
     return lib
+
+
+def launch_info(c: int) -> dict:
+    """Dynamic shared memory, threads a block and blocks resident on one SM
+    of the current CUDA device, for each kernel at width c."""
+    info = {}
+    for name, backward in (('l_neg', 0), ('dq_partial', 1)):
+        vals = [ctypes.c_int() for _ in range(3)]
+        _raise_on(_lib().decayed_infonce_launch_info(
+            c, backward, *(ctypes.byref(v) for v in vals)),
+            'decayed_infonce_launch_info')
+        info[name] = dict(zip(('smem_bytes', 'threads', 'blocks_per_sm'),
+                              (v.value for v in vals)))
+    return info
 
 
 def _raise_on(err, what):
@@ -116,8 +137,8 @@ def l_neg(q: torch.Tensor, queue: torch.Tensor,
     b, c, k = _check('l_neg', q, 'C', queue, decay)
     out = torch.empty((b, k), device=q.device, dtype=torch.float32)
     err = _lib().decayed_infonce_l_neg(
-        _ptr(q), _ptr(queue), _ptr(decay), _ptr(out), b, c, k, tile,
-        _stream(q.device))
+        q.data_ptr(), queue.data_ptr(), decay.data_ptr(), out.data_ptr(), b,
+        c, k, tile, _stream(q.device))
     _raise_on(err, 'decayed_infonce_l_neg')
     l_neg.launches += 1
     return out
@@ -126,17 +147,18 @@ def l_neg(q: torch.Tensor, queue: torch.Tensor,
 def dq(g: torch.Tensor, queue: torch.Tensor,
        decay: torch.Tensor) -> torch.Tensor:
     """(B,K) @ ((C,K) * (K,))^T -> (B,C): split-K kernel on CUDA."""
-    _, tile = _tiles('dq', queue.shape[1])
+    _tiles('dq', queue.shape[1])
     if not _on_cuda(g):
         return dq_plain(g, queue, decay)
     g = g.contiguous()
     b, c, k = _check('dq', g, 'K', queue, decay)
-    partial = torch.empty((k // tile, b, c), device=g.device,
+    slabs = min(DQ_SLABS, -(-k // FWD_TILE_K))
+    partial = torch.empty((slabs, b, c), device=g.device,
                           dtype=torch.float32)
     out = torch.empty((b, c), device=g.device, dtype=torch.float32)
     err = _lib().decayed_infonce_dq(
-        _ptr(g), _ptr(queue), _ptr(decay), _ptr(partial), _ptr(out), b, c,
-        k, tile, _stream(g.device))
+        g.data_ptr(), queue.data_ptr(), decay.data_ptr(), partial.data_ptr(),
+        out.data_ptr(), b, c, k, slabs, _stream(g.device))
     _raise_on(err, 'decayed_infonce_dq')
     dq.launches += 1
     return out

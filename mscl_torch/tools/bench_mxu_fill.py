@@ -76,7 +76,7 @@ def default_steps(case):
     return max(8, int(FLOP_PER_CASE / flops_per_pass(case)))
 
 
-def inputs(case, device='cpu', seed=0):
+def inputs(case, device, seed=0):
     """x and w of a case: normal bf16 from a generator seeded with seed,
     the weights scaled by 0.05."""
     x_shape, w_shape = mf._shapes(case.kind, M, **case.shape)

@@ -1,7 +1,11 @@
 """The CUDA kernels against their plain PyTorch versions on the card.
 Decayed InfoNCE at shapes that take every path of its kernels: more than 32
-rows (the forward's row chunks, the backward's chunk loop), a width that
-does not divide 256, one K-tile and many. The correlation lookup at odd
+rows (the row passes of both), rows that leave a micro-tile ragged (B=33)
+and three passes (B=96), widths that are not a multiple of the micro-tile
+or of a forward stage (C=100, 10, 8), one K-tile and many, fewer tiles than
+the backward's split-K slabs (K=512), a K that is not a multiple of 4 (the
+4-byte copies), a decay below float32's normal range, and dq's fixed
+summing order (two calls give the same bits). The correlation lookup at odd
 level sizes, C of 32, 100 and 256 (one, four and eight float4 chunks a
 lane), N of 1 and 8, and windows off every edge. The five tensor-core fill
 probes at M=3248 (ragged against every tile) and M=40, K of 64 to 1792, N of
@@ -25,17 +29,24 @@ def dev():
     return torch.device('cuda')
 
 
-@pytest.mark.parametrize('b,c,k', [(32, 128, 65536), (4, 32, 32),
-                                   (40, 100, 2048), (70, 256, 1024),
-                                   (1, 8, 512)])
-def test_kernels_match_plain(dev, b, c, k):
+def _infonce_inputs(dev, b, c, k, count_range=(0, 5000)):
     rng = np.random.default_rng(b * c + k)
     q = torch.from_numpy(rng.normal(size=(b, c)).astype(np.float32)).to(dev)
     queue = torch.from_numpy(rng.normal(size=(c, k)).astype(np.float32))
     queue = (queue / queue.norm(dim=0, keepdim=True)).to(dev)
-    count = torch.from_numpy(rng.integers(0, 5000, size=k)).to(dev)
+    count = torch.from_numpy(rng.integers(*count_range, size=k)).to(dev)
     g = torch.from_numpy(rng.normal(size=(b, k)).astype(np.float32)).to(dev)
-    decay = di.decay_weights(count, 0.99999)
+    return q, queue, g, di.decay_weights(count, 0.99999)
+
+
+@pytest.mark.parametrize('b,c,k', [(32, 128, 65536), (4, 32, 32),
+                                   (40, 100, 2048), (70, 256, 1024),
+                                   (1, 8, 512), (33, 128, 4096),
+                                   (96, 64, 2048), (16, 100, 65536),
+                                   (5, 8, 1536), (32, 128, 512),
+                                   (7, 10, 37), (33, 20, 100)])
+def test_kernels_match_plain(dev, b, c, k):
+    q, queue, g, decay = _infonce_inputs(dev, b, c, k)
     launches = (di.l_neg.launches, di.dq.launches)
     qg = q.clone().requires_grad_(True)
     out = di.decayed_neg(qg, queue, decay)
@@ -47,6 +58,35 @@ def test_kernels_match_plain(dev, b, c, k):
                                rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(qg.grad, di.dq_plain(g, queue, decay),
                                rtol=1e-4, atol=1e-4)
+
+
+def test_decay_below_normal_range(dev):
+    """Counts of 8.5e6 to 1.2e7 drive 0.99999**count from the smallest
+    normal float32 through the subnormals to 0."""
+    q, queue, g, decay = _infonce_inputs(dev, 32, 128, 4096,
+                                         (8_500_000, 12_000_000))
+    assert (decay == 0).any() and ((decay > 0) & (decay < 1.2e-38)).any()
+    qg = q.clone().requires_grad_(True)
+    out = di.decayed_neg(qg, queue, decay)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and torch.isfinite(qg.grad).all()
+    assert not out[:, decay == 0].any()
+    torch.testing.assert_close(out.detach(), di.l_neg_plain(q, queue, decay),
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(qg.grad, di.dq_plain(g, queue, decay),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize('b,c,k', [(32, 128, 65536), (70, 100, 1024)])
+def test_dq_is_bitwise_deterministic(dev, b, c, k):
+    """The split-K partials are summed in a fixed order: the same inputs
+    give the same bits."""
+    _, queue, g, decay = _infonce_inputs(dev, b, c, k)
+    first = di.dq(g, queue, decay)
+    second = di.dq(g, queue, decay)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_in_place_queue_change_is_caught(dev):
