@@ -20,9 +20,13 @@ the exit code is nonzero:
 4. the tensor-core fill probes (mxu_fill): each kernel against its plain
    version and float64 at the first case of each of the tool's case lists
    (M=3248; carry also at mt=1624), then timed at 132 steps with L2 flushed
-   beside its plain version (and, for bigdot, one batched torch.matmul);
-   then the tool's three case lists through its main() at its own steps,
-   and cuDNN's r3d_18 layer1 convolution as the yardstick;
+   beside its plain version (and, for bigdot, one batched torch.matmul),
+   each under the card's 989 TF/s; bigdot's and imcat's persistent kernel
+   also at 66 steps (132 must take 1.7-2.3x as long), with its plan (tile,
+   ring, blocks, groups) and the L2 bytes it implies, and its SASS checked
+   for wgmma and TMA and no mma.sync; then the
+   tool's three case lists through its main() at its own steps, and
+   cuDNN's r3d_18 layer1 convolution as the yardstick;
 5. hold the port on the card against the port on the CPU (kernels and
    cuDNN against the plain versions): two train steps of a narrow
    MSCLWithAug, and RAFT (full width, 64x64 images, 3 iterations);
@@ -43,6 +47,7 @@ from __future__ import annotations
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -91,8 +96,9 @@ CORR_TOL = dict(rtol=1e-5, atol=1e-5)  # tests/test_ops.py atol; C=256 sums
 # other orders (and may take Winograd), so 100 times that
 RAFT_TOL = dict(rtol=1e-3, atol=1e-3)
 EXTRACT_PAIRS, EXTRACT_HW, EXTRACT_BATCHES, RAFT_ITERS = 8, (128, 171), 3, 12
-# fill probes: a block for each 64-row tile and step, 6,732 blocks at 132
-# steps, enough to fill 132 SMs; the tool's first case of each probe
+# fill probes at 132 steps: the tap kernels launch a block for each 64-row
+# tile and step (6,732), bigdot and imcat walk 1,716 (step, 256-row tile)
+# units on 132 persistent blocks; the tool's first case of each probe
 MXU_STEPS = 132
 MXU_TOL = dict(rtol=1e-2, atol=1e-2)   # one bf16 rounding, sums reordered
 MXU_F64_REL = 8e-3                     # one bf16 rounding (2^-7) of the max
@@ -102,6 +108,9 @@ MXU_ROWS = (('mxu_fill_probe', '', 0), ('mxu_fill_carry', 'carry', 0),
             ('mxu_fill_paircat', 'kchain', 6))
 MXU_REPLACES = {'probe': 34, 'carry': 72, 'bigdot': 117, 'imcat': 151,
                 'paircat': 195}
+# bigdot and imcat (one persistent kernel): each step's units must really
+# run, so twice the steps take about twice the time
+KCAT_STEPS_RATIO = (1.7, 2.3)
 # r3d_18 layer1: (32, 64, 8, 56, 56) -> 64, 3x3x3, padding 1
 CONV_SHAPE, CONV_FLOP = (32, 64, 8, 56, 56), 2 * 32 * 8 * 56 * 56 * 64 * 1728
 SPIN_CYCLES = 200_000              # about 0.1 ms of the card's clock
@@ -380,6 +389,53 @@ def ptxas_short(kernel):
     return f'{m[1]}<{", ".join(args)}>' if args else m[1]
 
 
+def kcat_l2_bytes(case, plan, steps):
+    """Bytes the kcat kernel reads from L2 in a launch, by its design: each
+    unit reads its tile's rows of x (imcat: the (BM+8)-row slab) and all of
+    w once."""
+    s, tiles = case.shape, -(-bm.M // plan['bm'])
+    depth = s['k'] * s.get('inner', 1)
+    x_rows = bm.M if case.kind == 'bigdot' else tiles * (plan['bm'] + 8)
+    return 2 * steps * (x_rows * s['k'] + tiles * depth * s['n'])
+
+
+def kcat_schedule(case, x, w, flush):
+    """bigdot's or imcat's persistent schedule: its plan, the L2 bytes it
+    implies, and the time at half the steps (each step's work must run)."""
+    plan = mf.kcat_plan(case.kind, bm.M, steps=MXU_STEPS, **case.shape)
+    ms = {st: time_ms(lambda: bm.call(case, x, w, steps=st), flush=flush)
+          for st in (MXU_STEPS // 2, MXU_STEPS)}
+    ratio = ms[MXU_STEPS] / ms[MXU_STEPS // 2]
+    l2 = kcat_l2_bytes(case, plan, MXU_STEPS)
+    log(phase='kcat_schedule', case=case.name.strip(), **plan,
+        ms_by_steps=ms, steps_ratio=ratio, l2_bytes=l2,
+        l2_tb_per_s=l2 / ms[MXU_STEPS] / 1e9)
+    lo, hi = KCAT_STEPS_RATIO
+    if not lo <= ratio <= hi:
+        raise AssertionError(f'{case.name}: {MXU_STEPS} steps take {ratio:.2f}'
+                             f'x the time of {MXU_STEPS // 2}')
+
+
+def kcat_sass():
+    """The SASS of the built kcat kernels: each must issue wgmma (HGMMA)
+    and TMA loads (UTMALDG), and none mma.sync (HMMA)."""
+    tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
+    sass = subprocess.run([tool, '-sass', str(cuda_build.library_path(
+        'mxu_fill'))], capture_output=True, text=True, check=True).stdout
+    counts = {}
+    for sec in re.split(r'\n\s*Function : ', sass)[1:]:
+        name = sec.split('\n', 1)[0].strip()
+        if 'kcat_gemm_kernel' in name:
+            counts[ptxas_short(name)] = {op: len(re.findall(op + r'\b', sec))
+                                         for op in ('HGMMA', 'UTMALDG',
+                                                    'HMMA')}
+    log(phase='kcat_sass', kernels=counts)
+    # bigdot at 256 rows, imcat at 128 and 256, each at N = 64 and 128
+    if len(counts) != 6 or any(c['HGMMA'] == 0 or c['UTMALDG'] == 0 or
+                               c['HMMA'] for c in counts.values()):
+        raise AssertionError(f'kcat SASS: {counts}')
+
+
 def phase_mxu_fill(dev):
     """Each fill-probe kernel against its plain version and float64 at the
     first case of its case list, then timed at MXU_STEPS steps with L2
@@ -407,7 +463,10 @@ def phase_mxu_fill(dev):
                    library_ms=library_ms, library_kernels=library_kernels,
                    **errs)
         log(phase='mxu_fill_kernel', **row)
+        check_rate(row['case'], row['tflops'])
         rows[name] = row
+        if case.kind in ('bigdot', 'imcat'):
+            kcat_schedule(case, x, w, flush)
     # carry at mt=1624, whose accumulator spills by construction
     case = bm.cases('carry')[4]
     x, w, errs = mxu_check(dev, case)
@@ -416,10 +475,26 @@ def phase_mxu_fill(dev):
     log(phase='mxu_fill_check', case=case.name.strip(), steps=MXU_STEPS,
         kernel_ms=kernel_ms, tflops=bm.flops_per_pass(case) * MXU_STEPS /
         kernel_ms / 1e9, **errs)
+    plans = {}
+    for case in bm.cases('kchain'):
+        if case.kind in ('bigdot', 'imcat'):
+            plan = mf.kcat_plan(case.kind, bm.M, steps=MXU_STEPS,
+                                **case.shape)
+            name = (f"kcat_gemm_kernel<{case.shape['n']}, {plan['bm']}, "
+                    f"{int(case.kind == 'imcat')}>")
+            plans.setdefault(name, []).append(dict(plan,
+                                                   case=case.name.strip()))
     log(phase='mxu_fill_ptxas', kernels=[
-        dict(v, kernel=ptxas_short(k)) for k, v in
-        cuda_build.ptxas_report('mxu_fill').items()])
+        dict(v, kernel=ptxas_short(k), plans=plans.get(ptxas_short(k), []))
+        for k, v in cuda_build.ptxas_report('mxu_fill').items()])
+    kcat_sass()
     return rows
+
+
+def check_rate(case, tflops):
+    if not tflops < BF16_FLOP_PER_S / 1e12:
+        raise AssertionError(f'{case}: {tflops} TF/s is above the card\'s '
+                             'peak: some of its work did not run')
 
 
 def phase_mxu_fill_tool():
@@ -436,6 +511,7 @@ def phase_mxu_fill_tool():
             want[case.kind] += MXU_CLI_ITERS + 1
     for r in results:
         log(phase='mxu_fill_tool', **r)
+        check_rate(r['name'], r['tflops'])
     if launches != want:
         raise AssertionError(f'probe launches {launches} != {want}')
     return launches

@@ -39,9 +39,13 @@ HALO = 8                 # rows of x past m that the offset taps read
 NS = (64, 128)           # output widths the kernels are built for
 MAX_TAP_DEPTH = 256      # K (paircat 2K) of one tap staged in shared memory
 MAX_MT = 2048            # carry: at most 4 m16 fragments for each of 32 warps
-MAX_KCAT = 2048          # imcat: inner*K columns of a 32-row patch slab
-KCAT_CHUNK = 64          # bigdot and imcat: depth of a staged w chunk
-TILE_ROWS = {'probe': 64, 'paircat': 64, 'bigdot': 64, 'imcat': 32}
+MAX_KCAT = 2048          # imcat: inner*K columns the wrapper takes
+KCAT_CHUNK = 64          # bigdot and imcat: depth of a staged chunk
+# rows of a tile; the kernel's plan gives bigdot 256 and imcat 128 or 256,
+# so their (step, tile) units are counted at 128, the most there can be
+TILE_ROWS = {'probe': 64, 'paircat': 64, 'bigdot': 128, 'imcat': 128}
+PLAN_KEYS = ('bm', 'stages', 'smem_bytes', 'blocks', 'blocks_per_sm',
+             'units', 'groups')
 
 
 def _window(x, off, m):
@@ -157,7 +161,7 @@ def _check_kernel(kind, x, w, m, k, n, inner=None, mt=None, steps=1):
     tiles = m // mt if kind == 'carry' else -(-m // TILE_ROWS[kind])
     if tiles * steps > 2 ** 31 - 1:
         raise ValueError(f'{kind}: {tiles} tiles x {steps} steps is more '
-                         'blocks than one launch takes')
+                         'blocks (or units) than one launch takes')
 
 
 def _plain(kind, x, w, steps, **shape):
@@ -214,7 +218,9 @@ def _lib():
     lib.mxu_fill_tap.argtypes = [p, p, p, i, i, i, i, i, i, p]
     lib.mxu_fill_carry.argtypes = [p, p, p, i, i, i, i, i, i, p]
     lib.mxu_fill_kcat.argtypes = [p, p, p, i, i, i, i, i, i, p]
-    for fn in (lib.mxu_fill_tap, lib.mxu_fill_carry, lib.mxu_fill_kcat):
+    lib.mxu_fill_kcat_plan.argtypes = [i, i, i, i, i, i, p]
+    for fn in (lib.mxu_fill_tap, lib.mxu_fill_carry, lib.mxu_fill_kcat,
+               lib.mxu_fill_kcat_plan):
         fn.restype = i
     return lib
 
@@ -256,6 +262,17 @@ def probe_carry(x, w, m, mt, k, n, inner, steps=1):
     return out
 
 
+def kcat_plan(kind, m, k, n, inner=1, steps=1):
+    """How bigdot's or imcat's kernel runs on the current CUDA device: the
+    tile rows (``bm``), ring ``stages``, dynamic shared memory, persistent
+    ``blocks``, blocks an SM, (step, tile) ``units`` and the walk's
+    ``groups`` of consecutive blocks, each on its own slice of the units."""
+    info = (ctypes.c_int * len(PLAN_KEYS))()
+    _raise_on(_lib().mxu_fill_kcat_plan(m, k, n, inner, int(kind == 'imcat'),
+                                        steps, info), 'kcat_plan')
+    return dict(zip(PLAN_KEYS, info))
+
+
 def probe_bigdot(x, w, m, k, n, steps=1):
     """``make_probe_bigdot(m, k, n, steps)(x, w)``: x (m, k) @ w (k, n), one
     GEMM with register accumulators. Kernel on CUDA, plain on CPU."""
@@ -271,8 +288,8 @@ def probe_bigdot(x, w, m, k, n, steps=1):
 
 def probe_imcat(x, w, m, k, n, inner, steps=1):
     """``make_probe_imcat(m, k, n, inner, steps)(x, w)``: x (m+8, k), w
-    (inner*k, n); the K-concatenated patch slab is built on chip, then one
-    GEMM. Kernel on CUDA, plain on CPU."""
+    (inner*k, n); the K-concatenated patch matrix is built on chip, chunk by
+    chunk, and fed to one GEMM. Kernel on CUDA, plain on CPU."""
     if not _on_cuda(x):
         return probe_imcat_plain(x, w, m, k, n, inner, steps)
     _check_kernel('imcat', x, w, m, k, n, inner, steps=steps)

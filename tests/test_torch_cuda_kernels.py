@@ -8,9 +8,12 @@ the backward's split-K slabs (K=512), a K that is not a multiple of 4 (the
 summing order (two calls give the same bits). The correlation lookup at odd
 level sizes, C of 32, 100 and 256 (one, four and eight float4 chunks a
 lane), N of 1 and 8, and windows off every edge. The five tensor-core fill
-probes at M=3248 (ragged against every tile) and M=40, K of 64 to 1792, N of
-64 and 128, carry's mt of 112, 464 and 1624 (spilled, and not a multiple of
-16), and 1 and 8 steps. Skipped where there is no CUDA device."""
+probes at M=3248 (ragged against every tile), 200 and 40 (below one tile), K
+of 64 (one chunk) to 1792, N of 64 and 128, carry's mt of 112, 464 and 1624
+(spilled, and not a multiple of 16), and 1, 8 and 133 steps (not a multiple
+of the persistent blocks); the plan of bigdot's and imcat's kernel (its
+tile, ring, blocks and groups), and their steps giving the bits of one.
+Skipped where there is no CUDA device."""
 import numpy as np
 import pytest
 import torch
@@ -141,21 +144,33 @@ MXU_CASES = [
     ('bigdot', 3248, dict(k=1792, n=64), 1),
     ('bigdot', 40, dict(k=448, n=128), 8),
     ('bigdot', 3248, dict(k=896, n=128), 8),
+    ('bigdot', 3248, dict(k=64, n=64), 1),
+    ('bigdot', 3248, dict(k=1792, n=128), 1),
+    ('bigdot', 200, dict(k=448, n=64), 8),
+    ('bigdot', 3248, dict(k=1792, n=64), 133),
     ('imcat', 3248, dict(k=64, n=64, inner=28), 1),
     ('imcat', 40, dict(k=64, n=128, inner=28), 8),
     ('imcat', 3248, dict(k=128, n=128, inner=16), 1),
+    ('imcat', 3248, dict(k=256, n=64, inner=8), 1),
+    ('imcat', 3248, dict(k=256, n=128, inner=8), 1),
+    ('imcat', 3248, dict(k=64, n=64, inner=28), 133),
     ('paircat', 3248, dict(k=64, n=64, inner=28), 1),
     ('paircat', 40, dict(k=128, n=128, inner=28), 8),
     ('paircat', 3248, dict(k=64, n=128, inner=28), 8),
 ]
 
 
-@pytest.mark.parametrize('kind,m,shape,steps', MXU_CASES)
-def test_mxu_fill_matches_plain(dev, kind, m, shape, steps):
+def _mxu_inputs(dev, kind, m, shape):
     x_shape, w_shape = mf._shapes(kind, m, **shape)
     g = torch.Generator().manual_seed(m + shape['k'] + shape['n'])
     x = torch.randn(x_shape, generator=g).to(dev, torch.bfloat16)
     w = (0.05 * torch.randn(w_shape, generator=g)).to(dev, torch.bfloat16)
+    return x, w
+
+
+@pytest.mark.parametrize('kind,m,shape,steps', MXU_CASES)
+def test_mxu_fill_matches_plain(dev, kind, m, shape, steps):
+    x, w = _mxu_inputs(dev, kind, m, shape)
     entry = mf.ENTRY_POINTS[kind]
     launches = entry.launches
     got = entry(x, w, m=m, steps=steps, **shape)
@@ -166,3 +181,43 @@ def test_mxu_fill_matches_plain(dev, kind, m, shape, steps):
     torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
                                atol=1e-2)
     assert got.float().abs().max() > 0.1
+
+
+@pytest.mark.parametrize('kind,shape', [
+    ('bigdot', dict(k=1792, n=64)), ('imcat', dict(k=64, n=64, inner=28))])
+def test_kcat_steps_give_the_same_bits(dev, kind, shape):
+    """Every step of the persistent walk computes and stores its tile in
+    the same order: 133 steps (not a multiple of the blocks) give the bits
+    of one."""
+    x, w = _mxu_inputs(dev, kind, 3248, shape)
+    entry = mf.ENTRY_POINTS[kind]
+    one = entry(x, w, m=3248, steps=1, **shape)
+    many = entry(x, w, m=3248, steps=133, **shape)
+    torch.cuda.synchronize()
+    assert torch.equal(one, many)
+
+
+# kind, m, shape, steps, the tile the plan must take: bigdot 256 rows at
+# both widths, imcat 256 where its slab and 3 stages fit, else 128 (K=256)
+KCAT_PLANS = [
+    ('bigdot', 3248, dict(k=1792, n=64), 132, 256),
+    ('bigdot', 40, dict(k=448, n=128), 8, 256),
+    ('imcat', 3248, dict(k=64, n=64, inner=28), 133, 256),
+    ('imcat', 3248, dict(k=128, n=128, inner=16), 1, 256),
+    ('imcat', 3248, dict(k=256, n=64, inner=8), 132, 128),
+    ('imcat', 3248, dict(k=256, n=128, inner=8), 132, 128),
+]
+
+
+@pytest.mark.parametrize('kind,m,shape,steps,bm', KCAT_PLANS)
+def test_kcat_plan(dev, kind, m, shape, steps, bm):
+    """The persistent walk's plan: the tile, a ring that fits a block, one
+    unit for each (step, tile) and no more blocks than units or the SMs
+    hold, and no more groups of blocks than blocks."""
+    plan = mf.kcat_plan(kind, m, steps=steps, **shape)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert plan['bm'] == bm and plan['units'] == steps * -(-m // bm)
+    assert 2 <= plan['stages'] <= 8 and plan['smem_bytes'] <= 232448
+    assert plan['blocks'] == min(plan['units'],
+                                 sms * plan['blocks_per_sm'])
+    assert 1 <= plan['groups'] <= plan['blocks']

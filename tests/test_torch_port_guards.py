@@ -183,7 +183,7 @@ def _probe_operands(kind, m=40, k=64, n=64, inner=4, mt=20):
     'carry_m_mt', 'imcat_odd_inner', 'paircat_odd_inner', 'imcat_k',
     'probe_x_shape', 'paircat_w_shape', 'n', 'probe_depth', 'paircat_depth',
     'carry_mt_max', 'bigdot_k', 'imcat_kcat', 'imcat_depth', 'steps',
-    'device', 'dtype',
+    'bigdot_units', 'imcat_units', 'device', 'dtype',
     'strided', 'unaligned'])
 def test_mxu_fill_refuses_what_the_kernel_cannot_take(monkeypatch, case):
     """What the JAX probes assert (m % mt, an odd inner for imcat and
@@ -199,8 +199,8 @@ def test_mxu_fill_refuses_what_the_kernel_cannot_take(monkeypatch, case):
     size = dict(n=dict(n=96), probe_depth=dict(k=272),
                 paircat_depth=dict(k=144), carry_mt_max=dict(m=4096, mt=4096),
                 bigdot_k=dict(k=96), imcat_kcat=dict(k=128, inner=18),
-                imcat_depth=dict(k=320, inner=2)).get(
-                    case, {})
+                imcat_depth=dict(k=320, inner=2), bigdot_units=dict(m=3248),
+                imcat_units=dict(m=3248)).get(case, {})
     x, w, shape = _probe_operands(kind, **size)
     steps = 1
     if case.endswith('odd_inner'):
@@ -217,6 +217,9 @@ def test_mxu_fill_refuses_what_the_kernel_cannot_take(monkeypatch, case):
         w = w.reshape(4, 64, 64)                            # taps, not pairs
     elif case == 'steps':
         steps = 0
+    elif case.endswith('units'):
+        # 26 tiles of 128 rows: more (step, tile) units than a launch takes
+        steps = (2 ** 31 - 1) // 26 + 1
     elif case == 'device':
         w = torch.zeros(w.shape, dtype=torch.bfloat16, device='meta')
     elif case == 'dtype':
