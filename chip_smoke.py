@@ -21,12 +21,15 @@ the exit code is nonzero:
    version and float64 at the first case of each of the tool's case lists
    (M=3248; carry also at mt=1624), then timed at 132 steps with L2 flushed
    beside its plain version (and, for bigdot, one batched torch.matmul),
-   each under the card's 989 TF/s; bigdot's and imcat's persistent kernel
-   also at 66 steps (132 must take 1.7-2.3x as long), with its plan (tile,
-   ring, blocks, groups) and the L2 bytes it implies, and its SASS checked
-   for wgmma and TMA and no mma.sync; then the
-   tool's three case lists through its main() at its own steps, and
-   cuDNN's r3d_18 layer1 convolution as the yardstick;
+   each under the card's 989 TF/s; each probe's persistent kernel also at
+   66 steps (its fastest launch at 132 must take 1.7-2.3x as long), with
+   its plan (tile, ring, slabs, sub-tiles, blocks, groups), the L2 bytes
+   it implies and the host's time for a call; every kernel's SASS checked
+   for wgmma and TMA and no mma.sync (probe's and paircat's also for
+   shared loads and stores, their accumulator), and ptxas's report for no
+   spill (and where it serialized wgmma); then the tool's three case lists
+   through its main() at its own steps, and cuDNN's r3d_18 layer1
+   convolution as the yardstick;
 5. hold the port on the card against the port on the CPU (kernels and
    cuDNN against the plain versions): two train steps of a narrow
    MSCLWithAug, and RAFT (full width, 64x64 images, 3 iterations);
@@ -96,9 +99,9 @@ CORR_TOL = dict(rtol=1e-5, atol=1e-5)  # tests/test_ops.py atol; C=256 sums
 # other orders (and may take Winograd), so 100 times that
 RAFT_TOL = dict(rtol=1e-3, atol=1e-3)
 EXTRACT_PAIRS, EXTRACT_HW, EXTRACT_BATCHES, RAFT_ITERS = 8, (128, 171), 3, 12
-# fill probes at 132 steps: the tap kernels launch a block for each 64-row
-# tile and step (6,732), bigdot and imcat walk 1,716 (step, 256-row tile)
-# units on 132 persistent blocks; the tool's first case of each probe
+# fill probes at 132 steps: each kernel walks its (step, tile) units on
+# persistent blocks (probe, bigdot, imcat 1,716 of 256 rows, carry at
+# mt=112 3,828 of 128); the tool's first case of each probe
 MXU_STEPS = 132
 MXU_TOL = dict(rtol=1e-2, atol=1e-2)   # one bf16 rounding, sums reordered
 MXU_F64_REL = 8e-3                     # one bf16 rounding (2^-7) of the max
@@ -108,9 +111,9 @@ MXU_ROWS = (('mxu_fill_probe', '', 0), ('mxu_fill_carry', 'carry', 0),
             ('mxu_fill_paircat', 'kchain', 6))
 MXU_REPLACES = {'probe': 34, 'carry': 72, 'bigdot': 117, 'imcat': 151,
                 'paircat': 195}
-# bigdot and imcat (one persistent kernel): each step's units must really
-# run, so twice the steps take about twice the time
-KCAT_STEPS_RATIO = (1.7, 2.3)
+# the probes' persistent kernels: each step's units must really run, so
+# twice the steps take about twice the time
+STEPS_RATIO = (1.7, 2.3)
 # r3d_18 layer1: (32, 64, 8, 56, 56) -> 64, 3x3x3, padding 1
 CONV_SHAPE, CONV_FLOP = (32, 64, 8, 56, 56), 2 * 32 * 8 * 56 * 56 * 64 * 1728
 SPIN_CYCLES = 200_000              # about 0.1 ms of the card's clock
@@ -120,15 +123,15 @@ def log(**kw):
     print(json.dumps(kw), flush=True)
 
 
-def time_ms(fn, iters=20, flush=None, warmup=3):
-    """Mean device time of fn over iters launches (CUDA events around each
+def launch_ms(fn, iters=20, flush=None, warmup=3):
+    """Device time of each of iters launches of fn (CUDA events around each
     launch), after a warm-up; with flush, L2 is overwritten before each.
     The device spins for about 0.1 ms before the start event, so the host
     has enqueued fn before the event is reached: the host's own time for
     the call (tens of microseconds in Python) stays out of the window."""
     for _ in range(warmup):
         fn()
-    total = 0.0
+    times = []
     for _ in range(iters):
         if flush is not None:
             flush.zero_()
@@ -139,8 +142,25 @@ def time_ms(fn, iters=20, flush=None, warmup=3):
         fn()
         end.record()
         end.synchronize()
-        total += start.elapsed_time(end)
-    return total / iters
+        times.append(start.elapsed_time(end))
+    return times
+
+
+def time_ms(fn, iters=20, flush=None, warmup=3):
+    """Mean device time of fn over iters launches (launch_ms)."""
+    return sum(launch_ms(fn, iters, flush, warmup)) / iters
+
+
+def host_us(fn, iters=20):
+    """Mean host time of a call of fn that only enqueues device work, in
+    microseconds: what time_ms's spin must cover."""
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - start) / iters * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def bound(bytes_moved, flops, flop_per_s=FP32_FLOP_PER_S):
@@ -389,51 +409,70 @@ def ptxas_short(kernel):
     return f'{m[1]}<{", ".join(args)}>' if args else m[1]
 
 
-def kcat_l2_bytes(case, plan, steps):
-    """Bytes the kcat kernel reads from L2 in a launch, by its design: each
-    unit reads its tile's rows of x (imcat: the (BM+8)-row slab) and all of
-    w once."""
-    s, tiles = case.shape, -(-bm.M // plan['bm'])
+def l2_bytes(case, plan):
+    """Bytes a probe's kernel reads from L2 in a launch, by its design: each
+    unit reads its rows of x (bigdot: its tile's rows; the others their
+    (BM+8)-row slab) and all of w once."""
+    s, units = case.shape, plan['units']
     depth = s['k'] * s.get('inner', 1)
-    x_rows = bm.M if case.kind == 'bigdot' else tiles * (plan['bm'] + 8)
-    return 2 * steps * (x_rows * s['k'] + tiles * depth * s['n'])
+    x_rows = (bm.M * MXU_STEPS if case.kind == 'bigdot' else
+              units * (plan['bm'] + 8))
+    return 2 * (x_rows * s['k'] + units * depth * s['n'])
 
 
-def kcat_schedule(case, x, w, flush):
-    """bigdot's or imcat's persistent schedule: its plan, the L2 bytes it
-    implies, and the time at half the steps (each step's work must run)."""
-    plan = mf.kcat_plan(case.kind, bm.M, steps=MXU_STEPS, **case.shape)
-    ms = {st: time_ms(lambda: bm.call(case, x, w, steps=st), flush=flush)
+def kernel_name(case, plan):
+    """The instantiation a case's plan launches, as ptxas_short names it."""
+    n, rows = case.shape['n'], plan['bm']
+    if case.kind in ('bigdot', 'imcat'):
+        return f"kcat_gemm_kernel<{n}, {rows}, {int(case.kind == 'imcat')}>"
+    return f"tap_wgmma_kernel<{n}, {rows}, {int(case.kind != 'carry')}>"
+
+
+def mxu_schedule(case, x, w, flush):
+    """A probe's persistent schedule: its plan, the L2 bytes it implies,
+    the time at half the steps (each step's work must run), and the host's
+    time for a call. The steps are compared by their fastest launches, which
+    a stall of the host (the card shares it) cannot lengthen."""
+    plan = mf.plan(case.kind, bm.M, steps=MXU_STEPS, **case.shape)
+    ms = {st: min(launch_ms(lambda: bm.call(case, x, w, steps=st),
+                            flush=flush))
           for st in (MXU_STEPS // 2, MXU_STEPS)}
     ratio = ms[MXU_STEPS] / ms[MXU_STEPS // 2]
-    l2 = kcat_l2_bytes(case, plan, MXU_STEPS)
-    log(phase='kcat_schedule', case=case.name.strip(), **plan,
-        ms_by_steps=ms, steps_ratio=ratio, l2_bytes=l2,
-        l2_tb_per_s=l2 / ms[MXU_STEPS] / 1e9)
-    lo, hi = KCAT_STEPS_RATIO
+    l2 = l2_bytes(case, plan)
+    log(phase='mxu_schedule', case=case.name.strip(),
+        kernel=kernel_name(case, plan), **plan, ms_by_steps=ms,
+        steps_ratio=ratio, l2_bytes=l2, l2_tb_per_s=l2 / ms[MXU_STEPS] / 1e9,
+        host_us=host_us(lambda: bm.call(case, x, w, steps=MXU_STEPS)))
+    lo, hi = STEPS_RATIO
     if not lo <= ratio <= hi:
         raise AssertionError(f'{case.name}: {MXU_STEPS} steps take {ratio:.2f}'
                              f'x the time of {MXU_STEPS // 2}')
 
 
-def kcat_sass():
-    """The SASS of the built kcat kernels: each must issue wgmma (HGMMA)
-    and TMA loads (UTMALDG), and none mma.sync (HMMA)."""
+def mxu_sass():
+    """The SASS of the built fill-probe kernels: each must issue wgmma
+    (HGMMA) and TMA loads (UTMALDG), and none mma.sync (HMMA); the tap
+    kernels with their accumulator in shared memory (probe, paircat) must
+    also load and store it there (LDS, STS)."""
     tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
     sass = subprocess.run([tool, '-sass', str(cuda_build.library_path(
         'mxu_fill'))], capture_output=True, text=True, check=True).stdout
     counts = {}
     for sec in re.split(r'\n\s*Function : ', sass)[1:]:
-        name = sec.split('\n', 1)[0].strip()
-        if 'kcat_gemm_kernel' in name:
-            counts[ptxas_short(name)] = {op: len(re.findall(op + r'\b', sec))
-                                         for op in ('HGMMA', 'UTMALDG',
-                                                    'HMMA')}
-    log(phase='kcat_sass', kernels=counts)
-    # bigdot at 256 rows, imcat at 128 and 256, each at N = 64 and 128
-    if len(counts) != 6 or any(c['HGMMA'] == 0 or c['UTMALDG'] == 0 or
-                               c['HMMA'] for c in counts.values()):
-        raise AssertionError(f'kcat SASS: {counts}')
+        name = ptxas_short(sec.split('\n', 1)[0].strip())
+        counts[name] = {op: len(re.findall(op + r'\b', sec))
+                        for op in ('HGMMA', 'UTMALDG', 'HMMA', 'LDS', 'STS')}
+    log(phase='mxu_sass', kernels=counts)
+    # kcat: bigdot at 256 rows, imcat at 128 and 256; tap: the shared
+    # accumulator at 256 rows (N=64) and 128 (N=128), carry at 128 and 256;
+    # each at N = 64 and 128
+    bad = [k for k, c in counts.items()
+           if c['HGMMA'] == 0 or c['UTMALDG'] == 0 or c['HMMA'] or
+           (k.startswith('tap_wgmma_kernel') and k.endswith(', 1>') and
+            (c['LDS'] == 0 or c['STS'] == 0))]
+    kinds = sorted(k.split('<')[0] for k in counts)
+    if bad or kinds != ['kcat_gemm_kernel'] * 6 + ['tap_wgmma_kernel'] * 6:
+        raise AssertionError(f'mxu_fill SASS: {counts}')
 
 
 def phase_mxu_fill(dev):
@@ -465,29 +504,34 @@ def phase_mxu_fill(dev):
         log(phase='mxu_fill_kernel', **row)
         check_rate(row['case'], row['tflops'])
         rows[name] = row
-        if case.kind in ('bigdot', 'imcat'):
-            kcat_schedule(case, x, w, flush)
-    # carry at mt=1624, whose accumulator spills by construction
+        mxu_schedule(case, x, w, flush)
+    # carry at mt=1624: 13 sub-tiles of 128 rows a tile (an accumulator of
+    # all 1624 rows in registers would spill)
     case = bm.cases('carry')[4]
     x, w, errs = mxu_check(dev, case)
     kernel_ms = time_ms(lambda: bm.call(case, x, w, steps=MXU_STEPS),
-                        iters=5, flush=flush)
+                        flush=flush)
     log(phase='mxu_fill_check', case=case.name.strip(), steps=MXU_STEPS,
         kernel_ms=kernel_ms, tflops=bm.flops_per_pass(case) * MXU_STEPS /
-        kernel_ms / 1e9, **errs)
+        kernel_ms / 1e9, bound_ms=bound(0, bm.flops_per_pass(case) *
+                                        MXU_STEPS, BF16_FLOP_PER_S)[0],
+        **errs)
+    mxu_schedule(case, x, w, flush)
     plans = {}
-    for case in bm.cases('kchain'):
-        if case.kind in ('bigdot', 'imcat'):
-            plan = mf.kcat_plan(case.kind, bm.M, steps=MXU_STEPS,
-                                **case.shape)
-            name = (f"kcat_gemm_kernel<{case.shape['n']}, {plan['bm']}, "
-                    f"{int(case.kind == 'imcat')}>")
-            plans.setdefault(name, []).append(dict(plan,
-                                                   case=case.name.strip()))
-    log(phase='mxu_fill_ptxas', kernels=[
-        dict(v, kernel=ptxas_short(k), plans=plans.get(ptxas_short(k), []))
-        for k, v in cuda_build.ptxas_report('mxu_fill').items()])
-    kcat_sass()
+    for mode in ('', 'carry', 'kchain'):
+        for case in bm.cases(mode):
+            plan = mf.plan(case.kind, bm.M, steps=MXU_STEPS, **case.shape)
+            plans.setdefault(kernel_name(case, plan), []).append(
+                dict(plan, case=case.name.strip()))
+    report = [dict(v, kernel=ptxas_short(k),
+                   plans=plans.get(ptxas_short(k), []))
+              for k, v in cuda_build.ptxas_report('mxu_fill').items()]
+    log(phase='mxu_fill_ptxas', kernels=report)
+    spilled = [r['kernel'] for r in report if r.get('spill_store_bytes', 1)
+               or r.get('spill_load_bytes', 1)]
+    if spilled or not report:
+        raise AssertionError(f'mxu_fill kernels spill: {spilled}')
+    mxu_sass()
     return rows
 
 
@@ -633,15 +677,8 @@ def phase_flagship(dev):
         raise AssertionError(f'kernel launches {launches} != {7 * STEPS} '
                              'each')
     peak = torch.cuda.max_memory_allocated()
-
-    # cost of the key-side TPN neck, whose outputs nothing reads
-    rgb = model.recognizer
-    with torch.no_grad():
-        feats = rgb.encoder_k(batch['imgs'][1])
-        neck_k_ms = time_ms(lambda: rgb.neck_k(feats), iters=10)
-    log(phase='flagship_step', steps=STEPS, batch=bs, K=rgb.K,
+    log(phase='flagship_step', steps=STEPS, batch=bs, K=model.recognizer.K,
         step_ms=step_ms, peak_bytes=peak, launches=launches, state=state,
-        neck_k_ms=neck_k_ms,
         losses=[{k: lv[k] for k in LOSS_KEYS + ['loss']} for lv in losses])
     profile('flagship_step', lambda: step(batch))
     return launches

@@ -1,11 +1,11 @@
 // Matrix-unit fill probes for Hopper (sm_90a), plain C interface for ctypes.
 //
 // Replaces the five Pallas TPU probes of tools/analysis/bench_mxu_fill.py:
-//   make_probe         (:34)  tap_smem_acc_kernel<N, false>  mxu_fill_tap, pair = 0
-//   make_probe_paircat (:195) tap_smem_acc_kernel<N, true>   mxu_fill_tap, pair = 1
-//   make_probe_carry   (:72)  tap_carry_kernel<N, F>         mxu_fill_carry
-//   make_probe_bigdot  (:117) kcat_gemm_kernel<N, BM, false> mxu_fill_kcat, build = 0
-//   make_probe_imcat   (:151) kcat_gemm_kernel<N, BM, true>  mxu_fill_kcat, build = 1
+//   make_probe         (:34)  tap_wgmma_kernel<N, BM, true>   mxu_fill_tap, pair = 0
+//   make_probe_paircat (:195) tap_wgmma_kernel<N, BM, true>   mxu_fill_tap, pair = 1
+//   make_probe_carry   (:72)  tap_wgmma_kernel<N, BM, false>  mxu_fill_carry
+//   make_probe_bigdot  (:117) kcat_gemm_kernel<N, BM, false>  mxu_fill_kcat, build = 0
+//   make_probe_imcat   (:151) kcat_gemm_kernel<N, BM, true>   mxu_fill_kcat, build = 1
 // Write S(o) for rows o .. o+M-1 of x. Operands are bf16, products accumulate
 // in f32, and the (M, N) bf16 output is rounded once at the end:
 //   probe, carry  out = sum_{i<inner} S((i%2)*8) @ w[i]       x (M+8,K), w (inner,K,N)
@@ -16,10 +16,9 @@
 //                                                             x (M+8,K), w (inner*K,N)
 //   bigdot        out = x @ w                                 x (M,K),   w (K,N)
 // The TPU grid (steps,) runs the same program `steps` times, each writing the
-// same output block. Here every (step, M-tile) pair is computed and its tile
-// stored (one block each for the tap kernels; a unit of a persistent block's
-// walk for kcat), so a launch does `steps` passes of work and its result is
-// one pass.
+// same output block. Here every (step, tile) unit is computed and its tile
+// stored by persistent blocks that walk the units, so a launch does `steps`
+// passes of work and its result is one pass.
 //
 // What bounds them on an H100: operations. At the tool's r3d_18 layer1
 // geometry (M=3248, 27 taps, K=N=64) one pass is 0.718 GFLOP (0.73 us at the
@@ -29,65 +28,34 @@
 // Design. The TPU probes kept every operand VMEM-resident. A block here has
 // at most 232,448 B of shared memory, and all 27 taps of w take 221,184 B at
 // K=N=64 and 1,769,472 B at K=256, N=128, so w stays L2-resident (50 MB) and
-// is staged tap by tap (or in 64-deep chunks) through a shared-memory ring.
-// The tap kernels use mma.sync.m16n8k16 (bf16 in, f32 accumulate), fed by
-// ldmatrix from shared memory whose rows are padded by 8 bf16, so the 8 rows
-// of each 8x8 matrix fall in different banks, and fill their ring by
-// cp.async; kcat uses wgmma and TMA. Each kernel keeps the accumulation
-// structure that its TPU probe measured:
-//   * tap_smem_acc_kernel (probe, paircat): a 64-row tile, 4 warps of
-//     32 x N/2. The tile's x slab (72 rows: 64 and the 8-row halo) is loaded
-//     once. For each tap (paircat: each pair), every warp computes its product
-//     into fresh registers and then read-modify-writes the f32 accumulator
-//     tile in shared memory, as Mosaic's lowering did (docs/benchmark.md:
-//     591-596). paircat's concat is only addressing: the A fragments for depth
-//     < K come from one offset and the rest from the other. Shared bytes:
-//     72*(K+8)*2 + 2*TK*(N+8)*2 + 64*(N+8)*4, TK = K (probe) or 2K (paircat):
-//     47,232 at K=N=64, 212,096 at K=256, N=128, 114,816 for paircat at
-//     K=64, N=128.
-//   * tap_carry_kernel (carry): one block per mt-row tile. Its warps own F m16
-//     fragments each across all N columns, so the mt x N f32 accumulator stays
-//     in registers across all taps: mt*N*4 B is 28,672 at mt=112, 118,784 at
-//     464 and 415,744 at 1624. The last exceeds the SM's 262,144-byte register
-//     file; under __launch_bounds__(1024) (64 registers a thread) the F=3
-//     and F=4 instantiations (mt > 1024) spill by construction, as the TPU's
-//     carry did (docs/benchmark.md:557-562); the ptxas report beside the
-//     built library (build/mxu_fill-*.log) gives the bytes. The tile's
-//     (mt+8)-row x slab does not fit a block at mt=1624 (417,792 B at K=128),
-//     so each warp reads its A fragments from global memory (x is at most
-//     1.7 MB and stays in L2); w is staged per tap (2*K*(N+8)*2 B: 18,432 at
-//     K=N=64, 36,864 at K=128). mt need not be a multiple of 16 (1624 is
-//     not): fragment rows past the tile read zeros and are not stored.
-//   * kcat_gemm_kernel (bigdot, imcat): one GEMM over the concatenated depth
-//     in 64-deep chunks, on Hopper's own machinery. What bounds it: the
-//     tensor cores (2*M*depth*N operations a pass) only if they are fed.
+// is streamed through a shared-memory ring in 64-deep chunks. Both kernels
+// run on Hopper's own machinery. What bounds them: the tensor cores (2*M*
+// depth*N operations a pass) only if they are fed. wgmma reads A (64 x 16)
+// and B (16 x N) from shared memory for each m64nNk16, 4 KB for 131 kFLOP at
+// N=64. Shared by both:
+//   - warp specialisation, 384 threads: warpgroup 0 produces (thread 0
+//     issues every TMA load; for imcat, warps 1-3 build its patch chunks),
+//     warpgroups 1 and 2 consume, each with BM/2 rows x N f32 accumulators
+//     in registers (setmaxnreg gives them 232 registers, the producers 40);
+//   - a tile of BM = 128 or 256 rows x the whole N. A ring of 2-8 stages of
+//     64-deep chunks of w (64 x N; kcat's also hold BM x 64 of A), one
+//     128-byte row per chunk row under the TMA's 128-byte swizzle, with full
+//     and empty mbarriers; wgmma.m64nNk16 reads A K-major and w MN-major
+//     (its transpose bit) through descriptors that match that swizzle;
+//   - persistent blocks, as many as the SMs hold, so one unit's epilogue
+//     overlaps the next unit's loads. The (step, tile) units, tile after
+//     tile, are cut into equal slices, one for each group of about 32
+//     consecutive blocks (KcatWalk): a group's blocks read one tile's rows
+//     of x together, which L2 serves far faster than rows read apart
+//     (walked step after step, bigdot drew about 8 TB/s from L2 and lost to
+//     cuBLAS), and they stay on that tile however far they drift over a
+//     long launch (a stride walk does not: over the probe tool's launches
+//     of tens of ms it fell back to the step-after-step rate). The epilogue
+//     rounds to bf16 once and stores 16 bytes a lane after a quad transpose.
+//   * kcat_gemm_kernel (bigdot, imcat): one GEMM over the concatenated depth.
 //     At N=64 each unit re-reads its BM x depth rows of x from L2 for as
 //     many operations as bytes x 64: a launch of bigdot at K=1792 moves
-//     1.93 GB at BM=256, and the walk's order decides how fast L2 gives
-//     it. wgmma reads A (64 x 16) and B (16 x N) from shared memory for
-//     each m64nNk16, 4 KB for 131 kFLOP at N=64; imcat's build copies as
-//     many bytes again. Design:
-//       - warp specialisation, 384 threads: warpgroup 0 produces (thread 0
-//         issues every TMA load, warps 1-3 build imcat's patch chunks),
-//         warpgroups 1 and 2 consume, each with BM/2 rows x N f32
-//         accumulators in registers (setmaxnreg gives them 232 registers,
-//         the producers 40);
-//       - a tile of BM = 128 or 256 rows x the whole N. A ring of 2-8 stages
-//         of 64-deep chunks, each BM x 64 of A and 64 x N of w, one 128-byte
-//         row per chunk row under the TMA's 128-byte swizzle, with full and
-//         empty mbarriers; wgmma.m64nNk16 reads A K-major and w MN-major (its
-//         transpose bit) through descriptors that match that swizzle;
-//       - persistent blocks, as many as the SMs hold, so one unit's
-//         epilogue overlaps the next unit's loads. The (step, M-tile)
-//         units, tile after tile, are cut into equal slices, one for each
-//         group of about 32 consecutive blocks (KcatWalk): a group's
-//         blocks read one tile's rows of x together, which L2 serves far
-//         faster than rows read apart (walked step after step, bigdot drew
-//         about 8 TB/s from L2 and lost to cuBLAS), and they stay on that
-//         tile however far they drift over a long launch (a stride walk
-//         does not: over the probe tool's launches of tens of ms it fell
-//         back to the step-after-step rate). The epilogue rounds to bf16
-//         once and stores 16 bytes a lane after a quad transpose;
+//     1.93 GB at BM=256, and the walk's order decides how fast L2 gives it.
 //       - bigdot: A chunks are TMA boxes of x (zero-filled past row M);
 //       - imcat: the tile's x slab, (BM+8) rows x K, is loaded once a unit by
 //         TMA under the same swizzle, and the patch matrix is a ring of BM x 64
@@ -97,9 +65,8 @@
 //         of X_cat: column block t = 64c / K at column 64c mod K, the window
 //         S(off(t)). Rows r and r+8 share a phase of the swizzle, so the
 //         build is a straight 16-byte copy from the slab, by the build
-//         warps while wgmma consumes earlier chunks. (Pointing wgmma's A
-//         descriptor at the slab 8 rows down would skip the copy: that is an
-//         implicit GEMM, not this probe.)
+//         warps while wgmma consumes earlier chunks; the copy is what this
+//         probe measures (the tap kernel reads the slab in place).
 //     The host's plan (kcat) takes BM = 256 where its slab and 3 stages fit,
 //     then the deepest ring that fits, and groups of 32 blocks: the fastest
 //     tile and ring at 132 steps among the variants timed on an H100
@@ -107,6 +74,59 @@
 //     the probe tool's launches one group (all blocks on one tile) is
 //     faster still for bigdot at depth >= 896, N=64, but costs depth 448 a
 //     fifth; no one walk is best for every shape.
+//   * tap_wgmma_kernel (probe, paircat, carry): the tap loop is one GEMM over
+//     depth inner*K, w viewed as (inner*K, N) (probe's and carry's (inner, K,
+//     N) and paircat's (inner/2, 2K, N) are both that array), whose A is read
+//     in place from the unit's x slab: (BM+8) rows x K, K/64 column boxes
+//     under the same swizzle, loaded once a unit by TMA (a BM-row box and an
+//     8-row halo box; double-buffered where shared memory allows, so the
+//     next unit's slab arrives during this one). Chunk c is tap t = c / (K/64)
+//     at column box c mod (K/64), the window S(off(t)): off(t) = (t&1)*8 for
+//     probe and carry, paircat's pair order for paircat. Rows r and r+8
+//     share a phase of the swizzle (8 rows of 128 B are its 1,024-byte
+//     period), so wgmma's A descriptor starts off rows down the box and
+//     nothing is copied: a unit reads its slab and w from L2, about 255 KB
+//     at BM=256, K=N=64, against bigdot's 1.15 MB. What differs is where
+//     the f32 sum lives between taps, the structure each TPU probe measured:
+//       - carry (ACC in registers): a unit is one sub-tile of a (step, mt-row
+//         tile): the mt rows are covered by ceil(mt/BM) sub-tiles of BM rows,
+//         each with its sum in registers through all taps, as kcat's are.
+//         Rows past the mt tile are computed from x's rows (zeros past M+8)
+//         and not stored. mt no longer bounds the registers (an mt x N
+//         accumulator held whole spills past mt of about 1,000), and no
+//         longer decides where the sum lives: past 256 rows carry measures
+//         sub-tiles of 128 or 256 rows, each accumulated in registers, and
+//         the rows its last sub-tile recomputes, not an mt-row sum carried
+//         across the taps as the TPU probe's was. At BM=128
+//         a consumer has one m64 tile, so its k16 steps alternate between
+//         two accumulators (two independent wgmma chains in flight, which
+//         ran faster on an H100 than one), summed before the store;
+//       - probe, paircat (ACC in shared memory): each tap's (paircat: each
+//         pair's) product goes to fresh registers (scale_d = 0 at its first
+//         k16) and each thread then adds it to its own elements of a BM x N
+//         f32 tile in shared memory, laid out in fragment order: 16 bytes a
+//         lane, the lanes of a warp on consecutive words, so no bank conflict
+//         and no barrier between threads. Two register sets overlap the
+//         read-modify-write with the tensor cores: tap i+1 is issued into
+//         one while tap i's set is added (the first tap is stored, the last
+//         is added in registers and rounded); ptxas, unable to tell that
+//         the RMW reads only a set whose wgmma is done, serializes these
+//         kernels' wgmma (its C7514 note). The RMW moves 8 B of shared
+//         memory per output element a tap for 2K operations; against about
+//         128 B/clk of shared memory and 4,000 bf16 operations/clk an SM it
+//         caps probe at K=64 near a third to a half of the peak (depth 128
+//         a RMW, paircat and K >= 128, far less). So at K = 64 the A
+//         fragments of both windows are loaded from the slab into registers
+//         once a unit (64 registers at BM=256) and wgmma takes A from them:
+//         it then reads only w from shared memory, half its operand bytes.
+//         (On an H100 that made probe and paircat at K=64 faster; at K >=
+//         128 loading each chunk's A into registers ran slower than wgmma
+//         reading it from shared memory, and so did carry, PERF.md.)
+//     The host's plan (tap): carry takes the BM of 128 and 256 that computes
+//     the fewest rows; probe and paircat BM = 256 where the slab, the
+//     accumulator and 3 stages fit at N=64 (at N=128 two register sets of
+//     BM/2 x 128 would not fit, so 128); two slabs where they fit beside 3
+//     stages, then the deepest ring.
 // M need not be a multiple of a tile (3248 = 16 * 203): the last tile
 // zero-fills the rows past x's end and stores only rows < M.
 #include <cuda.h>  // CUtensorMap; the encoder comes through the runtime
@@ -115,18 +135,15 @@
 #include <stdint.h>
 
 #include <climits>
+#include <mutex>
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kPad = 8;          // bf16 (16 B) of padding per shared row
 constexpr int kHalo = 8;         // rows of x past a tile that a tap reads
-constexpr int kThreads = 128;    // tap_smem_acc: 2 x 2 warps
-constexpr int kTapRows = 64;     // tap_smem_acc tile rows
-constexpr int kCarryMaxThreads = 1024;
 constexpr size_t kMaxSmem = 232448;
-// kcat_gemm: a chunk is 64 bf16 deep, one 128-byte row of the TMA swizzle
+// a chunk is 64 bf16 deep, one 128-byte row of the TMA swizzle
 constexpr int kChunk = 64;
 constexpr int kRowBytes = 128;
 constexpr int kKcatThreads = 384;   // producer warpgroup + 2 consumer ones
@@ -139,264 +156,12 @@ constexpr int kConsumerRegs = 232;
 constexpr int kMaxStages = 8;
 constexpr int kGroupBlocks = 32;    // blocks that share a tile in the walk
 constexpr size_t kKcatBarBytes = (2 * kMaxStages + 2) * sizeof(uint64_t);
+constexpr int kMaxSlabs = 2;        // tap: x slabs in flight
+constexpr size_t kTapBarBytes =
+    (2 * kMaxStages + 2 * kMaxSlabs) * sizeof(uint64_t);
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy global -> shared; zero-fills the 16 bytes when !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int Pending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// cp.async a rows x cols bf16 tile (cols % 8 == 0) from source rows row0 ..
-// row0+rows-1 of src (row stride ss elements) into dst (row stride ds);
-// source rows >= limit are zero-filled.
-__device__ __forceinline__ void load_tile(bf16* dst, int ds, const bf16* src,
-                                          int ss, int row0, int rows,
-                                          int cols, int limit) {
-  const int chunks = cols / 8;
-  for (int i = threadIdx.x; i < rows * chunks; i += blockDim.x) {
-    const int r = i / chunks, c = (i - r * chunks) * 8;
-    const int gr = row0 + r;
-    const bool ok = gr < limit;
-    cp_async16(dst + r * ds + c, src + (size_t)(ok ? gr : 0) * ss + c, ok);
-  }
-}
-
-// acc[MF][NF] += A (16*MF rows at a, row stride sa) x B (depth rows at b,
-// row stride sb, 8*NF columns), depth % 16 == 0, both in shared memory.
-template <int MF, int NF>
-__device__ __forceinline__ void warp_mma(float (&acc)[MF][NF][4],
-                                         const bf16* a, int sa, const bf16* b,
-                                         int sb, int depth) {
-  const int lane = threadIdx.x & 31;
-  const int lr = lane & 15, lc = (lane >> 4) * 8;
-#pragma unroll 2
-  for (int k = 0; k < depth; k += 16) {
-    uint32_t af[MF][4];
-#pragma unroll
-    for (int i = 0; i < MF; ++i) ldmatrix_x4(af[i], a + (i * 16 + lr) * sa + k + lc);
-#pragma unroll
-    for (int j = 0; j < NF; j += 2) {
-      uint32_t bf[4];
-      ldmatrix_x4_trans(bf, b + (k + lr) * sb + j * 8 + lc);
-#pragma unroll
-      for (int i = 0; i < MF; ++i) {
-        mma_bf16(acc[i][j], af[i], bf[0], bf[1]);
-        mma_bf16(acc[i][j + 1], af[i], bf[2], bf[3]);
-      }
-    }
-  }
-}
-
-template <int MF, int NF>
-__device__ __forceinline__ void zero(float (&acc)[MF][NF][4]) {
-#pragma unroll
-  for (int i = 0; i < MF; ++i)
-#pragma unroll
-    for (int j = 0; j < NF; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-}
-
-// The f32 element pair (row, col) .. (row, col+1) that a lane holds in
-// fragment (i, j), half h (rows +8), of a warp tile at (r0, c0).
-#define FRAG_ROW(r0, i, h) ((r0) + (i) * 16 + ((threadIdx.x & 31) >> 2) + (h) * 8)
-#define FRAG_COL(c0, j) ((c0) + (j) * 8 + (threadIdx.x & 3) * 2)
-
-// Round a warp tile to bf16 and store rows < row_limit of out (row stride n).
-template <int MF, int NF>
-__device__ __forceinline__ void store_tile(bf16* out, int n, int r0, int c0,
-                                           int row_limit,
-                                           const float (&acc)[MF][NF][4]) {
-#pragma unroll
-  for (int i = 0; i < MF; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = FRAG_ROW(r0, i, h);
-      if (r >= row_limit) continue;
-#pragma unroll
-      for (int j = 0; j < NF; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)r * n +
-                                           FRAG_COL(c0, j)) =
-            __floats2bfloat162_rn(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-    }
-}
-
-// probe (PAIR = false: `stages` = inner taps of depth K) and paircat (PAIR =
-// true: `stages` = inner/2 pairs of depth 2K), accumulator in shared memory.
-template <int N, bool PAIR>
-__global__ void __launch_bounds__(kThreads)
-tap_smem_acc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                    bf16* __restrict__ out, int M, int K, int stages) {
-  constexpr int MF = 2, NF = N / 16, WN = N / 2;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int tk = PAIR ? 2 * K : K;
-  const int xs = K + kPad, ws = N + kPad, as = N + kPad;
-  bf16* x_s = reinterpret_cast<bf16*>(smem);            // [72][K + 8]
-  bf16* w_s = x_s + (kTapRows + kHalo) * xs;            // [2][tk][N + 8]
-  float* acc_s = reinterpret_cast<float*>(w_s + 2 * tk * ws);  // [64][N + 8]
-  const int tiles = (M + kTapRows - 1) / kTapRows;
-  const int row0 = (blockIdx.x % tiles) * kTapRows;
-  const int warp = threadIdx.x >> 5;
-  const int wr = (warp >> 1) * 32, wc = (warp & 1) * WN;
-
-  load_tile(x_s, xs, x, K, row0, kTapRows + kHalo, K, M + kHalo);
-  load_tile(w_s, ws, w, N, 0, tk, N, tk);
-  cp_async_commit();
-  // each thread reads and writes only its own accumulator elements
-#pragma unroll
-  for (int i = 0; i < MF; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int j = 0; j < NF; ++j)
-        *reinterpret_cast<float2*>(acc_s + FRAG_ROW(wr, i, h) * as +
-                                   FRAG_COL(wc, j)) = make_float2(0.f, 0.f);
-
-  for (int s = 0; s < stages; ++s) {
-    if (s + 1 < stages)
-      load_tile(w_s + ((s + 1) & 1) * tk * ws, ws,
-                w + (size_t)(s + 1) * tk * N, N, 0, tk, N, tk);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    float part[MF][NF][4];
-    zero(part);
-    const bf16* wb = w_s + (s & 1) * tk * ws + wc;
-    warp_mma<MF, NF>(part, x_s + (wr + (s & 1) * kHalo) * xs, xs, wb, ws, K);
-    if (PAIR)
-      warp_mma<MF, NF>(part, x_s + (wr + ((s + 1) & 1) * kHalo) * xs, xs,
-                       wb + K * ws, ws, K);
-#pragma unroll
-    for (int i = 0; i < MF; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int j = 0; j < NF; ++j) {
-          float2* p = reinterpret_cast<float2*>(
-              acc_s + FRAG_ROW(wr, i, h) * as + FRAG_COL(wc, j));
-          float2 v = *p;
-          v.x += part[i][j][2 * h];
-          v.y += part[i][j][2 * h + 1];
-          *p = v;
-        }
-    __syncthreads();
-  }
-  float acc[MF][NF][4];
-#pragma unroll
-  for (int i = 0; i < MF; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int j = 0; j < NF; ++j) {
-        const float2 v = *reinterpret_cast<const float2*>(
-            acc_s + FRAG_ROW(wr, i, h) * as + FRAG_COL(wc, j));
-        acc[i][j][2 * h] = v.x;
-        acc[i][j][2 * h + 1] = v.y;
-      }
-  store_tile(out, N, row0 + wr, wc, M, acc);
-}
-
-// One 32-bit A-fragment word (two bf16 of row r, columns col, col+1) of a
-// tile whose rows start at xa; zero for rows past the tile (r >= mt).
-__device__ __forceinline__ uint32_t a_word(const bf16* xa, int K, int r,
-                                           int mt, int col) {
-  return r < mt ? __ldg(reinterpret_cast<const unsigned int*>(
-                      xa + (size_t)r * K + col))
-                : 0u;
-}
-
-// carry: one block per mt-row tile; warp v owns m16 fragments v*F .. v*F+F-1
-// of the tile, all N columns, with their accumulators in registers.
-template <int N, int F>
-__global__ void __launch_bounds__(kCarryMaxThreads)
-tap_carry_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                 bf16* __restrict__ out, int M, int mt, int K, int inner) {
-  constexpr int NF = N / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* w_s = reinterpret_cast<bf16*>(smem);            // [2][K][N + 8]
-  const int ws = N + kPad;
-  const int tiles = M / mt;
-  const int row0 = (blockIdx.x % tiles) * mt;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int lr = lane & 15, lc = (lane >> 4) * 8;
-  const int g = lane >> 2, t2 = (lane & 3) * 2;
-  const int frags = (mt + 15) / 16, f0 = warp * F;
-
-  float acc[F][NF][4];
-  zero(acc);
-  load_tile(w_s, ws, w, N, 0, K, N, K);
-  cp_async_commit();
-  for (int i = 0; i < inner; ++i) {
-    if (i + 1 < inner)
-      load_tile(w_s + ((i + 1) & 1) * K * ws, ws, w + (size_t)(i + 1) * K * N,
-                N, 0, K, N, K);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* wb = w_s + (i & 1) * K * ws;
-    const bf16* xa = x + (size_t)(row0 + (i & 1) * kHalo) * K;
-    for (int k = 0; k < K; k += 16) {
-#pragma unroll
-      for (int f = 0; f < F; ++f) {
-        if (f0 + f >= frags) continue;                  // warp-uniform
-        const int r = (f0 + f) * 16 + g;
-        uint32_t a[4];
-        a[0] = a_word(xa, K, r, mt, k + t2);
-        a[1] = a_word(xa, K, r + 8, mt, k + t2);
-        a[2] = a_word(xa, K, r, mt, k + t2 + 8);
-        a[3] = a_word(xa, K, r + 8, mt, k + t2 + 8);
-#pragma unroll
-        for (int j = 0; j < NF; j += 2) {
-          uint32_t b[4];
-          ldmatrix_x4_trans(b, wb + (k + lr) * ws + j * 8 + lc);
-          mma_bf16(acc[f][j], a, b[0], b[1]);
-          mma_bf16(acc[f][j + 1], a, b[2], b[3]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-  store_tile(out, N, row0 + f0 * 16, 0, row0 + mt, acc);
 }
 
 // ---- kcat_gemm: wgmma, TMA and warp specialisation -------------------------
@@ -518,6 +283,47 @@ struct Wgmma<128> {
         : KC_D8(0), KC_D8(8), KC_D8(16), KC_D8(24), KC_D8(32), KC_D8(40),
           KC_D8(48), KC_D8(56)
         : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+// The same with A (64 x 16) from registers: per warp of the warpgroup,
+// its 16 rows as mma.m16n8k16's A fragment.
+template <int N>
+struct WgmmaRegA;
+
+template <>
+struct WgmmaRegA<64> {
+  __device__ __forceinline__ static void mma(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : KC_D8(0), KC_D8(8), KC_D8(16), KC_D8(24)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaRegA<128> {
+  __device__ __forceinline__ static void mma(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, "
+        "%67}, %68, p, 1, 1, 1;\n}\n"
+        : KC_D8(0), KC_D8(8), KC_D8(16), KC_D8(24), KC_D8(32), KC_D8(40),
+          KC_D8(48), KC_D8(56)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
   }
 };
 #undef KC_D8
@@ -755,16 +561,378 @@ kcat_gemm_kernel(const __grid_constant__ CUtensorMap tm_x,
   }
 }
 
-template <typename Kernel, typename... Args>
-int launch(Kernel kernel, long long blocks, int threads, size_t smem,
-           cudaStream_t stream, Args... args) {
-  if (blocks < 1 || blocks > INT_MAX || smem > kMaxSmem)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<(unsigned)blocks, threads, smem, stream>>>(args...);
-  return (int)cudaGetLastError();
+// ---- tap_wgmma: probe, paircat and carry -----------------------------------
+
+constexpr uint32_t kAccLaneBytes = 16;             // one float4 a lane
+constexpr uint32_t kAccStride = 128 * kAccLaneBytes;  // a warpgroup's float4s
+
+__device__ __forceinline__ float4 lds128(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void sts128(uint32_t addr, float x, float y,
+                                       float z, float w) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "f"(x), "f"(y), "f"(z), "f"(w)
+               : "memory");
+}
+
+// The thread's own elements of the shared f32 accumulator, in fragment
+// order: float4 q of m64 tile mt at acc + (mt * N/8 + q) * kAccStride.
+// rmw: acc (+)= d, storing d where `first`; add: d += acc.
+template <int N, int MT>
+__device__ __forceinline__ void acc_rmw(uint32_t acc, float (&d)[MT][N / 2],
+                                        bool first) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    fence_regs(d[mt]);
+#pragma unroll
+    for (int q = 0; q < N / 8; ++q) {
+      const uint32_t a = acc + (mt * (N / 8) + q) * kAccStride;
+      const float* v = d[mt] + 4 * q;
+      float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (!first) o = lds128(a);
+      sts128(a, o.x + v[0], o.y + v[1], o.z + v[2], o.w + v[3]);
+    }
+  }
+}
+
+template <int N, int MT>
+__device__ __forceinline__ void acc_add(uint32_t acc, float (&d)[MT][N / 2]) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    fence_regs(d[mt]);
+#pragma unroll
+    for (int q = 0; q < N / 8; ++q) {
+      const float4 o = lds128(acc + (mt * (N / 8) + q) * kAccStride);
+      d[mt][4 * q] += o.x;
+      d[mt][4 * q + 1] += o.y;
+      d[mt][4 * q + 2] += o.z;
+      d[mt][4 * q + 3] += o.w;
+    }
+  }
+}
+
+// A consumer warpgroup's side of the w ring: the stage it reads next, and
+// the one it read last, released once the chunk after it is issued.
+struct TapRing {
+  uint32_t full, empty, ph;
+  int stages, s, prev;
+  bool leader;
+  __device__ __forceinline__ TapRing(uint32_t full_, uint32_t empty_,
+                                     int stages_, bool leader_)
+      : full(full_), empty(empty_), ph(0), stages(stages_), s(0), prev(0),
+        leader(leader_) {}
+  __device__ __forceinline__ int wait() {
+    mbar_wait(full + 8 * s, ph);
+    return s;
+  }
+  // the chunk just issued stays in flight; the one before it is done
+  __device__ __forceinline__ void next(bool release) {
+    wgmma_wait<1>();
+    if (release && leader) mbar_arrive(empty + 8 * prev);
+    prev = s;
+    if (++s == stages) s = 0, ph ^= 1;
+  }
+  __device__ __forceinline__ void drain() {
+    wgmma_wait<0>();
+    if (leader) mbar_arrive(empty + 8 * prev);
+  }
+};
+
+__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+// wgmma's register A of the consumer's rows of one column box: a[mt][kk]
+// for step kk of m64 tile mt, the rows starting at `rows`, the box's first
+// row or 8 rows down (a 1,024-byte phase of the box). The 128-byte swizzle
+// keeps 16-byte chunk c of row r at chunk c ^ (r % 8).
+template <int MT>
+__device__ __forceinline__ void load_a(uint32_t (&a)[MT][4][4],
+                                       uint32_t rows) {
+  const int lane = threadIdx.x & 31, q = lane >> 2;
+  const uint32_t base = rows +
+                        ((threadIdx.x % 128) / 32 * 16 + q) * kRowBytes +
+                        (lane & 3) * 4;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int kk = 0; kk < kChunk / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        a[mt][kk][r] = lds32(base + (mt * 64 + (r & 1) * 8) * kRowBytes +
+                             (((kk * 2 + (r >> 1)) ^ q) << 4));
+}
+
+// The k16 steps of one chunk into d, w at b0 and A from the slab: at a0,
+// read in place through a descriptor, or with REG_A from the registers af;
+// step kk goes to chain kk % CH of its m64 tile, and each chain's first step
+// (first: the first chunk) overwrites it (scale_d = 0).
+template <int N, int MT, int CH, bool REG_A>
+__device__ __forceinline__ void tap_steps(float (&d)[MT * CH][N / 2],
+                                          const uint32_t (&af)[MT][4][4],
+                                          uint32_t a0, uint32_t b0,
+                                          bool first) {
+  constexpr uint32_t kNBlock = kChunk * kRowBytes;
+#pragma unroll
+  for (int kk = 0; kk < kChunk / 16; ++kk) {
+    const uint64_t db = sw128_desc(b0 + kk * 16 * kRowBytes, kNBlock,
+                                   8 * kRowBytes);
+    const int scale = !first || kk >= CH;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      if constexpr (REG_A)
+        WgmmaRegA<N>::mma(d[mt * CH + kk % CH], af[mt][kk], db, scale);
+      else
+        Wgmma<N>::mma(d[mt * CH + kk % CH],
+                      sw128_desc(a0 + mt * 64 * kRowBytes + kk * 32, 16,
+                                 8 * kRowBytes),
+                      db, scale);
+    }
+  }
+}
+
+// Chunk c of a unit into d (first: the first chunk of d): tap t = c / kbs
+// at the slab's column box c mod kbs, the window off(t) rows down (slab: the
+// consumer's first row of box 0). With REG_A (K = 64, so t = c) A comes from
+// a, both windows' registers (load_a).
+template <int N, int BM, int CH, bool REG_A>
+__device__ __forceinline__ void tap_chunk(
+    float (&d)[BM / 128 * CH][N / 2], TapRing& ring, uint32_t w_ring,
+    uint32_t slab, const uint32_t (&a)[2][BM / 128][4][4], int c, bool first,
+    int kbs, int pair) {
+  constexpr int MT = BM / 128;
+  constexpr uint32_t kW = kChunk * N * 2;
+  constexpr uint32_t kSlabBox = (BM + kHalo) * kRowBytes;
+  const int t = REG_A ? c : c / kbs;
+  const int win = pair ? ((t >> 1) + (t & 1)) & 1 : t & 1;  // off(t) / 8
+  const uint32_t a0 =
+      slab + (c - t * kbs) * kSlabBox + win * kHalo * kRowBytes;
+  const uint32_t b0 = w_ring + ring.wait() * kW;
+#pragma unroll
+  for (int m = 0; m < MT * CH; ++m) fence_regs(d[m]);
+  wgmma_fence();
+  if constexpr (REG_A) {
+    // one copy of the steps for each window: a is indexed statically
+#pragma unroll
+    for (int w = 0; w < 2; ++w)
+      if (w == win) tap_steps<N, MT, CH, true>(d, a[w], a0, b0, first);
+  } else {
+    tap_steps<N, MT, CH, false>(d, a[0], a0, b0, first);
+  }
+  wgmma_commit();
+#pragma unroll
+  for (int m = 0; m < MT * CH; ++m) fence_regs(d[m]);
+  ring.next(c > 0);
+}
+
+// Chunks c0 .. c0+n-1 of a unit into d, with PAIRS two to an iteration of
+// the loop (carry ran 3-7 % faster so on an H100; probe and paircat did
+// not gain).
+template <int N, int BM, int CH, bool REG_A, bool PAIRS>
+__device__ __forceinline__ void tap_chunks(
+    float (&d)[BM / 128 * CH][N / 2], TapRing& ring, uint32_t w_ring,
+    uint32_t slab, const uint32_t (&a)[2][BM / 128][4][4], int c0, int n,
+    int kbs, int pair) {
+  for (int i = 0; i < n; i += PAIRS ? 2 : 1) {
+    tap_chunk<N, BM, CH, REG_A>(d, ring, w_ring, slab, a, c0 + i, i == 0, kbs,
+                                pair);
+    if (PAIRS && i + 1 < n)
+      tap_chunk<N, BM, CH, REG_A>(d, ring, w_ring, slab, a, c0 + i + 1, false,
+                                  kbs, pair);
+  }
+}
+
+// probe's and paircat's taps of a unit (paircat: its pairs), each of `group`
+// chunks: tap j into p0 (j even) or p1, the set of tap j-1 added to the
+// shared accumulator while tap j runs. Returns whether the last tap is in
+// p1; it is still to be added (acc_store).
+template <int N, int BM, bool REG_A>
+__device__ __forceinline__ bool rmw_taps(
+    float (&p0)[BM / 128][N / 2], float (&p1)[BM / 128][N / 2],
+    TapRing& ring, uint32_t w_ring, uint32_t slab,
+    const uint32_t (&a)[2][BM / 128][4][4], uint32_t acc, int taps,
+    int group, int kbs, int pair) {
+  constexpr int MT = BM / 128;
+  for (int j = 0; j < taps; j += 2) {
+    tap_chunks<N, BM, 1, REG_A, false>(p0, ring, w_ring, slab, a, j * group,
+                                       group, kbs, pair);
+    if (j > 0) acc_rmw<N, MT>(acc, p1, false);
+    if (j + 1 < taps) {
+      tap_chunks<N, BM, 1, REG_A, false>(p1, ring, w_ring, slab, a,
+                                         (j + 1) * group, group, kbs, pair);
+      acc_rmw<N, MT>(acc, p0, j == 0);
+    }
+  }
+  return ((taps - 1) & 1) != 0;
+}
+
+// The last tap's set d plus the shared accumulator (none with one tap),
+// rounded and stored: rows row + m*64 .. of the consumer, those < limit.
+template <int N, int MT>
+__device__ __forceinline__ void acc_store(bf16* out, uint32_t acc,
+                                          float (&d)[MT][N / 2], bool add,
+                                          int row, int limit) {
+  if (add) acc_add<N, MT>(acc, d);
+#pragma unroll
+  for (int m = 0; m < MT; ++m) store_m64<N>(out, row + m * 64, limit, d[m]);
+}
+
+// probe (pair = 0) and paircat (pair = 1) with SMEM_ACC; carry without.
+// x (M+8, K) through tm_x (box 64 x BM) and tm_halo (box 64 x 8); w viewed
+// as (inner*K, N) through tm_w (box 64 x 64). Unit `tile` of the walk is
+// rows row0 = (tile / subs) * mt + (tile % subs) * BM .. row0 + BM - 1, of
+// which rows below (tile / subs) * mt + mt and M are stored; probe and
+// paircat pass mt = BM and subs = 1.
+template <int N, int BM, bool SMEM_ACC>
+__global__ void __launch_bounds__(kKcatThreads, 1)
+tap_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
+                 const __grid_constant__ CUtensorMap tm_halo,
+                 const __grid_constant__ CUtensorMap tm_w,
+                 bf16* __restrict__ out, int M, int K, int inner, int pair,
+                 int mt, int subs, int tiles, int steps, int stages,
+                 int slabs, int groups) {
+  constexpr int MT = BM / 128;                 // m64 tiles a consumer
+  constexpr uint32_t kW = kChunk * N * 2;      // w chunk bytes
+  constexpr uint32_t kNBlock = kChunk * kRowBytes;  // one 64-column w box
+  constexpr uint32_t kSlabBox = (BM + kHalo) * kRowBytes;
+  constexpr uint32_t kAccBytes = SMEM_ACC ? BM * N * 4 : 0;
+  extern __shared__ unsigned char tap_smem[];
+  // the 128-byte swizzle repeats every 1,024 bytes: align the ring to it
+  const uint32_t ring = (smem_u32(tap_smem) + 1023) & ~1023u;
+  const int kbs = K / kChunk;
+  const int chunks = inner * kbs;
+  const uint32_t slab_bytes = kbs * kSlabBox;
+  const uint32_t slab0 = ring + stages * kW;
+  const uint32_t acc = slab0 + slabs * slab_bytes;
+  const uint32_t full = acc + kAccBytes;
+  const uint32_t empty = full + kMaxStages * 8;
+  const uint32_t slab_full = empty + kMaxStages * 8;
+  const uint32_t slab_empty = slab_full + kMaxSlabs * 8;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2);                 // one per consumer
+    }
+    for (int b = 0; b < slabs; ++b) {
+      mbar_init(slab_full + 8 * b, 1);
+      mbar_init(slab_empty + 8 * b, 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer: thread 0 loads each unit's slab, then w a chunk ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs)
+                 : "memory");
+    if (threadIdx.x == 0) {
+      int s = 0;
+      uint32_t ph = 0;
+      unsigned n = 0;                              // units of this block
+      for (KcatWalk u(tiles, steps, groups); u.more(); u.next(), ++n) {
+        const int t = u.tile();
+        const int row0 = t / subs * mt + t % subs * BM;
+        const unsigned b = n % slabs, use = n / slabs;
+        const uint32_t slab = slab0 + b * slab_bytes;
+        // once both consumers are done with this buffer's last slab
+        mbar_wait(slab_empty + 8 * b, (use & 1) ^ 1);
+        mbar_arrive_tx(slab_full + 8 * b, slab_bytes);
+        for (int kb = 0; kb < kbs; ++kb) {
+          tma_load(slab + kb * kSlabBox, &tm_x, slab_full + 8 * b,
+                   kb * kChunk, row0);
+          tma_load(slab + kb * kSlabBox + BM * kRowBytes, &tm_halo,
+                   slab_full + 8 * b, kb * kChunk, row0 + BM);
+        }
+        for (int c = 0; c < chunks; ++c) {
+          mbar_wait(empty + 8 * s, ph ^ 1);
+          const uint32_t st = ring + s * kW;
+          mbar_arrive_tx(full + 8 * s, kW);
+#pragma unroll
+          for (int nb = 0; nb < N / 64; ++nb)
+            tma_load(st + nb * kNBlock, &tm_w, full + 8 * s, nb * 64,
+                     c * kChunk);
+          if (++s == stages) s = 0, ph ^= 1;
+        }
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: rows g*BM/2 .. of each unit ---------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs)
+                 : "memory");
+    const int g = wg - 1;
+    const bool leader = threadIdx.x % 128 == 0;
+    const uint32_t accp =
+        acc + g * (kAccBytes / 2) + (threadIdx.x % 128) * kAccLaneBytes;
+    TapRing wr(full, empty, stages, leader);
+    // the tap (paircat: the pair) a shared-memory read-modify-write follows
+    const int group = pair ? 2 * kbs : kbs, taps = chunks / group;
+    unsigned n = 0;
+    for (KcatWalk u(tiles, steps, groups); u.more(); u.next(), ++n) {
+      const int t = u.tile();
+      const int first = t / subs * mt;
+      const int row0 = first + t % subs * BM;
+      const int limit = first + mt < M ? first + mt : M;
+      const int row = row0 + g * (BM / 2) + (threadIdx.x % 128) / 32 * 16;
+      const unsigned b = n % slabs;
+      mbar_wait(slab_full + 8 * b, (n / slabs) & 1);
+      const uint32_t slab = slab0 + b * slab_bytes + g * (BM / 2) * kRowBytes;
+      uint32_t a[2][MT][4][4];
+      if constexpr (SMEM_ACC) {
+        // at K = 64 both windows' A fragments stay in registers for the
+        // unit, so wgmma reads only w from the shared memory that the
+        // read-modify-write keeps busy
+        float p0[MT][N / 2], p1[MT][N / 2];
+        bool last_p1;
+        if (kbs == 1) {
+          load_a<MT>(a[0], slab);
+          load_a<MT>(a[1], slab + kHalo * kRowBytes);
+          last_p1 = rmw_taps<N, BM, true>(p0, p1, wr, ring, slab, a, accp,
+                                          taps, group, kbs, pair);
+        } else {
+          last_p1 = rmw_taps<N, BM, false>(p0, p1, wr, ring, slab, a, accp,
+                                           taps, group, kbs, pair);
+        }
+        wr.drain();
+        if (leader) mbar_arrive(slab_empty + 8 * b);
+        if (last_p1)
+          acc_store<N, MT>(out, accp, p1, true, row, limit);
+        else
+          acc_store<N, MT>(out, accp, p0, taps > 1, row, limit);
+      } else {
+        // carry's 128-row tiles (one m64 tile a consumer) alternate their
+        // k16 steps between two accumulators: two independent wgmma chains
+        // in flight, summed before the store
+        constexpr int CH = MT == 1 ? 2 : 1;
+        float p0[MT * CH][N / 2];
+        tap_chunks<N, BM, CH, false, true>(p0, wr, ring, slab, a, 0, chunks,
+                                           kbs, pair);
+        wr.drain();
+        if (leader) mbar_arrive(slab_empty + 8 * b);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+#pragma unroll
+          for (int h = 0; h < CH; ++h) fence_regs(p0[m * CH + h]);
+#pragma unroll
+          for (int h = 1; h < CH; ++h)
+#pragma unroll
+            for (int e = 0; e < N / 2; ++e)
+              p0[m * CH][e] += p0[m * CH + h][e];
+          store_m64<N>(out, row + m * 64, limit, p0[m * CH]);
+        }
+      }
+    }
+  }
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -816,6 +984,16 @@ size_t kcat_smem_bytes(int bm, int stages, int K, int N, bool build) {
          kKcatBarBytes;
 }
 
+size_t tap_smem_bytes(int bm, int stages, int slabs, int K, int N,
+                      bool smem_acc) {
+  return 1024 + (size_t)stages * kChunk * N * 2 +
+         (size_t)slabs * (K / kChunk) * (bm + kHalo) * kRowBytes +
+         (smem_acc ? (size_t)bm * N * 4 : 0) + kTapBarBytes;
+}
+
+// The kind codes of mxu_fill_plan (ops/mxu_fill.py's KINDS).
+enum Kind { kProbe = 0, kCarry = 1, kBigdot = 2, kImcat = 3, kPaircat = 4 };
+
 struct Kcat {
   const bf16* x;
   const bf16* w;
@@ -823,42 +1001,80 @@ struct Kcat {
   int M, K, N, inner, build, steps;
 };
 
-// How a kcat launch runs; mxu_fill_kcat_plan's info, in this order.
-struct KcatPlan {
-  int bm, stages, smem, blocks, per_sm, units, groups;
+// probe, paircat and carry: inner taps of depth K (paircat: inner/2 pairs
+// of depth 2K); mt is carry's tile.
+struct Tap {
+  const bf16* x;
+  const bf16* w;
+  bf16* out;
+  int kind, M, K, N, inner, mt, steps;
 };
 
-// The grid of kcat_gemm_kernel<N, BM, BUILD> with a ring of `stages` on the
-// current device: persistent blocks, as many as the SMs hold, in groups of
-// about kGroupBlocks (KcatWalk).
-template <int N, int BM, bool BUILD>
-int kcat_grid(const Kcat& a, int stages, KcatPlan* p) {
-  const auto kernel = kcat_gemm_kernel<N, BM, BUILD>;
-  const size_t smem = kcat_smem_bytes(BM, stages, a.K, N, BUILD);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  int dev = 0, sms = 0, per_sm = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+// How a launch runs; mxu_fill_plan's info, in this order.
+struct Plan {
+  int bm, stages, smem, blocks, per_sm, units, groups, slabs, subtiles;
+};
+
+// SMs and blocks an SM of a kernel at `smem` bytes of dynamic shared memory
+// on the current device, asked of the runtime once for each kernel, size
+// and device. The kernel's shared-memory attribute, a cap, is set to the
+// most a block may have, so every size a plan takes is allowed.
+template <typename Kernel>
+cudaError_t occupancy(Kernel kernel, size_t smem, int* sms, int* per_sm) {
+  struct Seen {
+    Kernel kernel;
+    int dev;
+    size_t smem;
+    int sms, per_sm;
+  };
+  static std::mutex mu;
+  static Seen seen[64];
+  static int n_seen = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < n_seen; ++i)
+    if (seen[i].kernel == kernel && seen[i].dev == dev &&
+        seen[i].smem == smem) {
+      *sms = seen[i].sms;
+      *per_sm = seen[i].per_sm;
+      return cudaSuccess;
+    }
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
   if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
                                                         kKcatThreads, smem);
+  if (err == cudaSuccess && n_seen < 64)
+    seen[n_seen++] = {kernel, dev, smem, *sms, *per_sm};
+  return err;
+}
+
+// The grid of a persistent kernel over `tiles` x steps units on the current
+// device: as many blocks as the SMs hold, in groups of about kGroupBlocks
+// (KcatWalk). Fills every field of p but slabs and subtiles.
+template <typename Kernel>
+int persistent_grid(Kernel kernel, size_t smem, long long tiles, int steps,
+                    int bm, int stages, Plan* p) {
+  int sms = 0, per_sm = 0;
+  const cudaError_t err = occupancy(kernel, smem, &sms, &per_sm);
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const int tiles = (a.M + BM - 1) / BM;
-  const long long units = (long long)tiles * a.steps;
+  const long long units = tiles * steps;
   if (units > INT_MAX) return (int)cudaErrorInvalidValue;
   const long long grid = units < (long long)sms * per_sm ? units
                                                          : (long long)sms * per_sm;
   const long long groups = grid / kGroupBlocks;
-  *p = {BM, stages, (int)smem, (int)grid, per_sm, (int)units,
-        groups > 1 ? (int)groups : 1};
+  *p = {bm, stages, (int)smem, (int)grid, per_sm, (int)units,
+        groups > 1 ? (int)groups : 1, 0, 1};
   return 0;
 }
 
 template <int N, int BM, bool BUILD>
-int kcat_launch(const Kcat& a, const KcatPlan& p, cudaStream_t stream) {
+int kcat_launch(const Kcat& a, const Plan& p, cudaStream_t stream) {
   const int depth = BUILD ? a.inner * a.K : a.K;
   CUtensorMap tx, th, tw;
   if (!tensor_map(&tx, a.x, BUILD ? a.M + kHalo : a.M, a.K, BM) ||
@@ -878,7 +1094,7 @@ int kcat_launch(const Kcat& a, const KcatPlan& p, cudaStream_t stream) {
 // Plan and, with launch, run one kcat launch: BM = 256 wherever its slab
 // and a ring of 3 stages fit (bigdot always), else 128; the deepest ring
 // that fits.
-int kcat(const Kcat& a, bool launch, cudaStream_t stream, KcatPlan* p) {
+int kcat(const Kcat& a, bool launch, cudaStream_t stream, Plan* p) {
   const bool build = a.build != 0;
   if (a.steps < 1) return (int)cudaErrorInvalidValue;
   const int bm =
@@ -886,16 +1102,78 @@ int kcat(const Kcat& a, bool launch, cudaStream_t stream, KcatPlan* p) {
   int stages = kMaxStages;
   while (stages > 2 && kcat_smem_bytes(bm, stages, a.K, a.N, build) > kMaxSmem)
     --stages;
-  if (kcat_smem_bytes(bm, stages, a.K, a.N, build) > kMaxSmem)
-    return (int)cudaErrorInvalidValue;
-#define KCAT(n, tile, b)                                                \
-  if (a.N == n && bm == tile && build == b) {                           \
-    const int err = kcat_grid<n, tile, b>(a, stages, p);                \
-    return err || !launch ? err : kcat_launch<n, tile, b>(a, *p, stream); \
+  const size_t smem = kcat_smem_bytes(bm, stages, a.K, a.N, build);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+#define KCAT(n, tile, b)                                                    \
+  if (a.N == n && bm == tile && build == b) {                               \
+    int err = persistent_grid(kcat_gemm_kernel<n, tile, b>, smem,           \
+                              (a.M + tile - 1) / tile, a.steps, tile,       \
+                              stages, p);                                   \
+    p->slabs = b;                                                           \
+    return err || !launch ? err : kcat_launch<n, tile, b>(a, *p, stream);   \
   }
   KCAT(64, 256, false) KCAT(128, 256, false) KCAT(64, 128, true)
   KCAT(64, 256, true) KCAT(128, 128, true) KCAT(128, 256, true)
 #undef KCAT
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int N, int BM, bool SMEM_ACC>
+int tap_launch(const Tap& a, const Plan& p, cudaStream_t stream) {
+  const bool carry = a.kind == kCarry;
+  CUtensorMap tx, th, tw;
+  if (!tensor_map(&tx, a.x, a.M + kHalo, a.K, BM) ||
+      !tensor_map(&th, a.x, a.M + kHalo, a.K, kHalo) ||
+      !tensor_map(&tw, a.w, a.inner * a.K, N, kChunk))
+    return (int)cudaErrorInvalidValue;
+  tap_wgmma_kernel<N, BM, SMEM_ACC><<<p.blocks, kKcatThreads, p.smem,
+                                      stream>>>(
+      tx, th, tw, a.out, a.M, a.K, a.inner, (int)(a.kind == kPaircat),
+      carry ? a.mt : BM, p.subtiles,
+      p.units / a.steps, a.steps, p.stages, p.slabs, p.groups);
+  return (int)cudaGetLastError();
+}
+
+// Plan and, with launch, run one tap launch. carry takes the tile of 128
+// and 256 rows that computes the fewest rows of its mt-row tiles (256 on a
+// tie); probe and paircat 256 where the slab, the shared accumulator and
+// 3 stages fit at N=64, else 128 (at N=128 two register sets of 128 rows
+// take all of a consumer's registers). Then two slabs where they fit beside
+// 3 stages, and the deepest ring.
+int tap(const Tap& a, bool launch, cudaStream_t stream, Plan* p) {
+  const bool carry = a.kind == kCarry, smem_acc = !carry;
+  if (a.steps < 1 || a.K < kChunk || a.K % kChunk || a.inner < 1 ||
+      (a.kind == kPaircat && a.inner % 2) || (carry && (a.mt < 1 ||
+                                                         a.M % a.mt)))
+    return (int)cudaErrorInvalidValue;
+  const auto fits = [&](int bm, int slabs, int stages) {
+    return tap_smem_bytes(bm, stages, slabs, a.K, a.N, smem_acc) <= kMaxSmem;
+  };
+  int bm = 128;
+  if (carry)
+    bm = fits(256, 1, 3) && (a.mt + 255) / 256 * 2 <= (a.mt + 127) / 128
+             ? 256 : 128;
+  else if (a.N == 64 && fits(256, 1, 3))
+    bm = 256;
+  const int slabs = fits(bm, 2, 3) ? 2 : 1;
+  int stages = kMaxStages;
+  while (stages > 2 && !fits(bm, slabs, stages)) --stages;
+  if (!fits(bm, slabs, stages)) return (int)cudaErrorInvalidValue;
+  const size_t smem = tap_smem_bytes(bm, stages, slabs, a.K, a.N, smem_acc);
+  const int subs = carry ? (a.mt + bm - 1) / bm : 1;
+  const long long tiles =
+      carry ? (long long)(a.M / a.mt) * subs : (a.M + bm - 1) / bm;
+#define TAP(n, tile, acc)                                                   \
+  if (a.N == n && bm == tile && smem_acc == acc) {                          \
+    int err = persistent_grid(tap_wgmma_kernel<n, tile, acc>, smem, tiles,  \
+                              a.steps, tile, stages, p);                    \
+    p->slabs = slabs;                                                       \
+    p->subtiles = subs;                                                     \
+    return err || !launch ? err : tap_launch<n, tile, acc>(a, *p, stream);  \
+  }
+  TAP(64, 256, true) TAP(128, 128, true) TAP(64, 128, false)
+  TAP(64, 256, false) TAP(128, 128, false) TAP(128, 256, false)
+#undef TAP
   return (int)cudaErrorInvalidValue;
 }
 
@@ -904,49 +1182,24 @@ int kcat(const Kcat& a, bool launch, cudaStream_t stream, KcatPlan* p) {
 extern "C" {
 
 // Shapes are validated by the Python wrappers (ops/mxu_fill.py): N is 64 or
-// 128, K % 16 == 0 and the tap depth (K, or 2K with pair) <= 256.
+// 128, K % 64 == 0 and the tap depth (K, or 2K with pair) <= 256; inner is
+// the number of taps (even with pair). The plan picks the tile and the ring.
 int mxu_fill_tap(const void* x, const void* w, void* out, int M, int K, int N,
                  int inner, int pair, int steps, cudaStream_t stream) {
-  const bf16* xb = static_cast<const bf16*>(x);
-  const bf16* wb = static_cast<const bf16*>(w);
-  bf16* ob = static_cast<bf16*>(out);
-  const int stages = pair ? inner / 2 : inner, tk = pair ? 2 * K : K;
-  const size_t smem =
-      sizeof(bf16) * ((kTapRows + kHalo) * (K + kPad) + 2 * tk * (N + kPad)) +
-      sizeof(float) * kTapRows * (N + kPad);
-  const long long blocks = (long long)((M + kTapRows - 1) / kTapRows) * steps;
-  if (N == 64)
-    return pair ? launch(tap_smem_acc_kernel<64, true>, blocks, kThreads, smem,
-                         stream, xb, wb, ob, M, K, stages)
-                : launch(tap_smem_acc_kernel<64, false>, blocks, kThreads,
-                         smem, stream, xb, wb, ob, M, K, stages);
-  if (N == 128)
-    return pair ? launch(tap_smem_acc_kernel<128, true>, blocks, kThreads,
-                         smem, stream, xb, wb, ob, M, K, stages)
-                : launch(tap_smem_acc_kernel<128, false>, blocks, kThreads,
-                         smem, stream, xb, wb, ob, M, K, stages);
-  return (int)cudaErrorInvalidValue;
+  Plan p;
+  return tap({static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+              static_cast<bf16*>(out), pair ? kPaircat : kProbe, M, K, N,
+              inner, 0, steps},
+             true, stream, &p);
 }
 
-// M % mt == 0, mt <= 2048 (F = ceil(ceil(mt/16) / 32) <= 4), K % 16 == 0.
+// M % mt == 0, K % 64 == 0, K <= 256.
 int mxu_fill_carry(const void* x, const void* w, void* out, int M, int mt,
                    int K, int N, int inner, int steps, cudaStream_t stream) {
-  const bf16* xb = static_cast<const bf16*>(x);
-  const bf16* wb = static_cast<const bf16*>(w);
-  bf16* ob = static_cast<bf16*>(out);
-  const int frags = (mt + 15) / 16;
-  const int f = (frags + 31) / 32;
-  const int threads = (frags + f - 1) / f * 32;
-  const size_t smem = sizeof(bf16) * 2 * K * (N + kPad);
-  const long long blocks = (long long)(M / mt) * steps;
-#define CARRY(n, ff)                                                          \
-  if (N == n && f == ff)                                                      \
-    return launch(tap_carry_kernel<n, ff>, blocks, threads, smem, stream, xb, \
-                  wb, ob, M, mt, K, inner);
-  CARRY(64, 1) CARRY(64, 2) CARRY(64, 3) CARRY(64, 4)
-  CARRY(128, 1) CARRY(128, 2) CARRY(128, 3) CARRY(128, 4)
-#undef CARRY
-  return (int)cudaErrorInvalidValue;
+  Plan p;
+  return tap({static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+              static_cast<bf16*>(out), kCarry, M, K, N, inner, mt, steps},
+             true, stream, &p);
 }
 
 // bigdot (build = 0): K % 64 == 0. imcat (build = 1): K % 64 == 0, K <= 256,
@@ -954,25 +1207,32 @@ int mxu_fill_carry(const void* x, const void* w, void* out, int M, int mt,
 int mxu_fill_kcat(const void* x, const void* w, void* out, int M, int K,
                   int N, int inner, int build, int steps,
                   cudaStream_t stream) {
-  KcatPlan p;
+  Plan p;
   return kcat({static_cast<const bf16*>(x), static_cast<const bf16*>(w),
                static_cast<bf16*>(out), M, K, N, inner, build, steps},
               true, stream, &p);
 }
 
-// The plan of a kcat launch without launching it: info[0..6] = BM, ring
-// stages, dynamic shared memory bytes, persistent blocks, blocks an SM,
-// (step, M-tile) units, groups of the walk.
-int mxu_fill_kcat_plan(int M, int K, int N, int inner, int build, int steps,
-                       int* info) {
-  KcatPlan p;
-  const int err = kcat({nullptr, nullptr, nullptr, M, K, N, inner, build,
-                        steps},
-                       false, nullptr, &p);
+// The plan of a launch of probe (kind 0), carry (1), bigdot (2), imcat (3)
+// or paircat (4) without launching it: info[0..8] = BM, ring stages, dynamic
+// shared memory bytes, persistent blocks, blocks an SM, (step, tile) units,
+// groups of the walk, x slabs (0 for bigdot) and sub-tiles of a carry tile
+// (1 for the others).
+int mxu_fill_plan(int kind, int M, int K, int N, int inner, int mt, int steps,
+                  int* info) {
+  if (kind < kProbe || kind > kPaircat) return (int)cudaErrorInvalidValue;
+  Plan p;
+  const int err =
+      kind == kBigdot || kind == kImcat
+          ? kcat({nullptr, nullptr, nullptr, M, K, N, inner,
+                  kind == kImcat, steps},
+                 false, nullptr, &p)
+          : tap({nullptr, nullptr, nullptr, kind, M, K, N, inner, mt, steps},
+                false, nullptr, &p);
   if (err == 0) {
-    const int vals[7] = {p.bm,     p.stages, p.smem, p.blocks,
-                         p.per_sm, p.units,  p.groups};
-    for (int i = 0; i < 7; ++i) info[i] = vals[i];
+    const int vals[9] = {p.bm,    p.stages, p.smem,  p.blocks,  p.per_sm,
+                         p.units, p.groups, p.slabs, p.subtiles};
+    for (int i = 0; i < 9; ++i) info[i] = vals[i];
   }
   return err;
 }

@@ -2,7 +2,9 @@
 
 Port of ``mscl_tpu/models/necks/base_moco.py`` ``BaseMoCo`` and ``TPNMoCo``
 (with emb_from_bkb=True).
-Both return (x_emb (N, C), feature list).
+Both return (x_emb (N, C), feature list); with ``mlvl=False`` the list is
+None and TPNMoCo does not run its pyramid (the key towers, whose features
+nothing reads).
 """
 from __future__ import annotations
 
@@ -26,8 +28,8 @@ class BaseMoCo(nn.Module):
     def init_weights(self, gen: torch.Generator):
         pass
 
-    def forward(self, x):
-        return gap3d(x[-1]), list(x)
+    def forward(self, x, mlvl: bool = True):
+        return gap3d(x[-1]), list(x) if mlvl else None
 
 
 @NECKS.register_module()
@@ -47,5 +49,5 @@ class TPNMoCo(nn.Module):
     def init_weights(self, gen: torch.Generator):
         self.tpn.init_weights(gen)
 
-    def forward(self, x):
-        return gap3d(x[-1]), self.tpn(x)
+    def forward(self, x, mlvl: bool = True):
+        return gap3d(x[-1]), self.tpn(x) if mlvl else None

@@ -9,7 +9,12 @@ Port of ``mscl_tpu/models/recognizers/moco.py``:
   - InfoNCE logits [l_pos | q . (queue * t_decay**count)] / T, label 0, with
     the negative product in the decayed-InfoNCE kernel;
   - key BN statistics over the global batch (no ShuffleBN), as in the JAX
-    package.
+    package;
+  - the key side's multi-level features are not computed: no head reads
+    them (LMCL reads the query side's), and its embedding is pooled from the
+    backbone's last stage, so the key neck's pyramid would be dead work
+    (under jit, XLA drops it from the reference too). ``neck_k`` keeps its
+    parameters for the EMA and the weight converter.
 
 The enqueue is out of place: each one makes a new queue tensor. The
 negative products of this pass, and the cross-modal head later in the step,
@@ -144,14 +149,14 @@ class MoCoV2(nn.Module):
         q_emb, q_mlvl = self.neck_q(self.encoder_q(im_q))
         q = F.normalize(self.mlp_q(q_emb), dim=1, eps=1e-12)
         with torch.no_grad():
-            k_emb, k_mlvl = self.neck_k(self.encoder_k(im_k))
+            k_emb, _ = self.neck_k(self.encoder_k(im_k), mlvl=False)
             k = F.normalize(self.mlp_k(k_emb), dim=1, eps=1e-12)
-        return q, q_mlvl, k, k_mlvl
+        return q, q_mlvl, k
 
     def forward_train(self, im_q, im_k, update_queue: bool = True):
         """im_q/im_k: (B, C, T, H, W). Returns (losses, features); features
         carry ``bank`` = (queue, decay) as they were before the enqueue."""
-        q, q_mlvl, k, k_mlvl = self.extract_feat(im_q, im_k)
+        q, q_mlvl, k = self.extract_feat(im_q, im_k)
         l_pos = (q * k).sum(dim=1, keepdim=True)
         decay = decay_weights(self.count, self.t_decay)
         bank = (self.queue, decay)
@@ -163,8 +168,8 @@ class MoCoV2(nn.Module):
         if self.training:
             self.iters = self.iters + k.shape[0]
         losses = self.moco_head.loss(logits, labels)
-        return losses, dict(q=q, q_mlvl=q_mlvl, k=k, k_mlvl=k_mlvl,
-                            q_neg=l_neg, bank=bank)
+        return losses, dict(q=q, q_mlvl=q_mlvl, k=k, q_neg=l_neg,
+                            bank=bank)
 
 
 def build_ema_fn(model):

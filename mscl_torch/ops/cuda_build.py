@@ -72,7 +72,8 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
 def ptxas_report(name: str) -> Dict[str, dict]:
     """Registers, static shared memory, stack frame and spill bytes of each
     kernel of a built source, by mangled name, from its ptxas log (empty if
-    the library was built without one)."""
+    the library was built without one), and ``wgmma_serialized``, ptxas's
+    reason, where it serialized the kernel's wgmma."""
     log = library_path(name).with_suffix('.log')
     text = log.read_text() if log.exists() else ''
     report = {}
@@ -90,6 +91,12 @@ def ptxas_report(name: str) -> Dict[str, dict]:
             info['registers'] = int(regs[1])
         info['static_smem_bytes'] = int(smem[1]) if smem else 0
         report[kernel] = info
+    # ptxas names the kernels whose wgmma it had to serialize, and why
+    for why, kernel in re.findall(r'wgmma\.mma_async instructions are '
+                                  r"serialized due to (.*?) in the "
+                                  r"function '([^']+)'", text):
+        if kernel in report:
+            report[kernel]['wgmma_serialized'] = why
     return report
 
 

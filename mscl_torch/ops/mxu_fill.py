@@ -37,15 +37,15 @@ from . import cuda_build
 
 HALO = 8                 # rows of x past m that the offset taps read
 NS = (64, 128)           # output widths the kernels are built for
-MAX_TAP_DEPTH = 256      # K (paircat 2K) of one tap staged in shared memory
-MAX_MT = 2048            # carry: at most 4 m16 fragments for each of 32 warps
+MAX_TAP_DEPTH = 256      # K (paircat 2K) of one tap, for the x slab and ring
 MAX_KCAT = 2048          # imcat: inner*K columns the wrapper takes
-KCAT_CHUNK = 64          # bigdot and imcat: depth of a staged chunk
-# rows of a tile; the kernel's plan gives bigdot 256 and imcat 128 or 256,
-# so their (step, tile) units are counted at 128, the most there can be
-TILE_ROWS = {'probe': 64, 'paircat': 64, 'bigdot': 128, 'imcat': 128}
+CHUNK = 64               # depth of a staged chunk: every K is a multiple
+# rows of a tile; the kernels' plans take 128 or 256, so the (step, tile)
+# units are counted at 128, the most there can be
+TILE_ROWS = 128
+KINDS = ('probe', 'carry', 'bigdot', 'imcat', 'paircat')  # the C kind codes
 PLAN_KEYS = ('bm', 'stages', 'smem_bytes', 'blocks', 'blocks_per_sm',
-             'units', 'groups')
+             'units', 'groups', 'slabs', 'subtiles')
 
 
 def _window(x, off, m):
@@ -148,17 +148,16 @@ def _check_kernel(kind, x, w, m, k, n, inner=None, mt=None, steps=1):
             raise ValueError(f'{kind}: operands must be 16-byte aligned')
     if n not in NS:
         raise ValueError(f'{kind}: n={n} is not one of {NS}')
+    if k % CHUNK:
+        raise ValueError(f'{kind}: k={k} is not a multiple of {CHUNK}')
     depth = 2 * k if kind == 'paircat' else k
-    if kind != 'bigdot' and (k % 16 or depth > MAX_TAP_DEPTH):
-        raise ValueError(f'{kind}: tap depth {depth} is not a multiple of 16 '
-                         f'up to {MAX_TAP_DEPTH}')
-    if kind == 'carry' and mt > MAX_MT:
-        raise ValueError(f'carry: mt={mt} > {MAX_MT}')
-    if kind == 'bigdot' and k % KCAT_CHUNK:
-        raise ValueError(f'bigdot: k={k} is not a multiple of {KCAT_CHUNK}')
+    if kind != 'bigdot' and depth > MAX_TAP_DEPTH:
+        raise ValueError(f'{kind}: tap depth {depth} > {MAX_TAP_DEPTH}')
     if kind == 'imcat' and inner * k > MAX_KCAT:
         raise ValueError(f'imcat: inner*k={inner * k} > {MAX_KCAT}')
-    tiles = m // mt if kind == 'carry' else -(-m // TILE_ROWS[kind])
+    # carry: each mt-row tile is a unit for each of its sub-tiles
+    tiles = (m // mt * -(-mt // TILE_ROWS) if kind == 'carry' else
+             -(-m // TILE_ROWS))
     if tiles * steps > 2 ** 31 - 1:
         raise ValueError(f'{kind}: {tiles} tiles x {steps} steps is more '
                          'blocks (or units) than one launch takes')
@@ -218,9 +217,9 @@ def _lib():
     lib.mxu_fill_tap.argtypes = [p, p, p, i, i, i, i, i, i, p]
     lib.mxu_fill_carry.argtypes = [p, p, p, i, i, i, i, i, i, p]
     lib.mxu_fill_kcat.argtypes = [p, p, p, i, i, i, i, i, i, p]
-    lib.mxu_fill_kcat_plan.argtypes = [i, i, i, i, i, i, p]
+    lib.mxu_fill_plan.argtypes = [i, i, i, i, i, i, i, p]
     for fn in (lib.mxu_fill_tap, lib.mxu_fill_carry, lib.mxu_fill_kcat,
-               lib.mxu_fill_kcat_plan):
+               lib.mxu_fill_plan):
         fn.restype = i
     return lib
 
@@ -237,7 +236,8 @@ def _raise_on(err, what):
 def probe(x, w, m, k, n, inner, steps=1):
     """``make_probe(m, k, n, inner, steps)(x, w)``: x (m+8, k), w (inner, k,
     n) -> (m, n), f32 accumulator in shared memory read-modify-written each
-    tap. Kernel on CUDA, plain on CPU."""
+    tap, the taps' windows read in place from the tile's x slab. Kernel on
+    CUDA, plain on CPU."""
     if not _on_cuda(x):
         return probe_plain(x, w, m, k, n, inner, steps)
     _check_kernel('probe', x, w, m, k, n, inner, steps=steps)
@@ -251,7 +251,7 @@ def probe(x, w, m, k, n, inner, steps=1):
 def probe_carry(x, w, m, mt, k, n, inner, steps=1):
     """``make_probe_carry(m, mt, k, n, inner, steps)(x, w)``: the probe's
     function, with each mt-row tile's accumulator in registers across all
-    taps. Kernel on CUDA, plain on CPU."""
+    taps (in sub-tiles of 128 or 256 rows). Kernel on CUDA, plain on CPU."""
     if not _on_cuda(x):
         return probe_carry_plain(x, w, m, mt, k, n, inner, steps)
     _check_kernel('carry', x, w, m, k, n, inner, mt, steps)
@@ -262,14 +262,16 @@ def probe_carry(x, w, m, mt, k, n, inner, steps=1):
     return out
 
 
-def kcat_plan(kind, m, k, n, inner=1, steps=1):
-    """How bigdot's or imcat's kernel runs on the current CUDA device: the
-    tile rows (``bm``), ring ``stages``, dynamic shared memory, persistent
-    ``blocks``, blocks an SM, (step, tile) ``units`` and the walk's
-    ``groups`` of consecutive blocks, each on its own slice of the units."""
+def plan(kind, m, k, n, inner=1, mt=1, steps=1):
+    """How a probe's kernel runs on the current CUDA device: the tile rows
+    (``bm``), ring ``stages``, dynamic shared memory, persistent ``blocks``,
+    blocks an SM, (step, tile) ``units``, the walk's ``groups`` of
+    consecutive blocks (each on its own slice of the units), the x
+    ``slabs`` in flight (0 for bigdot) and carry's ``subtiles`` of an
+    mt-row tile (1 for the others; carry's units count each)."""
     info = (ctypes.c_int * len(PLAN_KEYS))()
-    _raise_on(_lib().mxu_fill_kcat_plan(m, k, n, inner, int(kind == 'imcat'),
-                                        steps, info), 'kcat_plan')
+    _raise_on(_lib().mxu_fill_plan(KINDS.index(kind), m, k, n, inner, mt,
+                                   steps, info), 'plan')
     return dict(zip(PLAN_KEYS, info))
 
 

@@ -15,6 +15,13 @@ prints it (name, steps, ms, TF/s), then, on the card, as a share of its
 It runs on the card (kernel times from CUDA events) unless given
 ``--device cpu``, where the probes' plain versions run and are timed on the
 host clock; ``--steps`` overrides the steps of every case.
+
+``--carry`` keeps the JAX tool's mt values, but on the card mt no longer
+decides where the sum lives: its kernel covers each mt-row tile with
+sub-tiles of 128 or 256 rows, each accumulated in registers across all taps,
+and recomputes the rows its last sub-tile runs past the tile. Its rows
+measure that, not an mt-row accumulator carried across the taps (a
+1624-row sum held whole in a block's registers would spill).
 """
 from __future__ import annotations
 
@@ -133,7 +140,10 @@ def parse_args(argv=None):
     p.add_argument('--iters', type=int, default=3)
     mode = p.add_mutually_exclusive_group()
     mode.add_argument('--carry', action='store_true',
-                      help='loop-carried (register) accumulator variant')
+                      help='register accumulator variant (on the card each '
+                           'mt-row tile is summed in sub-tiles of 128 or 256 '
+                           'rows, each in registers, not as one carried '
+                           'mt-row sum)')
     mode.add_argument('--kchain', action='store_true',
                       help='K-concat variants: bigdot / imcat / paircat at '
                            'the layer1 im2col geometry')

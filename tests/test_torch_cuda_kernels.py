@@ -8,12 +8,13 @@ the backward's split-K slabs (K=512), a K that is not a multiple of 4 (the
 summing order (two calls give the same bits). The correlation lookup at odd
 level sizes, C of 32, 100 and 256 (one, four and eight float4 chunks a
 lane), N of 1 and 8, and windows off every edge. The five tensor-core fill
-probes at M=3248 (ragged against every tile), 200 and 40 (below one tile), K
-of 64 (one chunk) to 1792, N of 64 and 128, carry's mt of 112, 464 and 1624
-(spilled, and not a multiple of 16), and 1, 8 and 133 steps (not a multiple
-of the persistent blocks); the plan of bigdot's and imcat's kernel (its
-tile, ring, blocks and groups), and their steps giving the bits of one.
-Skipped where there is no CUDA device."""
+probes at M=3248 (ragged against every tile), 928, 200 and 40 (below one
+tile), K of 64 (one chunk) to 1792, N of 64 and 128, 1, 2 and 27 taps (one
+register set, both, an odd count), carry's mt of 40, 112, 464 and 1624
+(tiles that end inside a sub-tile, and not a multiple of 16), and 1, 8 and
+133 steps (not a multiple of the persistent blocks); each kernel's plan (its
+tile, ring, slabs, sub-tiles, blocks and groups), and steps giving the bits
+of one. Skipped where there is no CUDA device."""
 import numpy as np
 import pytest
 import torch
@@ -137,10 +138,15 @@ MXU_CASES = [
     ('probe', 3248, dict(k=128, n=64, inner=27), 8),
     ('probe', 40, dict(k=256, n=128, inner=27), 8),
     ('probe', 3248, dict(k=256, n=128, inner=27), 1),
+    ('probe', 3248, dict(k=128, n=128, inner=27), 1),
+    ('probe', 200, dict(k=64, n=64, inner=1), 1),
+    ('probe', 3248, dict(k=64, n=64, inner=2), 8),
     ('carry', 3248, dict(mt=112, k=64, n=64, inner=27), 1),
     ('carry', 3248, dict(mt=464, k=128, n=64, inner=27), 8),
     ('carry', 3248, dict(mt=1624, k=128, n=64, inner=27), 1),
     ('carry', 40, dict(mt=40, k=256, n=128, inner=27), 8),
+    ('carry', 928, dict(mt=464, k=64, n=128, inner=27), 8),
+    ('carry', 3248, dict(mt=1624, k=256, n=128, inner=3), 1),
     ('bigdot', 3248, dict(k=1792, n=64), 1),
     ('bigdot', 40, dict(k=448, n=128), 8),
     ('bigdot', 3248, dict(k=896, n=128), 8),
@@ -157,6 +163,7 @@ MXU_CASES = [
     ('paircat', 3248, dict(k=64, n=64, inner=28), 1),
     ('paircat', 40, dict(k=128, n=128, inner=28), 8),
     ('paircat', 3248, dict(k=64, n=128, inner=28), 8),
+    ('paircat', 200, dict(k=64, n=64, inner=2), 1),
 ]
 
 
@@ -184,7 +191,12 @@ def test_mxu_fill_matches_plain(dev, kind, m, shape, steps):
 
 
 @pytest.mark.parametrize('kind,shape', [
-    ('bigdot', dict(k=1792, n=64)), ('imcat', dict(k=64, n=64, inner=28))])
+    ('bigdot', dict(k=1792, n=64)), ('imcat', dict(k=64, n=64, inner=28)),
+    ('probe', dict(k=64, n=64, inner=27)),
+    ('probe', dict(k=128, n=128, inner=27)),
+    ('carry', dict(mt=112, k=64, n=64, inner=27)),
+    ('carry', dict(mt=1624, k=128, n=64, inner=27)),
+    ('paircat', dict(k=64, n=64, inner=28))])
 def test_kcat_steps_give_the_same_bits(dev, kind, shape):
     """Every step of the persistent walk computes and stores its tile in
     the same order: 133 steps (not a multiple of the blocks) give the bits
@@ -214,10 +226,48 @@ def test_kcat_plan(dev, kind, m, shape, steps, bm):
     """The persistent walk's plan: the tile, a ring that fits a block, one
     unit for each (step, tile) and no more blocks than units or the SMs
     hold, and no more groups of blocks than blocks."""
-    plan = mf.kcat_plan(kind, m, steps=steps, **shape)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = mf.plan(kind, m, steps=steps, **shape)
     assert plan['bm'] == bm and plan['units'] == steps * -(-m // bm)
+    assert plan['slabs'] == (kind == 'imcat') and plan['subtiles'] == 1
+    _check_grid(dev, plan)
+
+
+def _check_grid(dev, plan):
+    """A ring that fits a block, no more blocks than units or the SMs
+    hold, and no more groups of blocks than blocks."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     assert 2 <= plan['stages'] <= 8 and plan['smem_bytes'] <= 232448
     assert plan['blocks'] == min(plan['units'],
                                  sms * plan['blocks_per_sm'])
     assert 1 <= plan['groups'] <= plan['blocks']
+
+
+# kind, m, shape, steps, the tile and sub-tiles the plan must take: carry
+# the tile that computes the fewest rows of an mt-row tile (256 on a tie),
+# probe and paircat 256 at N=64 and 128 at N=128; two slabs where they fit
+TAP_PLANS = [
+    ('probe', 3248, dict(k=64, n=64, inner=27), 132, 256, 1, 2),
+    ('probe', 40, dict(k=256, n=64, inner=27), 8, 256, 1, 1),
+    ('probe', 3248, dict(k=128, n=128, inner=27), 1, 128, 1, 2),
+    ('probe', 3248, dict(k=256, n=128, inner=27), 132, 128, 1, 1),
+    ('paircat', 3248, dict(k=64, n=64, inner=28), 133, 256, 1, 2),
+    ('paircat', 3248, dict(k=64, n=128, inner=28), 132, 128, 1, 2),
+    ('carry', 3248, dict(mt=112, k=64, n=64, inner=27), 132, 128, 1, 2),
+    ('carry', 3248, dict(mt=464, k=128, n=64, inner=27), 132, 256, 2, 2),
+    ('carry', 3248, dict(mt=1624, k=128, n=64, inner=27), 133, 128, 13, 2),
+    ('carry', 40, dict(mt=40, k=256, n=128, inner=27), 8, 128, 1, 2),
+]
+
+
+@pytest.mark.parametrize('kind,m,shape,steps,bm,subtiles,slabs', TAP_PLANS)
+def test_tap_plan(dev, kind, m, shape, steps, bm, subtiles, slabs):
+    """The tap kernel's plan: the tile, the slabs, one unit for each step
+    and tile (carry: each sub-tile of each mt-row tile), and a grid as
+    kcat's."""
+    plan = mf.plan(kind, m, steps=steps, **shape)
+    tiles = (m // shape['mt'] * subtiles if kind == 'carry' else
+             -(-m // bm))
+    assert (plan['bm'], plan['subtiles'], plan['slabs']) == (bm, subtiles,
+                                                             slabs)
+    assert plan['units'] == steps * tiles
+    _check_grid(dev, plan)

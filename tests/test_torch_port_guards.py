@@ -182,13 +182,14 @@ def _probe_operands(kind, m=40, k=64, n=64, inner=4, mt=20):
 @pytest.mark.parametrize('case', [
     'carry_m_mt', 'imcat_odd_inner', 'paircat_odd_inner', 'imcat_k',
     'probe_x_shape', 'paircat_w_shape', 'n', 'probe_depth', 'paircat_depth',
-    'carry_mt_max', 'bigdot_k', 'imcat_kcat', 'imcat_depth', 'steps',
+    'probe_k', 'carry_k', 'bigdot_k', 'imcat_kcat', 'imcat_depth', 'steps',
     'bigdot_units', 'imcat_units', 'device', 'dtype',
     'strided', 'unaligned'])
 def test_mxu_fill_refuses_what_the_kernel_cannot_take(monkeypatch, case):
     """What the JAX probes assert (m % mt, an odd inner for imcat and
     paircat, imcat's k not a multiple of 64) and what the kernels cannot
-    take are refused before any launch."""
+    take (a k that is not a multiple of their 64-deep chunks, a tap deeper
+    than 256) are refused before any launch."""
     def no_launch():
         raise AssertionError('reached the kernel library')
 
@@ -196,9 +197,10 @@ def test_mxu_fill_refuses_what_the_kernel_cannot_take(monkeypatch, case):
     monkeypatch.setattr(mf, '_lib', no_launch)
     kind = case.split('_')[0] if case.split('_')[0] in mf.ENTRY_POINTS \
         else 'probe'
-    size = dict(n=dict(n=96), probe_depth=dict(k=272),
-                paircat_depth=dict(k=144), carry_mt_max=dict(m=4096, mt=4096),
-                bigdot_k=dict(k=96), imcat_kcat=dict(k=128, inner=18),
+    size = dict(n=dict(n=96), probe_depth=dict(k=320),
+                paircat_depth=dict(k=192), probe_k=dict(k=80),
+                carry_k=dict(k=48), bigdot_k=dict(k=96),
+                imcat_kcat=dict(k=128, inner=18),
                 imcat_depth=dict(k=320, inner=2), bigdot_units=dict(m=3248),
                 imcat_units=dict(m=3248)).get(case, {})
     x, w, shape = _probe_operands(kind, **size)
