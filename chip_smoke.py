@@ -15,8 +15,14 @@ the exit code is nonzero:
 3. hold the correlation-lookup kernel against its plain version and float64
    at the flow-extraction shape (N=8, 16x22: 128x171 frames padded to
    128x176, at 1/8) and at RAFT's 440x1024 (N=1, 55x128), C=256, L=4, r=4,
-   with coords the grid plus normal noise of scale 8; coords at -1000 must
-   give exact zeros; time the kernel and its plain version with L2 flushed;
+   with coords the grid plus normal noise of scale 8, a smooth flow, and (at
+   440x1024) noise of scale 64, whose window unions exceed a stage; two
+   calls must give the same bits; coords at -1000 must give exact zeros;
+   time the kernel (and its host time a call, and level 0 alone) and its
+   plain version with L2 flushed; log the corners, the bytes a per-corner
+   gather would move and the bytes the kernel's tiles stage; its ptxas
+   report and launch (no spill) and a SASS check for its staging copies
+   (corr_lookup_ptxas);
 4. the tensor-core fill probes (mxu_fill): each kernel against its plain
    version and float64 at the first case of each of the tool's case lists
    (M=3248; carry also at mt=1624), then timed at 132 steps with L2 flushed
@@ -94,6 +100,8 @@ STEPS = 3
 CORR_SHAPES = (('extraction_16x22', 8, 16, 22), ('raft_55x128', 1, 55, 128))
 CORR_C, CORR_LEVELS, CORR_RADIUS = 256, 4, 4
 CORR_TOL = dict(rtol=1e-5, atol=1e-5)  # tests/test_ops.py atol; C=256 sums
+# wide flow at RAFT's 440x1024: window unions beyond one stage
+CORR_WIDE_SHAPE, CORR_WIDE_SCALE = 'raft_55x128', 64.0
 # RAFT card vs CPU: the CPU's float32 flows differ from float64 ones by
 # about 7e-6 at a largest flow of 10 (64x64, 3 iterations); cuDNN sums in
 # other orders (and may take Winograd), so 100 times that
@@ -315,52 +323,131 @@ def corr_corners(coords, h, w):
     return total
 
 
+def wide_coords(dev, n, h, w, seed):
+    """The grid plus normal noise of scale CORR_WIDE_SCALE: each tile's
+    window union spreads over most of a level, beyond one stage."""
+    rng = np.random.default_rng(seed)
+    ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing='ij')
+    coords = np.stack([xs, ys], -1)[None].repeat(n, 0) + rng.normal(
+        scale=CORR_WIDE_SCALE, size=(n, h, w, 2))
+    return torch.from_numpy(coords.astype(np.float32)).to(dev)
+
+
+def corr_check(name, f1, pyr, coords):
+    """The lookup kernel at these coords against its plain version and
+    float64; two calls must give the same bits. Returns its errors."""
+    out = cl.corr_lookup(f1, pyr, coords, CORR_LEVELS, CORR_RADIUS)
+    again = cl.corr_lookup(f1, pyr, coords, CORR_LEVELS, CORR_RADIUS)
+    want = cl.corr_lookup_plain(f1, pyr.levels, coords, CORR_RADIUS)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, want, **CORR_TOL)
+    if not torch.equal(out, again):
+        raise AssertionError(f'corr_lookup {name}: two calls differ')
+    ref = cl.corr_lookup_plain(f1.double(), [v.double() for v in pyr.levels],
+                               coords.double(), CORR_RADIUS)
+    err64 = (out.double() - ref).abs().max().item()
+    limit = F64_REL * ref.abs().max().item()
+    if not err64 <= limit:
+        raise AssertionError(f'corr_lookup {name}: {err64} from float64 > '
+                             f'{limit}')
+    return dict(max_abs_err=(out - want).abs().max().item(), f64_err=err64,
+                f64_limit=limit), out
+
+
+def corr_traffic(coords, h, w):
+    """What the lookup at these coords reads on chip: its in-range corners,
+    the bytes a per-corner gather of f2 rows would move, and the bytes the
+    kernel's tiles stage from L2 (and their union boxes would), counted on
+    the host from its tile plan."""
+    corners = corr_corners(coords, h, w)
+    staged, boxed = cl.staged_positions(coords, CORR_LEVELS, CORR_RADIUS)
+    row = 4 * CORR_C
+    return dict(corners=corners, gather_bytes=corners * row,
+                staged_bytes=staged * row, box_bytes=boxed * row)
+
+
 def phase_corr_lookup(dev):
     """The lookup kernel against its plain version and float64, at the
-    extraction shape and at RAFT's 440x1024, and far off the image."""
+    extraction shape and at RAFT's 440x1024, with noisy, smooth and (at
+    440x1024) wide flows, and far off the image; timed with L2 flushed."""
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
     rows = {}
     for i, (name, n, h, w) in enumerate(CORR_SHAPES):
         f1, f2, coords = corr_inputs(dev, n, h, w, seed=10 + i)
         pyr = cl.corr_pyramid(f2, CORR_LEVELS)
-        out = cl.corr_lookup(f1, pyr, coords, CORR_LEVELS, CORR_RADIUS)
-        want = cl.corr_lookup_plain(f1, pyr.levels, coords, CORR_RADIUS)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(out, want, **CORR_TOL)
-        ref = cl.corr_lookup_plain(f1.double(),
-                                   [v.double() for v in pyr.levels],
-                                   coords.double(), CORR_RADIUS)
-        err64 = (out.double() - ref).abs().max().item()
-        limit = F64_REL * ref.abs().max().item()
-        if not err64 <= limit:
-            raise AssertionError(f'corr_lookup {name}: {err64} from float64 '
-                                 f'> {limit}')
+        flows = dict(noise=coords, smooth=smooth_coords(dev, n, h, w))
+        if name == CORR_WIDE_SHAPE:
+            flows['wide'] = wide_coords(dev, n, h, w, seed=20 + i)
+        # level 0 alone: what the coarser levels add to a call
+        pyr0 = cl.corr_pyramid(f2, 1)
+        checks = {}
+        for flow, cds in flows.items():
+            errs, out = corr_check(f'{name} {flow}', f1, pyr, cds)
+
+            def call(cds=cds):
+                return cl.corr_lookup(f1, pyr, cds, CORR_LEVELS, CORR_RADIUS)
+            checks[flow] = dict(
+                errs, **corr_traffic(cds, h, w),
+                kernel_ms=time_ms(call, flush=flush),
+                level0_ms=time_ms(lambda cds=cds: cl.corr_lookup(
+                    f1, pyr0, cds, 1, CORR_RADIUS), flush=flush),
+                host_us=host_us(call))
+            log(phase='corr_lookup_flow', shape=name, flow=flow,
+                **checks[flow])
         far = cl.corr_lookup(f1, pyr, torch.full_like(coords, -1000.0),
                              CORR_LEVELS, CORR_RADIUS)
         if far.any():
             raise AssertionError(f'corr_lookup {name}: nonzero far off the '
                                  'image')
-        corners = corr_corners(coords, h, w)
-        smooth = smooth_coords(dev, n, h, w)
+        noise = checks['noise']
         nbytes = 4 * (f1.numel() + pyr.flat.numel() + coords.numel() +
                       out.numel())
-        bound_ms, bound_by = bound(nbytes, 2 * CORR_C * corners)
+        bound_ms, bound_by = bound(nbytes, 2 * CORR_C * noise['corners'])
         row = dict(
-            shape=name, n=n, h=h, w=w, max_abs_err=(out - want).abs().max()
-            .item(), f64_err=err64, f64_limit=limit, corners=corners,
+            shape=name, n=n, h=h, w=w, max_abs_err=max(
+                c['max_abs_err'] for c in checks.values()),
+            f64_err=noise['f64_err'], f64_limit=noise['f64_limit'],
+            corners=noise['corners'],
             corners_max=n * h * w * CORR_LEVELS * (2 * CORR_RADIUS + 2) ** 2,
-            bytes=nbytes,
-            kernel_ms=time_ms(lambda: cl.corr_lookup(
-                f1, pyr, coords, CORR_LEVELS, CORR_RADIUS), flush=flush),
-            kernel_ms_smooth=time_ms(lambda: cl.corr_lookup(
-                f1, pyr, smooth, CORR_LEVELS, CORR_RADIUS), flush=flush),
-            corners_smooth=corr_corners(smooth, h, w),
+            bytes=nbytes, kernel_ms=noise['kernel_ms'],
+            kernel_ms_smooth=checks['smooth']['kernel_ms'],
+            corners_smooth=checks['smooth']['corners'],
             plain_ms=time_ms(lambda: cl.corr_lookup_plain(
                 f1, pyr.levels, coords, CORR_RADIUS), iters=5, flush=flush),
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            plan=cl.plan(n, h, w, CORR_C, CORR_RADIUS))
         log(phase='corr_lookup_kernel', **row)
         rows[name] = row
+    corr_ptxas()
     return rows
+
+
+def corr_ptxas():
+    """The lookup kernel's registers, spills and shared memory (ptxas) and
+    its launch (the library's own report, which must agree with the host's
+    plan); no spill, and its staging copies in the SASS (LDGSTS, or UTMALDG
+    for a TMA design)."""
+    info = cl.launch_info(CORR_C, CORR_RADIUS)
+    plan = cl.plan(1, 16, 16, CORR_C, CORR_RADIUS)
+    report = [dict(v, kernel=ptxas_short(k)) for k, v in
+              cuda_build.ptxas_report('corr_lookup').items()]
+    tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
+    sass = subprocess.run([tool, '-sass', str(cuda_build.library_path(
+        'corr_lookup'))], capture_output=True, text=True, check=True).stdout
+    ops = {op: len(re.findall(op + r'\b', sass))
+           for op in ('LDGSTS', 'UTMALDG', 'LDS', 'FFMA')}
+    log(phase='corr_lookup_ptxas', launch=info, kernels=report, sass=ops)
+    spilled = [r['kernel'] for r in report if r.get('spill_store_bytes', 1)
+               or r.get('spill_load_bytes', 1)]
+    if spilled or not report:
+        raise AssertionError(f'corr_lookup kernels spill: {spilled}')
+    if not ops['LDGSTS'] + ops['UTMALDG']:
+        raise AssertionError(f'corr_lookup SASS stages nothing: {ops}')
+    mismatch = {k: (info[k], plan[k]) for k in plan if k in info and
+                info[k] != plan[k]}
+    if mismatch or info['blocks_per_sm'] < 1:
+        raise AssertionError(f'corr_lookup launch {info} against plan '
+                             f'{plan}: {mismatch}')
 
 
 def mxu_check(dev, case):

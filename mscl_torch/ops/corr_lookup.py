@@ -13,10 +13,12 @@ Layout at the boundary is the JAX one: NHWC fmaps, (x, y) pixel coords, and
 output (N, H, W, L*(2r+1)^2) with levels outermost and taps dy-major.
 
 On a CUDA tensor the lookup runs in the hand-written Hopper kernel of
-``csrc/corr_lookup.cu`` (its source note gives what bounds it and how); on a
-CPU tensor it runs ``corr_lookup_plain``, which is also what the kernel is
-checked against. A CUDA call never falls back to the plain version: it
-launches the kernel or raises. There is no backward (RAFT's lookup sits
+``csrc/corr_lookup.cu`` (its source note gives what bounds it and how: one
+block per tile of pixels, each level's window union staged once in shared
+memory); on a CPU tensor it runs ``corr_lookup_plain``, which is also what
+the kernel is checked against. ``plan`` and ``staged_positions`` count, on
+the host, the kernel's launch and what it stages. A CUDA call never falls
+back to the plain version: it launches the kernel or raises. There is no backward (RAFT's lookup sits
 under a stop-gradient, and neither TPU kernel has one): the CUDA path refuses
 operands that require a gradient.
 """
@@ -31,9 +33,17 @@ import torch
 
 from . import cuda_build
 
-MAX_C = 256           # widest feature a lane's registers hold (8 float4s)
-MAX_RADIUS = 8        # (2r+2)^2 corner sums per warp in shared memory
+MAX_C = 256           # widest f1 tile the kernel's shared memory holds
+MAX_RADIUS = 8        # (2r+2)^2 corner sums a pixel in shared memory
 MAX_LEVELS = 8
+# the kernel's launch (csrc/corr_lookup.cu): a block of WARPS warps takes a
+# TILE_H x TILE_W tile of one image; a warp stages 32 positions (one a
+# lane) CHUNK channels at a time into its ring of STAGES slots
+TILE_H, TILE_W = 2, 4
+WARPS, CHUNK, STAGES = 8, 8, 4
+LAUNCH_INFO_KEYS = ('smem_bytes', 'threads', 'blocks_per_sm', 'registers',
+                    'tile_h', 'tile_w', 'stage_positions', 'chunk_channels',
+                    'stages')
 PLAIN_CHUNK_FLOATS = 2 ** 25   # gathered corner rows per plain-version chunk
 
 
@@ -163,12 +173,74 @@ def _check(fmap1, pyramid, coords, num_levels, radius):
                          'under torch.no_grad() or on detached tensors')
 
 
+def plan(n: int, h: int, w: int, c: int, radius: int) -> dict:
+    """The kernel's launch for f1 (n, h, w, c) at this radius, as its source
+    sizes it: tile, threads, what a warp stages at once, ring, dynamic
+    shared memory (the rings, the tile's f1 rows padded to whole chunks,
+    its corner sums) and blocks."""
+    kc = 2 * radius + 2
+    pixels = TILE_H * TILE_W
+    smem = 4 * (WARPS * STAGES * 32 * CHUNK + pixels * -(-c // CHUNK) *
+                CHUNK + pixels * kc * kc)
+    return dict(tile_h=TILE_H, tile_w=TILE_W, threads=32 * WARPS,
+                stage_positions=32, chunk_channels=CHUNK, stages=STAGES,
+                smem_bytes=smem, blocks=n * -(-h // TILE_H) * -(-w // TILE_W))
+
+
+def staged_positions(coords: torch.Tensor, num_levels: int,
+                     radius: int) -> Tuple[int, int]:
+    """(staged, boxed): the f2 positions the kernel copies into shared
+    memory for these coords (N, H, W, 2), summed over its tiles and levels,
+    each a row of C floats read once from L2: the positions of a tile's
+    union box that lie in one of its pixels' in-range windows; and all the
+    union boxes' positions. Counted with the kernel's tile plan."""
+    n, h, w, _ = coords.shape
+    tiles_y, tiles_x = -(-h // TILE_H), -(-w // TILE_W)
+    dev = coords.device
+    ys, xs = torch.meshgrid(torch.arange(h, device=dev),
+                            torch.arange(w, device=dev), indexing='ij')
+    tile = ((torch.arange(n, device=dev)[:, None, None] * tiles_y +
+             ys // TILE_H) * tiles_x + xs // TILE_W).reshape(-1)
+    tiles = n * tiles_y * tiles_x
+    kc, staged, boxed = 2 * radius + 2, 0, 0
+    for l in range(num_levels):
+        hl, wl = h >> l, w >> l
+        if hl == 0 or wl == 0:
+            continue
+        start = (torch.floor(coords.reshape(-1, 2).double() / 2 ** l)
+                 .clamp(-65536, 65536).long() - radius)
+        x0, y0 = start[:, 0].clamp(min=0), start[:, 1].clamp(min=0)
+        x1 = (start[:, 0] + kc).clamp(max=wl)
+        y1 = (start[:, 1] + kc).clamp(max=hl)
+        ok = (x0 < x1) & (y0 < y1)
+        t, x0, x1, y0, y1 = (v[ok] for v in (tile, x0, x1, y0, y1))
+        # the union of each tile's rects: a 2-D difference array, summed
+        diff = torch.zeros(tiles, hl + 1, wl + 1, dtype=torch.int32,
+                           device=dev)
+        one = torch.ones_like(t, dtype=torch.int32)
+        for yy, xx, sign in ((y0, x0, 1), (y0, x1, -1), (y1, x0, -1),
+                             (y1, x1, 1)):
+            diff.index_put_((t, yy, xx), sign * one, accumulate=True)
+        cover = diff.cumsum(1).cumsum(2)[:, :hl, :wl] > 0
+        staged += int(cover.sum().item())
+        lo = torch.full((tiles, 2), 1 << 30, dtype=torch.long, device=dev)
+        hi = torch.zeros((tiles, 2), dtype=torch.long, device=dev)
+        lo.scatter_reduce_(0, t[:, None].expand(-1, 2),
+                           torch.stack([x0, y0], 1), 'amin')
+        hi.scatter_reduce_(0, t[:, None].expand(-1, 2),
+                           torch.stack([x1, y1], 1), 'amax')
+        size = (hi - lo).clamp(min=0)
+        boxed += int((size[:, 0] * size[:, 1]).sum().item())
+    return staged, boxed
+
+
 def _on_cuda(t: torch.Tensor) -> bool:
     return t.is_cuda
 
 
-def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
+def _stream(device):
+    """PyTorch's current stream on device, as the raw handle."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 @functools.lru_cache(maxsize=None)
@@ -177,7 +249,19 @@ def _lib():
     i, p = ctypes.c_int, ctypes.c_void_p
     lib.corr_lookup.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
     lib.corr_lookup.restype = i
+    lib.corr_lookup_launch_info.argtypes = [i, i, p]
+    lib.corr_lookup_launch_info.restype = i
     return lib
+
+
+def launch_info(c: int, radius: int) -> dict:
+    """The kernel's launch at width c and this radius on the current CUDA
+    device, as its library reports it: ``LAUNCH_INFO_KEYS``."""
+    vals = (ctypes.c_int * len(LAUNCH_INFO_KEYS))()
+    err = _lib().corr_lookup_launch_info(c, radius, vals)
+    if err != 0:
+        raise RuntimeError(f'corr_lookup_launch_info failed with error {err}')
+    return dict(zip(LAUNCH_INFO_KEYS, vals))
 
 
 def corr_lookup(fmap1: torch.Tensor, fmap2, coords: torch.Tensor,
@@ -198,9 +282,9 @@ def corr_lookup(fmap1: torch.Tensor, fmap2, coords: torch.Tensor,
     out = torch.empty((n, h, w, num_levels * k2), device=fmap1.device,
                       dtype=torch.float32)
     err = _lib().corr_lookup(
-        _ptr(fmap1), _ptr(pyramid.flat), _ptr(coords), _ptr(out), n, h, w, c,
-        num_levels, radius,
-        ctypes.c_void_p(torch.cuda.current_stream(fmap1.device).cuda_stream))
+        fmap1.data_ptr(), pyramid.flat.data_ptr(), coords.data_ptr(),
+        out.data_ptr(), n, h, w, c, num_levels, radius,
+        _stream(fmap1.device))
     if err != 0:
         raise RuntimeError(f'corr_lookup: CUDA launch failed with error {err}')
     corr_lookup.launches += 1

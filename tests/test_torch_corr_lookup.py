@@ -18,7 +18,10 @@ from _torch_port_util import t
 # name -> (h, w, levels, radius, flow scale); n=2, C=32 throughout
 CASES = {'grid_noise': (12, 16, 3, 2, 6.0),
          'odd_levels_off_edge': (10, 14, 2, 3, 12.0),
-         'far_out_of_range': (12, 16, 2, 2, None)}
+         'far_out_of_range': (12, 16, 2, 2, None),
+         # windows spread over most of each level (the kernel's sub-boxes)
+         'wide_flow': (12, 16, 3, 2, 40.0),
+         'radius_6': (14, 18, 2, 6, 5.0)}
 
 
 def _inputs(case, n=2, c=32, seed=0):
@@ -107,3 +110,63 @@ def test_empty_top_level_is_zero():
     assert out.shape == (1, 6, 9, 36)
     assert not out[..., 27:].any()
     assert out[..., :9].abs().sum() > 0
+
+
+def test_plan_fills_the_card_within_shared_memory():
+    """At the extraction shape (16x22, N=8) the kernel's tiles give at least
+    one block for each of an H100's 132 SMs, and a block's shared memory
+    fits Hopper's 227 KB at every width and radius the wrapper takes (two
+    blocks an SM at C=256, r=4 and at the widest C and radius)."""
+    plan = cl.plan(8, 16, 22, 256, 4)
+    assert plan['blocks'] == 8 * 8 * 6 >= 132
+    assert plan['stage_positions'] % 32 == 0
+    assert 2 <= plan['stages'] and 4 <= plan['chunk_channels'] <= 32
+    for c in (4, 100, cl.MAX_C):
+        for r in range(cl.MAX_RADIUS + 1):
+            assert cl.plan(1, 1, 1, c, r)['smem_bytes'] <= 232448
+    for r in (4, cl.MAX_RADIUS):
+        # the SM's 228 KB, less 1 KB the runtime keeps for each block
+        assert 2 * (cl.plan(1, 1, 1, cl.MAX_C, r)['smem_bytes'] + 1024) <= \
+            228 * 1024
+    assert cl.plan(1, 55, 128, 256, 4)['blocks'] == 28 * 32
+
+
+def _staged_brute(coords, levels, radius):
+    """staged_positions, one tile at a time with Python sets."""
+    n, h, w, _ = coords.shape
+    kc, staged, boxed = 2 * radius + 2, 0, 0
+    for l in range(levels):
+        hl, wl = h >> l, w >> l
+        for b in range(n):
+            for ty in range(0, h, cl.TILE_H):
+                for tx in range(0, w, cl.TILE_W):
+                    held = set()
+                    for y in range(ty, min(ty + cl.TILE_H, h)):
+                        for x in range(tx, min(tx + cl.TILE_W, w)):
+                            sx, sy = (int(np.floor(np.float32(v) / 2 ** l))
+                                      - radius for v in coords[b, y, x])
+                            held |= {(yy, xx)
+                                     for yy in range(max(sy, 0),
+                                                     min(sy + kc, hl))
+                                     for xx in range(max(sx, 0),
+                                                     min(sx + kc, wl))}
+                    staged += len(held)
+                    if held:
+                        ys, xs = zip(*held)
+                        boxed += (max(ys) - min(ys) + 1) * (
+                            max(xs) - min(xs) + 1)
+    return staged, boxed
+
+
+@pytest.mark.parametrize('case', ['grid_noise', 'odd_levels_off_edge',
+                                  'wide_flow', 'far_out_of_range'])
+def test_staged_positions(case):
+    """The host's count of the positions the kernel's tiles stage (each
+    tile's in-range windows, unioned) and of their union boxes, against a
+    tile-by-tile count."""
+    _, _, coords, levels, radius = _inputs(case, n=2)
+    got = cl.staged_positions(t(coords), levels, radius)
+    assert got == _staged_brute(coords, levels, radius)
+    assert got[0] <= got[1]
+    if case == 'far_out_of_range':
+        assert got == (0, 0)

@@ -6,8 +6,11 @@ or of a forward stage (C=100, 10, 8), one K-tile and many, fewer tiles than
 the backward's split-K slabs (K=512), a K that is not a multiple of 4 (the
 4-byte copies), a decay below float32's normal range, and dq's fixed
 summing order (two calls give the same bits). The correlation lookup at odd
-level sizes, C of 32, 100 and 256 (one, four and eight float4 chunks a
-lane), N of 1 and 8, and windows off every edge. The five tensor-core fill
+level sizes, C of 4, 32, 100 and 256 (one 8-channel chunk, mostly
+zero-filled; four; a ragged last one; 32), r up to 8, N of 1 to 8 with tiles cut by the image's edge (H and W
+not multiples of the tile), 8 levels of which the top ones are empty,
+windows off every edge, a wide flow whose window union exceeds one stage,
+and two calls giving the same bits. The five tensor-core fill
 probes at M=3248 (ragged against every tile), 928, 200 and 40 (below one
 tile), K of 64 (one chunk) to 1792, N of 64 and 128, 1, 2 and 27 taps (one
 register set, both, an odd count), carry's mt of 40, 112, 464 and 1624
@@ -104,23 +107,38 @@ def test_in_place_queue_change_is_caught(dev):
         out.sum().backward()
 
 
-@pytest.mark.parametrize('n,h,w,c,levels,radius', [
-    (8, 16, 22, 256, 4, 4), (1, 55, 128, 256, 4, 4), (2, 13, 19, 100, 3, 3),
-    (1, 9, 7, 32, 2, 1), (3, 6, 5, 64, 4, 0)])
-def test_corr_lookup_matches_plain(dev, n, h, w, c, levels, radius):
+def _corr_case(dev, n, h, w, c, radius, scale):
     rng = np.random.default_rng(n * h * w + c)
     f1, f2 = (torch.from_numpy(rng.normal(size=(n, h, w, c)).astype(
         np.float32)).to(dev) for _ in range(2))
     ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing='ij')
     coords = np.stack([xs, ys], -1)[None].repeat(n, 0) + rng.normal(
-        scale=4.0, size=(n, h, w, 2))
+        scale=scale, size=(n, h, w, 2))
     # windows partly off the left, right, top and bottom edges, and far off
     coords[:, 0, :, 1] = -radius - 0.5
     coords[:, -1, :, 1] = h + 2.25
     coords[:, :, 0, 0] = -1.75
     coords[:, :, -1, 0] = w + radius - 1.5
     coords[:, h // 2, w // 2] = (-1000.0, 1000.0)
-    coords = torch.from_numpy(coords.astype(np.float32)).to(dev)
+    return f1, f2, torch.from_numpy(coords.astype(np.float32)).to(dev)
+
+
+# n, h, w, c, levels, radius, the scale of the flow's noise
+CORR_CASES = [
+    (8, 16, 22, 256, 4, 4, 4.0), (1, 55, 128, 256, 4, 4, 4.0),
+    (2, 13, 19, 100, 3, 3, 4.0), (1, 9, 7, 32, 2, 1, 4.0),
+    (3, 6, 5, 64, 4, 0, 4.0),
+    (1, 55, 128, 256, 4, 4, 64.0),    # window unions beyond one stage
+    (2, 16, 22, 256, 4, 8, 4.0),      # the widest radius at the widest C
+    (2, 13, 19, 4, 3, 2, 4.0),        # C=4: one chunk, mostly zero-filled
+    (1, 40, 70, 32, 8, 2, 8.0),       # levels 6 and 7 pooled to nothing
+    (3, 10, 13, 64, 3, 3, 4.0),       # N>1, tiles cut by the bottom edge
+    (2, 12, 21, 128, 4, 4, 4.0)]      # W not a multiple of the tile
+
+
+@pytest.mark.parametrize('n,h,w,c,levels,radius,scale', CORR_CASES)
+def test_corr_lookup_matches_plain(dev, n, h, w, c, levels, radius, scale):
+    f1, f2, coords = _corr_case(dev, n, h, w, c, radius, scale)
     pyramid = cl.corr_pyramid(f2, levels)
     launches = cl.corr_lookup.launches
     got = cl.corr_lookup(f1, pyramid, coords, levels, radius)
@@ -130,6 +148,20 @@ def test_corr_lookup_matches_plain(dev, n, h, w, c, levels, radius):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     assert not got[:, h // 2, w // 2].any()
     assert got.abs().max() > 0
+
+
+@pytest.mark.parametrize('n,h,w,c,levels,radius,scale', [
+    (8, 16, 22, 256, 4, 4, 4.0), (1, 55, 128, 256, 4, 4, 64.0)])
+def test_corr_lookup_is_bitwise_deterministic(dev, n, h, w, c, levels,
+                                              radius, scale):
+    """Each corner sum is taken by one thread in a fixed order: the same
+    inputs give the same bits."""
+    f1, f2, coords = _corr_case(dev, n, h, w, c, radius, scale)
+    pyramid = cl.corr_pyramid(f2, levels)
+    first = cl.corr_lookup(f1, pyramid, coords, levels, radius)
+    second = cl.corr_lookup(f1, pyramid, coords, levels, radius)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 # kind, m, shape parameters, steps
