@@ -36,20 +36,30 @@ the exit code is nonzero:
    spill (and where it serialized wgmma); then the tool's three case lists
    through its main() at its own steps, and cuDNN's r3d_18 layer1
    convolution as the yardstick;
-5. hold the port on the card against the port on the CPU (kernels and
+5. the device augmentation (the flagship config's SyncMoCoAugmentV5) at the
+   flagship batch (32 clips of 3x8x112x112, flows 2x16x112x112): on the
+   card against the CPU with the same draws, float32; the card generator's
+   rates at B=4096; its device time alone (draws and apply) in float32 and
+   bfloat16; and one call under torch.cuda.set_sync_debug_mode('error'),
+   which fails on any host synchronisation;
+6. hold the port on the card against the port on the CPU (kernels and
    cuDNN against the plain versions): two train steps of a narrow
-   MSCLWithAug, and RAFT (full width, 64x64 images, 3 iterations);
-6. drive the flagship MSCLWithAug r18 pretrain step (full width, K=65536,
-   IdentityAug, float32, batch 32) through build_model_from_cfg,
-   build_optimizer and make_train_step for 3 steps, then profile one;
-7. drive flow extraction through make_raft_fn(None, iters=12) (RAFT large
+   MSCLWithAug with IdentityAug and with V5 (both fed the same draws), and
+   RAFT (full width, 64x64 images, 3 iterations);
+7. drive the flagship config's own MSCLWithAug r18 pretrain step (full
+   width, K=65536, SyncMoCoAugmentV5, batch 32) through
+   build_model_from_cfg, build_optimizer and make_train_step, in float32
+   and then in bfloat16: 3 steps each, then profile one;
+8. drive flow extraction through make_raft_fn(None, iters=12) (RAFT large
    at full width, random weights from a seed): 3 batches of 8 synthetic
    frame pairs at 128x171, then profile one;
-8. print the kernel table, the card's name and power limit, and the result.
+9. print the kernel table, the card's name and power limit, and the result.
 
-Every kernel launch counter is set to 0 just before each of the paths 6 and
-7 and the probe tool's run in 4, and read just after. It needs a CUDA
-device: without one it exits nonzero before printing any result.
+Every kernel launch counter is set to 0 just before each of the paths 7
+(each dtype) and 8 and the probe tool's run in 4, and read just after.
+The kernel table's decayed-InfoNCE launches are the float32 step's. It
+needs a CUDA device: without one it exits nonzero before printing any
+result.
 """
 from __future__ import annotations
 
@@ -65,13 +75,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from mscl_torch.apis import (MOCO_FREEZE, build_model_from_cfg,
+from mscl_torch.apis import (FLAGSHIP_AUG, MOCO_FREEZE, build_model_from_cfg,
                              flagship_batch, load_flagship_config,
                              narrow_flagship_cfg, to_torch)
 from mscl_torch.apis.flow_extraction import make_raft_fn
 from mscl_torch.core import build_lr_schedule, build_optimizer, \
     make_train_step
 from mscl_torch.flow import build_raft
+from mscl_torch.models import build_ssl_aug
 from mscl_torch.models.recognizers import build_ema_fn
 from mscl_torch.ops import corr_lookup as cl
 from mscl_torch.ops import cuda_build
@@ -125,6 +136,12 @@ STEPS_RATIO = (1.7, 2.3)
 # r3d_18 layer1: (32, 64, 8, 56, 56) -> 64, 3x3x3, padding 1
 CONV_SHAPE, CONV_FLOP = (32, 64, 8, 56, 56), 2 * 32 * 8 * 56 * 56 * 64 * 1728
 SPIN_CYCLES = 200_000              # about 0.1 ms of the card's clock
+# the device aug against the CPU (tests/test_torch_ssl_aug.py): float32
+# colour math within 1e-5; the colour wheel's floor(255 col) may flip by
+# 1/255 on a share of at most 1e-5 of the elements
+AUG_TOL, WHEEL_STEP, WHEEL_SHARE = 1e-5, 1 / 255 + 1e-6, 1e-5
+RATE_B = 4096                      # draws for the apply-rate check
+AUG_RATES = dict(flip=0.5, jitter=0.8, gray=0.2, blur=0.5)
 
 
 def log(**kw):
@@ -669,13 +686,133 @@ def phase_conv_yardstick(dev):
         fp32_tflops=CONV_FLOP / fp32_ms / 1e9)
 
 
+def tree_to(x, device):
+    """Every tensor of a nested dict of draws, moved to device."""
+    if isinstance(x, dict):
+        return {k: tree_to(v, device) for k, v in x.items()}
+    return x.to(device) if isinstance(x, torch.Tensor) else x
+
+
+def wheel_check(name, got, want, step=WHEEL_STEP):
+    """A visualised flow against another: at most a 1/255 step, on a share
+    of at most WHEEL_SHARE of the elements (rounded up to one)."""
+    diff = (got.float().cpu() - want.float().cpu()).abs()
+    flips = int((diff > 1e-6).sum())
+    if diff.max() > step or flips > max(1, int(WHEEL_SHARE * diff.numel())):
+        raise AssertionError(f'{name}: largest gap {float(diff.max())}, '
+                             f'{flips} of {diff.numel()} elements off')
+    return float(diff.max()), flips
+
+
+def aug_inputs(dev, dtype, seed=5):
+    """The flagship batch's clips and flows as the step hands them to the
+    aug: (im_q, im_k, aux_info) in dtype on dev."""
+    batch = flagship_batch(32, seed=seed)
+    im_q, im_k = (torch.from_numpy(x).to(dev, dtype) for x in batch['imgs'])
+    aux = {f'flow_imgs_{s}': torch.from_numpy(x).to(dev, dtype)
+           for s, x in zip('qk', batch['flow_imgs'])}
+    return im_q, im_k, aux
+
+
+def aug_rates(draws):
+    """Share of clips each apply decision of one V5 branch took."""
+    strong = draws['strong']
+    return dict(flip=draws['flip'], jitter=strong['jitter']['apply'],
+                gray=strong['gray']['apply'], blur=strong['blur']['apply'])
+
+
+def phase_ssl_aug(dev):
+    """The flagship config's aug at the flagship batch: card against CPU on
+    the same draws, the card generator's rates, its device time, and no
+    host synchronisation in a call."""
+    aug = build_ssl_aug(load_flagship_config().model.to_dict()['aug'])
+    torch.backends.cudnn.allow_tf32 = False      # as the step runs it
+    gen = torch.Generator(device=dev).manual_seed(7)
+    card, cpu = aug_inputs(dev, torch.float32), aug_inputs('cpu',
+                                                           torch.float32)
+    draws = aug.draw(gen, card[0], card[1])
+    got = aug.apply(*card, draws)
+    want = aug.apply(*cpu, tree_to(draws, 'cpu'))
+    img_err = max(float((g.cpu() - w).abs().max())
+                  for g, w in zip(got[:2], want[:2]))
+    if img_err > AUG_TOL:
+        raise AssertionError(f'ssl_aug clips: card vs CPU {img_err}')
+    flow = {k: wheel_check(k, got[2][k], want[2][k]) for k in want[2]}
+    if any(got[2][k].shape[1] != 3 for k in want[2]):
+        raise AssertionError('the flagship aug must visualise the flow')
+
+    big = torch.zeros(RATE_B, 3, 2, 1, 1, device=dev)
+    rate_draws = aug.draw(torch.Generator(device=dev).manual_seed(8), big, big)
+    rates = {}
+    for branch in 'qk':
+        for name, taken in aug_rates(rate_draws[branch]).items():
+            p, rate = AUG_RATES[name], float(taken.float().mean())
+            rates[f'{branch}_{name}'] = rate
+            if abs(rate - p) > 4 * math.sqrt(p * (1 - p) / RATE_B):
+                raise AssertionError(f'{branch} {name} rate {rate} vs {p}')
+
+    timing = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        inputs = aug_inputs(dev, dtype)
+        name = str(dtype).split('.')[-1]
+        timing[f'{name}_ms'] = time_ms(lambda: aug(gen, *inputs), iters=10)
+        out = aug(gen, *inputs)
+        if out[0].dtype != dtype or out[2]['flow_imgs_q'].dtype != dtype:
+            raise AssertionError(f'ssl_aug output dtype in a {dtype} call')
+    # bytes the aug must move at least: each clip and flow read once, each
+    # output written once (flows leave with 3 channels), in float32
+    n_img, n_flow = (sum(x.numel() for x in card[:2]),
+                     sum(x.numel() for x in card[2].values()))
+    min_bytes = 4 * (2 * n_img + n_flow * 5 // 2)
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        aug(gen, *card)
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    torch.cuda.synchronize()
+    log(phase='ssl_aug', aug=type(aug).__name__, batch=32,
+        card_vs_cpu_max_abs_clip=img_err,
+        card_vs_cpu_flow={k: dict(max_abs=v[0], flips=v[1])
+                          for k, v in flow.items()},
+        rates_b4096=rates, **timing, min_bytes=min_bytes,
+        bytes_bound_ms=min_bytes / HBM_BYTES_PER_S * 1e3,
+        sync_debug='error: no host synchronisation')
+
+
+def replayed_draws(aug, batches, seed):
+    """One set of the aug's draws for each batch, made once on the CPU, so
+    that the card and the CPU run the same augmentation."""
+    gen = torch.Generator().manual_seed(seed)
+    out = []
+    for batch in batches:
+        im = torch.from_numpy(batch['imgs'][0])
+        out.append(aug.draw(gen, im, im))
+    return out
+
+
 def phase_card_vs_cpu():
     """Two train steps of a narrow model on the card and on the CPU, from
-    the same weights and batches."""
-    cfg = narrow_flagship_cfg()
+    the same weights and batches, with IdentityAug and with V5 (the same
+    draws on both)."""
+    batches = [flagship_batch(4, hw=32, seed=s) for s in (1, 2)]
+    for aug_cfg in (dict(type='IdentityAug'), dict(FLAGSHIP_AUG,
+                                                   crop_size=32)):
+        card_vs_cpu(narrow_flagship_cfg(aug=aug_cfg), batches)
+
+
+def card_vs_cpu(cfg, batches):
     logs = {}
+    draws = None
     for dev in ('cpu', 'cuda'):
         model = build_model_from_cfg(cfg, device=dev, seed=1)
+        if cfg['aug']['type'] != 'IdentityAug':
+            if draws is None:
+                draws = replayed_draws(model.aug, batches, seed=3)
+            queue = iter(draws)
+            model.aug.draw = (lambda gen, im_q, im_k, aux_info=None, q=queue:
+                              tree_to(next(q), im_q.device))
         opt = build_optimizer(
             model, dict(type='SGD', lr=0.02, momentum=0.9,
                         weight_decay=1e-4),
@@ -684,7 +821,7 @@ def phase_card_vs_cpu():
             grad_clip=dict(max_norm=40), freeze_patterns=MOCO_FREEZE)
         step = make_train_step(model, opt, build_ema_fn(model))
         logs[dev] = [{k: v.item() for k, v in step(to_torch(
-            flagship_batch(4, hw=32, seed=s), dev)).items()} for s in (1, 2)]
+            batch, dev)).items()} for batch in batches]
         logs[dev + '_queue'] = model.recognizer_flow.queue.cpu()
     worst = 0.0
     for cpu, card in zip(logs['cpu'], logs['cuda']):
@@ -694,7 +831,8 @@ def phase_card_vs_cpu():
             worst = max(worst, abs(card[k] - cpu[k]))
     torch.testing.assert_close(logs['cuda_queue'], logs['cpu_queue'],
                                **STEP_TOL)
-    log(phase='card_vs_cpu', steps=2, max_abs_loss_diff=worst,
+    log(phase='card_vs_cpu', aug=cfg['aug']['type'], steps=2,
+        max_abs_loss_diff=worst,
         **{f'loss_step{i + 1}': v['loss'] for i, v in
            enumerate(logs['cuda'])})
 
@@ -721,9 +859,14 @@ def phase_raft_card_vs_cpu():
         max_abs_diff_low=diff[0], max_abs_diff_up=diff[1])
 
 
-def phase_flagship(dev):
+def phase_flagship(dev, dtype):
+    """The flagship config's own model (SyncMoCoAugmentV5, 3-channel flow
+    stem) in the compute dtype."""
     cfg = load_flagship_config()
-    model = build_model_from_cfg(cfg.model.to_dict(), device=dev, seed=0)
+    model = build_model_from_cfg(cfg.model.to_dict(), device=dev, seed=0,
+                                 dtype=dtype)
+    if model.recognizer_flow.encoder_q.stem[0].in_channels != 3:
+        raise AssertionError('the flagship flow stem must take 3 channels')
     bs = cfg.data['videos_per_gpu']
     lr = build_lr_schedule(cfg.lr_config.to_dict(), cfg.optimizer['lr'],
                            cfg.total_epochs, cfg.dataset_size // bs)
@@ -764,10 +907,14 @@ def phase_flagship(dev):
         raise AssertionError(f'kernel launches {launches} != {7 * STEPS} '
                              'each')
     peak = torch.cuda.max_memory_allocated()
-    log(phase='flagship_step', steps=STEPS, batch=bs, K=model.recognizer.K,
-        step_ms=step_ms, peak_bytes=peak, launches=launches, state=state,
+    name = str(dtype).split('.')[-1]
+    log(phase='flagship_step', dtype=name, aug=type(model.aug).__name__,
+        steps=STEPS, batch=bs, K=model.recognizer.K, step_ms=step_ms,
+        peak_bytes=peak, launches=launches, state=state,
         losses=[{k: lv[k] for k in LOSS_KEYS + ['loss']} for lv in losses])
-    profile('flagship_step', lambda: step(batch))
+    profile(f'flagship_step_{name}', lambda: step(batch))
+    del model, opt, step, batch
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -874,9 +1021,11 @@ def main():
     mxu = phase_mxu_fill(dev)
     mxu_launches = phase_mxu_fill_tool()
     phase_conv_yardstick(dev)
+    phase_ssl_aug(dev)
     phase_card_vs_cpu()
     phase_raft_card_vs_cpu()
-    launches = phase_flagship(dev)
+    launches = phase_flagship(dev, torch.float32)
+    phase_flagship(dev, torch.bfloat16)
     corr_launches = phase_flow_extraction()
 
     # the TPU functions that reach pl.pallas_call, and the row of each

@@ -1,9 +1,9 @@
 """The flagship MSCLWithAug r18 pretrain configuration and a synthetic batch.
 
 A copy of ``__graft_entry__._mscl_cfg`` / ``_mscl_batch`` (that module
-imports JAX) with ``aug=IdentityAug``: the device augmentation
-(SyncMoCoAugmentV5) is not ported yet. ``FLAGSHIP_CONFIG`` is the same
-recipe as a config file.
+imports JAX), with the config's device augmentation, SyncMoCoAugmentV5
+(the flow visualised: the flow stem takes 3 channels). ``FLAGSHIP_CONFIG``
+is the same recipe as a config file.
 """
 from __future__ import annotations
 
@@ -17,11 +17,15 @@ FLAGSHIP_CONFIG = str(Path(__file__).resolve().parents[2] / 'configs' /
                       'recognition' / 'moco' / 'mscl_r18_cosm_lr2e-2.py')
 
 
+FLAGSHIP_AUG = dict(type='SyncMoCoAugmentV5', crop_size=112,
+                    sync_level=('batch', 'batch'), t=(8, 8),
+                    flow_suffix='flow_imgs', weak_aug=(False, False),
+                    visualize=True)
+
+
 def load_flagship_config() -> Config:
-    """The flagship config file with model.aug set to IdentityAug."""
-    cfg = Config.fromfile(FLAGSHIP_CONFIG)
-    cfg.merge_from_dict({'model.aug': dict(_delete_=True, type='IdentityAug')})
-    return cfg
+    """The flagship config file, as it is."""
+    return Config.fromfile(FLAGSHIP_CONFIG)
 
 
 def flagship_model_cfg(num_frames=8, K=65536, max_iters=1000, dim=128):
@@ -61,17 +65,20 @@ def flagship_model_cfg(num_frames=8, K=65536, max_iters=1000, dim=128):
                               q_mlvl='q_aug_flow_mlvl'))),
         im_key='imgs', flow_key='flow_imgs', aux_info=[],
         update_aug_flow=False, weight_aug_flow=(1.0, 1.0),
-        aug=dict(type='IdentityAug'), same_kn=True)
+        aug=dict(FLAGSHIP_AUG, t=(num_frames, num_frames)), same_kn=True)
 
 
 def narrow_flagship_cfg(K=32, dim=32, rgb_width=8, flow_width=2,
-                        num_frames=8, max_iters=1000):
+                        num_frames=8, max_iters=1000,
+                        aug=dict(type='IdentityAug')):
     """The flagship recipe with one block per stage and narrow widths, for
     checks at small shapes. The TPN width equals the flow tower's last-stage
     width (flow_width * 8), as the flagship's 128 = 16 * 8 does, so LMCL
-    compares like with like."""
+    compares like with like. ``aug`` defaults to IdentityAug, which holds
+    the towers alone; pass FLAGSHIP_AUG (or another) to run one."""
     cfg = flagship_model_cfg(num_frames=num_frames, K=K, max_iters=max_iters,
                              dim=dim)
+    cfg['aug'] = dict(aug)
     rgb, flow = cfg['recognizer'], cfg['recognizer_flow']
     tpn = flow_width * 8
     rgb['backbone'] = dict(type='torchvision.r3d_18', layers=(1, 1, 1, 1),

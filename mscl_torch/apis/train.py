@@ -25,12 +25,17 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     return device
 
 
-def build_model_from_cfg(model_cfg: Dict, device=None, seed: int = 0):
+def build_model_from_cfg(model_cfg: Dict, device=None, seed: int = 0,
+                         dtype=None):
     """Build a recognizer from its config, initialise it from a
     ``torch.Generator`` seeded with ``seed``, and move it to ``device``.
+    A model with a device aug draws it from a generator on ``device``
+    seeded with ``seed`` too.
 
-    Float32 throughout: TF32 is switched off for both matmuls and cuDNN
-    convolutions, so the card computes what the CPU reference computes.
+    ``dtype`` (None: float32) is the compute dtype, as the JAX function's:
+    parameters, BN statistics and queues stay float32. TF32 is switched off
+    for both matmuls and cuDNN convolutions, so a float32 model on the card
+    computes what the CPU reference computes.
     """
     device = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -39,8 +44,12 @@ def build_model_from_cfg(model_cfg: Dict, device=None, seed: int = 0):
     cls = RECOGNIZERS.get(cfg.pop('type'))
     if cls is None:
         raise KeyError(f'unknown recognizer {model_cfg["type"]}')
+    if dtype is not None:
+        cfg['dtype'] = dtype
     model = cls(**cfg)
     model.init_weights(torch.Generator().manual_seed(seed))
+    if hasattr(model, 'seed_aug'):
+        model.seed_aug(seed)
     return model.to(device)
 
 

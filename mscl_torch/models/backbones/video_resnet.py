@@ -6,6 +6,10 @@ Port of ``mscl_tpu/models/backbones/video_resnet.py`` (``ConvBN``,
 with the conv at index 0 and the BN at index 1). The model returns its
 per-stage outputs. BN statistics are taken over the whole batch it is given
 (the JAX package's replacement for ShuffleBN).
+
+With a compute dtype other than float32 (``dtype``), each convolution casts
+its input and kernel to it and its BN is ``LowPrecisionBatchNorm`` (the JAX
+package's default BN); parameters and statistics stay float32.
 """
 from __future__ import annotations
 
@@ -16,8 +20,21 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import compute_dtype
 from ..builder import BACKBONES
-from ...ops.batch_norm import BatchNorm3d
+from ...ops.batch_norm import BatchNorm3d, LowPrecisionBatchNorm
+
+
+class Conv3dNoBias(nn.Conv3d):
+    """Bias-free Conv3d that computes in ``dtype`` (x and kernel cast)."""
+
+    def __init__(self, cin, cout, kernel, stride, padding,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(cin, cout, kernel, stride, padding, bias=False)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        return compute_dtype.conv3d(self, x, self.compute_dtype)
 
 
 class ConvBN(nn.Sequential):
@@ -26,11 +43,12 @@ class ConvBN(nn.Sequential):
     def __init__(self, cin: int, cout: int, kernel: Tuple[int, int, int],
                  stride: Tuple[int, int, int] = (1, 1, 1),
                  padding: Optional[Tuple[int, int, int]] = None,
-                 relu: bool = True):
+                 relu: bool = True, dtype: torch.dtype = torch.float32):
         if padding is None:
             padding = tuple(k // 2 for k in kernel)
-        layers = [nn.Conv3d(cin, cout, kernel, stride, padding, bias=False),
-                  BatchNorm3d(cout)]
+        bn = BatchNorm3d(cout) if dtype == torch.float32 else \
+            LowPrecisionBatchNorm(cout, dtype)
+        layers = [Conv3dNoBias(cin, cout, kernel, stride, padding, dtype), bn]
         if relu:
             layers.append(nn.ReLU(inplace=True))
         super().__init__(*layers)
@@ -46,17 +64,18 @@ _CONV_MAKERS = {
 class BasicBlock3D(nn.Module):
     """conv-bn-relu, conv-bn, plus an identity or 1x1x1 downsample."""
 
-    def __init__(self, cin: int, planes: int, maker: str, stride: int = 1):
+    def __init__(self, cin: int, planes: int, maker: str, stride: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         kernel, stride3, pad = _CONV_MAKERS[maker](stride)
         kernel2, _, pad2 = _CONV_MAKERS[maker](1)
-        self.conv1 = ConvBN(cin, planes, kernel, stride3, pad)
+        self.conv1 = ConvBN(cin, planes, kernel, stride3, pad, dtype=dtype)
         self.conv2 = ConvBN(planes, planes, kernel2, (1, 1, 1), pad2,
-                            relu=False)
+                            relu=False, dtype=dtype)
         self.downsample = None
         if stride != 1 or cin != planes:
             self.downsample = ConvBN(cin, planes, (1, 1, 1), stride3,
-                                     (0, 0, 0), relu=False)
+                                     (0, 0, 0), relu=False, dtype=dtype)
 
     def forward(self, x):
         res = x if self.downsample is None else self.downsample(x)
@@ -72,14 +91,15 @@ class VideoResNet(nn.Module):
 
     def __init__(self, conv_makers: Sequence[str] = ('simple3d',) * 4,
                  layers: Sequence[int] = (2, 2, 2, 2), stem: str = 'r3d',
-                 base_width: int = 64, in_channels: int = 3):
+                 base_width: int = 64, in_channels: int = 3, dtype=None):
         super().__init__()
+        dtype = compute_dtype.resolve_dtype(dtype)
         if stem == 'r3d':
             self.stem = ConvBN(in_channels, base_width, (3, 7, 7), (1, 2, 2),
-                               (1, 3, 3))
+                               (1, 3, 3), dtype=dtype)
         elif stem == 'flow_basic':
             self.stem = ConvBN(in_channels, base_width, (1, 7, 7), (2, 2, 2),
-                               (0, 3, 3))
+                               (0, 3, 3), dtype=dtype)
         else:
             raise ValueError(f'unknown stem {stem}')
         cin = base_width
@@ -89,7 +109,7 @@ class VideoResNet(nn.Module):
             for j in range(layers[i]):
                 stride = 2 if (i > 0 and j == 0) else 1
                 blocks.append(BasicBlock3D(cin, planes, conv_makers[i],
-                                           stride))
+                                           stride, dtype))
                 cin = planes
             setattr(self, f'layer{i + 1}', nn.Sequential(*blocks))
 

@@ -1,11 +1,12 @@
 """Model registries and build functions.
 
 Port of ``mscl_tpu/models/builder.py``: one shared MODELS registry exposed as
-BACKBONES/NECKS/HEADS/RECOGNIZERS/LOSSES.
+BACKBONES/NECKS/HEADS/RECOGNIZERS/LOSSES, and a separate SSL_AUGS registry
+for the device augmentations.
 """
 from __future__ import annotations
 
-from ..registry import Registry
+from ..registry import Registry, build_from_cfg
 
 MODELS = Registry('models')
 BACKBONES = MODELS
@@ -13,6 +14,7 @@ NECKS = MODELS
 HEADS = MODELS
 RECOGNIZERS = MODELS
 LOSSES = MODELS
+SSL_AUGS = Registry('ssl_augs')
 
 
 def build_backbone(cfg):
@@ -30,3 +32,6 @@ def build_head(cfg):
 def build_loss(cfg):
     return LOSSES.build(cfg)
 
+
+def build_ssl_aug(cfg):
+    return build_from_cfg(cfg, SSL_AUGS)

@@ -5,7 +5,8 @@ q_mlvl[0] (b, c, t after spatial pooling) against the base-flow and
 rotated-flow features concatenated along time (b, c, 2t); optional linear
 projections; cosine similarity (b, t, 2t) / T; cross-entropy with labels
 arange(t) tiled over the batch, so the t rotated-flow columns are the FRA
-negatives.
+negatives. All in the features' dtype, projections in the compute ``dtype``
+(the JAX head's flax Dense).
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import compute_dtype
 from ..builder import HEADS, build_loss
 from .base import topk_accuracy
 
@@ -26,8 +28,9 @@ class MSCLWithAugPosHeadV2(nn.Module):
                  num_classes=2, in_channels=128,
                  mlvl_ids: Tuple[int, int] = (0, -1),
                  bkb_channels: Tuple = (512, 128), t=8, T=0.07,
-                 aux_keys=None):
+                 aux_keys=None, dtype=None):
         super().__init__()
+        self.dtype = compute_dtype.resolve_dtype(dtype)
         self.mlvl_ids = tuple(mlvl_ids)
         self.T = T
         self.aux_keys = aux_keys or {}
@@ -56,10 +59,13 @@ class MSCLWithAugPosHeadV2(nn.Module):
                          q_aug_flow_mlvl[self.mlvl_ids[1]]], dim=2)
         x_q = x_q.mean(dim=(3, 4)).transpose(1, 2)     # (b, t, c)
         x_f = x_f.mean(dim=(3, 4)).transpose(1, 2)     # (b, 2t, c)
+
+        def fc(layer, t):
+            return compute_dtype.linear(layer, t, self.dtype)
         if self.project_rgb:
-            x_q = self.trans_rgb_1(F.relu(self.trans_rgb_0(x_q)))
+            x_q = fc(self.trans_rgb_1, F.relu(fc(self.trans_rgb_0, x_q)))
         if self.trans_flow is not None:
-            x_f = self.trans_flow(x_f)
+            x_f = fc(self.trans_flow, x_f)
         x_q = F.normalize(x_q, dim=-1, eps=1e-12)
         x_f = F.normalize(x_f, dim=-1, eps=1e-12)
         sim = torch.einsum('btc,bsc->bts', x_q, x_f)

@@ -4,7 +4,8 @@ Port of ``mscl_tpu/models/heads/moco_head_v2.py``. With same_kn each
 direction takes the *other* modality's decayed queue as negatives. A queue
 arrives as a bank ``(queue, decay)`` taken before its tower enqueued, and
 each negative product runs in the decayed-InfoNCE kernel, so the decayed
-(C, K) matrix is never materialised.
+(C, K) matrix is never materialised. As in the JAX einsums, l_pos stays in
+the features' dtype and l_neg (with the float32 queue) is float32.
 """
 from __future__ import annotations
 
@@ -34,10 +35,10 @@ class MSCLWithAugMxHead:
         fr_l_pos = (q_flow * k).sum(dim=1, keepdim=True)
         rf_bank, fr_bank = (bank_flow, bank) if self.same_kn else \
             (bank, bank_flow)
-        rf_l_neg = decayed_neg(q, *rf_bank)
-        fr_l_neg = decayed_neg(q_flow, *fr_bank)
-        rf_logits = torch.cat([rf_l_pos, rf_l_neg], dim=1) / self.T
-        fr_logits = torch.cat([fr_l_pos, fr_l_neg], dim=1) / self.T
+        rf_l_neg = decayed_neg(q.float(), *rf_bank)
+        fr_l_neg = decayed_neg(q_flow.float(), *fr_bank)
+        rf_logits = torch.cat([rf_l_pos.float(), rf_l_neg], dim=1) / self.T
+        fr_logits = torch.cat([fr_l_pos.float(), fr_l_neg], dim=1) / self.T
         ssl_label = torch.zeros(rf_logits.shape[0], dtype=torch.long,
                                 device=rf_logits.device)
         return rf_logits, fr_logits, ssl_label

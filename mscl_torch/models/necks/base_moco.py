@@ -4,7 +4,8 @@ Port of ``mscl_tpu/models/necks/base_moco.py`` ``BaseMoCo`` and ``TPNMoCo``
 (with emb_from_bkb=True).
 Both return (x_emb (N, C), feature list); with ``mlvl=False`` the list is
 None and TPNMoCo does not run its pyramid (the key towers, whose features
-nothing reads).
+nothing reads). ``dtype`` is the compute dtype of TPNMoCo's pyramid; the
+pooled embedding keeps its input's dtype.
 """
 from __future__ import annotations
 
@@ -25,6 +26,9 @@ def gap3d(x: torch.Tensor) -> torch.Tensor:
 @NECKS.register_module()
 class BaseMoCo(nn.Module):
 
+    def __init__(self, dtype=None):
+        super().__init__()
+
     def init_weights(self, gen: torch.Generator):
         pass
 
@@ -40,11 +44,12 @@ class TPNMoCo(nn.Module):
     def __init__(self, in_channels: Sequence[int] = (128, 256, 512),
                  out_channels: int = 128, fpn_cfg=None,
                  temporal_modulation_cfg=None, sepc_cfg=None,
-                 reverse_st: bool = False):
+                 reverse_st: bool = False, dtype=None):
         super().__init__()
         self.tpn = TPNSingle(list(in_channels), out_channels, fpn_cfg=fpn_cfg,
                              temporal_modulation_cfg=temporal_modulation_cfg,
-                             sepc_cfg=sepc_cfg, reverse_st=reverse_st)
+                             sepc_cfg=sepc_cfg, reverse_st=reverse_st,
+                             dtype=dtype)
 
     def init_weights(self, gen: torch.Generator):
         self.tpn.init_weights(gen)

@@ -1,18 +1,20 @@
 """3D Feature Pyramid Network (NCTHW).
 
 Port of ``mscl_tpu/models/necks/fpn.py``: lateral 1x1x1 convs, a top-down
-pathway with nearest upsampling, per-level (1,3,3) convs. The JAX package's
-``torch_nearest_resize`` reproduces ``F.interpolate(mode='nearest')``, which
-is used here directly.
+pathway with nearest upsampling, per-level (1,3,3) convs, in the compute
+``dtype``. The JAX package's ``torch_nearest_resize`` reproduces
+``F.interpolate(mode='nearest')``, which is used here directly.
 """
 from __future__ import annotations
 
+import functools
 from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import compute_dtype
 from ..builder import NECKS
 
 
@@ -28,8 +30,10 @@ def torch_nearest_resize(x: torch.Tensor, size: Tuple[int, int, int]
 class FPN(nn.Module):
 
     def __init__(self, in_channels: Sequence[int], out_channels: int,
-                 fpn_kerne_size=(1, 3, 3)):  # the reference's spelling
+                 fpn_kerne_size=(1, 3, 3),  # the reference's spelling
+                 dtype=None):
         super().__init__()
+        self.dtype = compute_dtype.resolve_dtype(dtype)
         ks = fpn_kerne_size
         ks = (ks,) * 3 if isinstance(ks, int) else tuple(ks)
         pad = tuple((k - 1) // 2 for k in ks)
@@ -48,10 +52,11 @@ class FPN(nn.Module):
 
     def forward(self, inputs):
         assert len(inputs) == self.levels
-        laterals = [getattr(self, f'lateral_{i}')(x)
+        conv = functools.partial(compute_dtype.conv3d, dtype=self.dtype)
+        laterals = [conv(getattr(self, f'lateral_{i}'), x)
                     for i, x in enumerate(inputs)]
         for i in range(self.levels - 1, 0, -1):
             laterals[i - 1] = laterals[i - 1] + torch_nearest_resize(
                 laterals[i], laterals[i - 1].shape[2:])
-        return [getattr(self, f'fpn_{i}')(lat)
+        return [conv(getattr(self, f'fpn_{i}'), lat)
                 for i, lat in enumerate(laterals)]

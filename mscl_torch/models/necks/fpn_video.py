@@ -21,7 +21,7 @@ class TPNSingle(nn.Module):
 
     def __init__(self, in_channels: Sequence[int], out_channels: int,
                  fpn_cfg=None, temporal_modulation_cfg=None, sepc_cfg=None,
-                 reverse_st: bool = False):
+                 reverse_st: bool = False, dtype=None):
         super().__init__()
         if temporal_modulation_cfg is not None or reverse_st:
             raise NotImplementedError(
@@ -29,13 +29,14 @@ class TPNSingle(nn.Module):
         self.num_stages = len(in_channels)
         fpn_cfg = dict(fpn_cfg or dict(fpn_kerne_size=(1, 3, 3)))
         fpn_cfg.pop('conv_cfg', None)
-        self.fpn = FPN(list(in_channels), out_channels, **fpn_cfg)
+        self.fpn = FPN(list(in_channels), out_channels, dtype=dtype,
+                       **fpn_cfg)
         self.sepc = None
         if sepc_cfg is not None:
             sepc_cfg = dict(sepc_cfg)
             sepc_cfg['in_channels'] = list(sepc_cfg.get(
                 'in_channels', [out_channels] * self.num_stages))
-            self.sepc = SEPC(**sepc_cfg)
+            self.sepc = SEPC(dtype=dtype, **sepc_cfg)
 
     def init_weights(self, gen: torch.Generator):
         self.fpn.init_weights(gen)

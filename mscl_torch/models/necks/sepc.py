@@ -2,7 +2,8 @@
 
 Port of ``mscl_tpu/models/necks/sepc.py``: each level gets
 Pconv[1](self) + Pconv[2](finer level, strided) + the trilinear-upsampled
-Pconv[0](coarser level); convs init normal(0, 0.01) with zero bias.
+Pconv[0](coarser level), in the compute ``dtype``; convs init normal(0, 0.01)
+with zero bias.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import compute_dtype
 from ..builder import NECKS
 
 
@@ -35,21 +37,26 @@ class PConv3D(nn.Module):
     """One pyramid-conv stage: three 3x3x3 convs shared over the levels."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 stride: Tuple[int, int, int] = (2, 1, 1)):
+                 stride: Tuple[int, int, int] = (2, 1, 1),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.pconv0 = nn.Conv3d(in_channels, out_channels, 3, padding=1)
         self.pconv1 = nn.Conv3d(in_channels, out_channels, 3, padding=1)
         self.pconv2 = nn.Conv3d(in_channels, out_channels, 3, stride=stride,
                                 padding=1)
 
     def forward(self, x):
+        def conv(layer, t):
+            return compute_dtype.conv3d(layer, t, self.dtype)
+
         outs = []
         for level, feature in enumerate(x):
-            temp = self.pconv1(feature)
+            temp = conv(self.pconv1, feature)
             if level > 0:
-                temp = temp + self.pconv2(x[level - 1])
+                temp = temp + conv(self.pconv2, x[level - 1])
             if level < len(x) - 1:
-                temp = temp + trilinear_resize(self.pconv0(x[level + 1]),
+                temp = temp + trilinear_resize(conv(self.pconv0, x[level + 1]),
                                                temp.shape[2:])
             outs.append(temp)
         return [F.relu(p) for p in outs]
@@ -61,8 +68,9 @@ class SEPC(nn.Module):
 
     def __init__(self, in_channels: Sequence[int] = (256, 256, 256),
                  out_channels: int = 256, stride=(2, 1, 1), iBN: bool = False,
-                 Pconv_num: int = 2):
+                 Pconv_num: int = 2, dtype=None):
         super().__init__()
+        dtype = compute_dtype.resolve_dtype(dtype)
         if iBN:
             raise NotImplementedError('SEPC iBN is not ported yet')
         self.in_channels = list(in_channels)
@@ -70,7 +78,7 @@ class SEPC(nn.Module):
         for i in range(Pconv_num):
             setattr(self, f'pconv3d_{i}', PConv3D(
                 in_channels[0] if i == 0 else out_channels, out_channels,
-                tuple(stride)))
+                tuple(stride), dtype))
 
     @torch.no_grad()
     def init_weights(self, gen: torch.Generator):

@@ -8,6 +8,10 @@ Port of ``mscl_tpu/models/recognizers/moco.py``:
     ``iters`` are buffers;
   - InfoNCE logits [l_pos | q . (queue * t_decay**count)] / T, label 0, with
     the negative product in the decayed-InfoNCE kernel;
+  - a compute ``dtype`` (flax's semantics, ``models/compute_dtype.py``) for
+    the encoders, necks and MLPs: q, k and l_pos are in it, l_neg promotes
+    to float32 as the JAX einsum of q with the float32 queue does (so the
+    kernel takes q in float32), and the queue stays float32;
   - key BN statistics over the global batch (no ShuffleBN), as in the JAX
     package;
   - the key side's multi-level features are not computed: no head reads
@@ -29,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import compute_dtype
 from ..builder import RECOGNIZERS, build_backbone, build_head, build_neck
 from ...ops.decayed_infonce import decay_weights, decayed_neg
 
@@ -38,18 +43,22 @@ KEY_PATTERNS = tuple(k for _, k in Q2K_PAIRS)
 
 
 def check_identity_aug(aug):
+    """A MoCoV2 tower on its own (its own ``train_step``, not ported yet)
+    would run its aug; inside MSCLWithAug the composite runs it."""
     if aug is not None and dict(aug).get('type') != 'IdentityAug':
         raise NotImplementedError(
-            f"device augmentation {dict(aug).get('type')} is not ported yet; "
-            "use dict(type='IdentityAug')")
+            f"a MoCoV2 tower's own aug {dict(aug).get('type')} is not ported "
+            "yet; use dict(type='IdentityAug') (MSCLWithAug runs its aug)")
 
 
 class MLP(nn.Module):
     """MoCo v2 projection: Linear-ReLU-Linear (or one Linear)."""
 
-    def __init__(self, dim_in: int, dim: int, mlp: bool = True):
+    def __init__(self, dim_in: int, dim: int, mlp: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.mlp = mlp
+        self.dtype = dtype
         if mlp:
             self.fc1 = nn.Linear(dim_in, dim_in)
             self.fc2 = nn.Linear(dim_in, dim)
@@ -66,9 +75,12 @@ class MLP(nn.Module):
             nn.init.uniform_(m.bias, -bound, bound, generator=gen)
 
     def forward(self, x):
+        def fc(layer, t):
+            return compute_dtype.linear(layer, t, self.dtype)
+
         if self.mlp:
-            return self.fc2(F.relu(self.fc1(x)))
-        return self.fc1(x)
+            return fc(self.fc2, F.relu(fc(self.fc1, x)))
+        return fc(self.fc1, x)
 
 
 @RECOGNIZERS.register_module()
@@ -77,17 +89,18 @@ class MoCoV2(nn.Module):
     def __init__(self, backbone, neck, moco_head, im_key='imgs', dim_in=512,
                  dim=128, K=65536, m_base=0.994, t_decay=0.99999,
                  max_iters=1, T=0.07, mlp=False, aux_info=(), aug=None,
-                 train_cfg=None, test_cfg=None):
+                 train_cfg=None, test_cfg=None, dtype=None):
         super().__init__()
         check_identity_aug(aug)
-        bb_cfg = dict(backbone)
+        self.dtype = compute_dtype.resolve_dtype(dtype)
+        bb_cfg = dict(backbone, dtype=self.dtype)
         bb_cfg.pop('pretrained', None)
         self.encoder_q = build_backbone(bb_cfg)
         self.encoder_k = build_backbone(bb_cfg)
-        self.neck_q = build_neck(dict(neck))
-        self.neck_k = build_neck(dict(neck))
-        self.mlp_q = MLP(dim_in, dim, mlp)
-        self.mlp_k = MLP(dim_in, dim, mlp)
+        self.neck_q = build_neck(dict(neck, dtype=self.dtype))
+        self.neck_k = build_neck(dict(neck, dtype=self.dtype))
+        self.mlp_q = MLP(dim_in, dim, mlp, self.dtype)
+        self.mlp_k = MLP(dim_in, dim, mlp, self.dtype)
         self.moco_head = build_head(dict(moco_head))
         for kn in KEY_PATTERNS:
             getattr(self, kn).requires_grad_(False)
@@ -160,8 +173,8 @@ class MoCoV2(nn.Module):
         l_pos = (q * k).sum(dim=1, keepdim=True)
         decay = decay_weights(self.count, self.t_decay)
         bank = (self.queue, decay)
-        l_neg = decayed_neg(q, *bank)
-        logits = torch.cat([l_pos, l_neg], dim=1) / self.T
+        l_neg = decayed_neg(q.float(), *bank)
+        logits = torch.cat([l_pos.float(), l_neg], dim=1) / self.T
         labels = torch.zeros(q.shape[0], dtype=torch.long, device=q.device)
         if update_queue:
             self._enqueue(k)

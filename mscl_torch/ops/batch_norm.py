@@ -1,4 +1,5 @@
-"""BatchNorm with the JAX package's running-statistics rule.
+"""BatchNorm with the JAX package's running-statistics rule, in float32
+(``BatchNorm3d``) and in a lower compute dtype (``LowPrecisionBatchNorm``).
 
 The JAX models (``mscl_tpu/ops/split_bn.py``, flax ``nn.BatchNorm``) update
 ``running = 0.9 * running + 0.1 * batch_stat`` with the *biased* batch
@@ -42,3 +43,76 @@ class BatchNorm3d(nn.Module):
             self.running_var.copy_(kept + (var - kept) * ((n - 1) / n))
             self.running_mean.copy_(mean)
         return y
+
+
+def _batch_stats(x: torch.Tensor):
+    """float32 mean and biased variance over all axes but 1, as
+    E[x^2] - E[x]^2 (the JAX package's formula)."""
+    axes = (0,) + tuple(range(2, x.dim()))
+    xf = x.float()
+    mean32 = xf.mean(axes)
+    return mean32, (xf * xf).mean(axes) - mean32 * mean32
+
+
+class _BNTrainApply(torch.autograd.Function):
+    """Train-mode normalize with the batch statistics, in x's dtype:
+    y = (x - m) rstd scale + bias, m and rstd from the float32 statistics
+    (computed once by the caller, which also folds them into the running
+    averages). The backward's batch reductions (d_bias, d_scale) accumulate
+    in float32 (``bn_train_apply`` of the JAX package)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, mean32, var32, eps):
+        dt = x.dtype
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        m = mean32.to(dt).reshape(shape)
+        rstd = torch.rsqrt(var32 + eps).to(dt).reshape(shape)
+        ctx.save_for_backward(x, scale, m, rstd)
+        return (x - m) * rstd * scale.to(dt).reshape(shape) + \
+            bias.to(dt).reshape(shape)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale, m, rstd = ctx.saved_tensors
+        dt = x.dtype
+        axes = (0,) + tuple(range(2, x.dim()))
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        n = x.numel() // x.shape[1]
+        xhat = (x - m) * rstd
+        s1 = dy.float().sum(axes)                              # d_bias
+        s2 = (dy.float() * xhat.float()).sum(axes)             # d_scale
+        k = scale.to(dt).reshape(shape) * rstd
+        dx = k * (dy - (s1 / n).to(dt).reshape(shape) -
+                  xhat * (s2 / n).to(dt).reshape(shape))
+        return dx, s2, s1, None, None, None
+
+
+class LowPrecisionBatchNorm(BatchNorm3d):
+    """The JAX package's default BN (``LowPrecisionBatchNorm`` of
+    ``mscl_tpu/ops/split_bn.py``) for a compute dtype other than float32:
+    float32 statistics and running averages, the normalize in the input's
+    dtype, float32-accumulated backward reductions. In eval mode the scale
+    and offset are folded in float32 and cast once."""
+
+    def __init__(self, num_features: int, dtype: torch.dtype):
+        super().__init__(num_features)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        x = x.to(torch.promote_types(x.dtype, self.compute_dtype))
+        dt = x.dtype
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        if not self.training:
+            a32 = self.weight * torch.rsqrt(self.running_var + self.eps)
+            b32 = self.bias - self.running_mean * a32
+            return (x * a32.to(dt).reshape(shape) +
+                    b32.to(dt).reshape(shape)).to(self.compute_dtype)
+        with torch.no_grad():
+            mean32, var32 = _batch_stats(x)
+        y = _BNTrainApply.apply(x, self.weight, self.bias, mean32, var32,
+                                self.eps)
+        with torch.no_grad():
+            keep = 1.0 - self.momentum
+            self.running_mean.mul_(keep).add_(self.momentum * mean32)
+            self.running_var.mul_(keep).add_(self.momentum * var32)
+        return y.to(self.compute_dtype)

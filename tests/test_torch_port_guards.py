@@ -33,8 +33,10 @@ def test_port_imports_no_jax_and_no_mscl_tpu():
         '                               "msgpack"))\n'
         'print(len([m for m in sys.modules if m.startswith("mscl_torch.")]))\n'
         'assert not bad, bad\n'
-        'assert {"mscl_torch.tools.bench_mxu_fill", "mscl_torch.ops.mxu_fill"}'
-        ' <= set(sys.modules)\n')
+        'assert {"mscl_torch.tools.bench_mxu_fill", "mscl_torch.ops.mxu_fill",'
+        ' "mscl_torch.models.common", "mscl_torch.models.common.ssl_aug",'
+        ' "mscl_torch.models.common.motion_map",'
+        ' "mscl_torch.utils.flow_viz"} <= set(sys.modules)\n')
     out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
@@ -237,7 +239,10 @@ def test_mxu_fill_refuses_what_the_kernel_cannot_take(monkeypatch, case):
 def test_flagship_copy_matches_config_file():
     cfg = load_flagship_config()
     model = cfg.model.to_dict()
-    assert model['aug'] == dict(type='IdentityAug')
+    assert model['aug'] == dict(type='SyncMoCoAugmentV5', crop_size=112,
+                                sync_level=('batch', 'batch'), t=(8, 8),
+                                flow_suffix='flow_imgs',
+                                weak_aug=(False, False), visualize=True)
     copy = flagship_model_cfg(max_iters=219136 * 400)
 
     def norm(x):
