@@ -53,23 +53,52 @@ the exit code is nonzero:
 8. drive flow extraction through make_raft_fn(None, iters=12) (RAFT large
    at full width, random weights from a seed): 3 batches of 8 synthetic
    frame pairs at 128x171, then profile one;
-9. print the kernel table, the card's name and power limit, and the result.
+9. pretrain_cli: the pretrain entry point end to end. A Kinetics-shaped
+   rawframe set is written to a temporary directory (64 videos of 250
+   frame entries over 16 distinct 256x340 PNGs each, every row's filter
+   chosen adaptively as libpng does, flows as 128x171 float32 .npy, an
+   MDS-like chosen_idx, a train pickle listing the videos 4 times and a
+   val pickle; deleted after), then ``python -m mscl_torch.tools.train``
+   runs in this process on the flagship config file itself with
+   --validate --seed 0 and --cfg-options for the pickles, total_epochs=2,
+   a checkpoint, validation and a log line every epoch and step, and the
+   work dir (workers_per_gpu stays 4): 2 epochs of 8 steps, each followed
+   by one val step; then it resumes from epoch_2 with total_epochs=3. It
+   fails unless every logged loss is finite, queue_ptr, iters and the
+   launches are those of 24 train steps and 3 val steps (a val step
+   launches l_neg 7 times and dq never), epoch_1..3 and latest exist, the
+   state loaded at resume equals the state saved bitwise (parameters,
+   buffers, momentum, steps, the aug generator) and the resumed run starts
+   at step 16. It logs each log line's time and data_time, the steady
+   iterations a second and data-wait share (each epoch's steps 3..5, while
+   the producer decodes beside them), the cold-start batch wait, the
+   epoch's last 3 steps (alone), peak memory, checkpoint bytes and the
+   seconds to copy the state, save and load it, and the host time to
+   decode one frame with the C row unfilter and with numpy's;
+10. print the kernel table, the card's name and power limit, and the
+   result.
 
 Every kernel launch counter is set to 0 just before each of the paths 7
-(each dtype) and 8 and the probe tool's run in 4, and read just after.
-The kernel table's decayed-InfoNCE launches are the float32 step's. It
-needs a CUDA device: without one it exits nonzero before printing any
-result.
+(each dtype), 8, 9 (each of its two runs) and the probe tool's run in 4,
+and read just after. The kernel table's decayed-InfoNCE launches are the
+pretrain CLI's (both runs). It needs a CUDA device: without one it exits
+nonzero before printing any result.
 """
 from __future__ import annotations
 
 import json
 import math
+import os
+import os.path as osp
+import pickle
 import re
 import shutil
+import struct
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -79,8 +108,9 @@ from mscl_torch.apis import (FLAGSHIP_AUG, MOCO_FREEZE, build_model_from_cfg,
                              flagship_batch, load_flagship_config,
                              narrow_flagship_cfg, to_torch)
 from mscl_torch.apis.flow_extraction import make_raft_fn
+from mscl_torch.apis import FLAGSHIP_CONFIG
 from mscl_torch.core import build_lr_schedule, build_optimizer, \
-    make_train_step
+    load_checkpoint, make_train_step, train_loop
 from mscl_torch.flow import build_raft
 from mscl_torch.models import build_ssl_aug
 from mscl_torch.models.recognizers import build_ema_fn
@@ -89,6 +119,8 @@ from mscl_torch.ops import cuda_build
 from mscl_torch.ops import decayed_infonce as di
 from mscl_torch.ops import mxu_fill as mf
 from mscl_torch.tools import bench_mxu_fill as bm
+from mscl_torch.tools import train as train_cli
+from mscl_torch.utils import image_io
 
 B, C, K = 32, 128, 65536
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
@@ -142,6 +174,15 @@ SPIN_CYCLES = 200_000              # about 0.1 ms of the card's clock
 AUG_TOL, WHEEL_STEP, WHEEL_SHARE = 1e-5, 1 / 255 + 1e-6, 1e-5
 RATE_B = 4096                      # draws for the apply-rate check
 AUG_RATES = dict(flip=0.5, jitter=0.8, gray=0.2, blur=0.5)
+# pretrain_cli: a Kinetics-shaped rawframe set (frames 256x340 PNG, flows
+# 128x171 float32 .npy, the README's extraction size); 64 videos, listed
+# 4 times in the train pickle, make 8 steps an epoch at the config's batch
+# of 32, so each epoch has a steady window (steps 3..5); the first 32
+# videos are the val set
+CLI_VIDEOS, CLI_VAL_VIDEOS, CLI_LIST, CLI_REPEAT = 64, 32, 250, 4
+CLI_TAIL = 3                       # an epoch's steps after its last batch
+CLI_FRAME_FILES, CLI_FLOW_FILES = 16, 8
+CLI_FRAME_HW, CLI_FLOW_HW = (256, 340), (128, 171)
 
 
 def log(**kw):
@@ -960,6 +1001,324 @@ def phase_flow_extraction():
     return launches
 
 
+def png_filter_rows(img, kinds=None):
+    """Each row of an 8-bit RGB image filtered by the type in ``kinds``,
+    or, without it, as libpng's adaptive choice does it (and cv2 with
+    IMWRITE_PNG_ALL_FILTERS): of the five filters, the one whose residuals,
+    read as signed bytes, have the least sum of magnitudes. Returns (filter
+    type of each row, the filtered rows)."""
+    x = img.astype(np.int16)
+    h = x.shape[0]
+    left, up, upleft = (np.zeros_like(x) for _ in range(3))
+    left[:, 1:], up[1:], upleft[1:, 1:] = x[:, :-1], x[:-1], x[:-1, :-1]
+    p = left + up - upleft
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left,
+                     np.where(pb <= pc, up, upleft))
+    cand = np.stack([x, x - left, x - up, x - ((left + up) >> 1),
+                     x - paeth]).reshape(5, h, -1) % 256
+    if kinds is None:
+        kinds = np.minimum(cand, 256 - cand).sum(2).argmin(0)
+    return kinds, cand[kinds, np.arange(h)].astype(np.uint8)
+
+
+def write_png(path, img, kinds=None):
+    """An 8-bit RGB PNG, each row's filter ``kinds`` or chosen adaptively
+    (zlib, level 1). Returns the filter type of each row."""
+    h, w, _ = img.shape
+    kinds, filt = png_filter_rows(img, kinds)
+    rows = np.concatenate([kinds[:, None].astype(np.uint8), filt], 1)
+
+    def chunk(kind, body):
+        return (struct.pack('>I', len(body)) + kind + body +
+                struct.pack('>I', zlib.crc32(kind + body)))
+
+    with open(path, 'wb') as f:
+        f.write(b'\x89PNG\r\n\x1a\n' +
+                chunk(b'IHDR', struct.pack('>IIBBBBB', w, h, 8, 2, 0, 0, 0)) +
+                chunk(b'IDAT', zlib.compress(rows.tobytes(), 1)) +
+                chunk(b'IEND', b''))
+    return kinds
+
+
+def write_video(root, v):
+    """One video: CLI_FRAME_FILES PNGs whose 32-row bands alternate a
+    colour ramp with little noise and a colour wave with more (so the
+    adaptive writer picks Up, Paeth and Avg rows, as on camera frames),
+    CLI_FLOW_FILES .npy flows. Returns (frames, flows, filter rows by
+    type, bytes)."""
+    rng = np.random.default_rng((11, v))
+    h, w = CLI_FRAME_HW
+    yy, xx = np.mgrid[0:h, 0:w]
+    ramp = yy[..., None] + 2 * xx[..., None] + np.array([0, 60, 120])
+    wave = 128 + 60 * np.sin(xx[..., None] / 23 + np.array([0, 1, 2])) * \
+        np.cos(yy[..., None] / 17)
+    band = ((yy // 32) % 2 == 0)[..., None]
+    vdir = osp.join(root, f'video_{v:03d}')
+    os.makedirs(vdir)
+    frames, flows, kinds = [], [], np.zeros(5, np.int64)
+    for i in range(CLI_FRAME_FILES):
+        img = np.where(band ^ bool(i % 2),
+                       (ramp + 7 * v + 11 * i +
+                        rng.integers(0, 6, (h, w, 3))) % 256,
+                       np.clip(wave + 4 * i + rng.normal(0, 8, (h, w, 3)),
+                               0, 255))
+        frames.append(osp.join(vdir, f'img_{i:05d}.png'))
+        kinds += np.bincount(write_png(frames[-1], img.astype(np.uint8)),
+                             minlength=5)
+    for i in range(CLI_FLOW_FILES):
+        flows.append(osp.join(vdir, f'flow_{i:05d}.npy'))
+        np.save(flows[-1], rng.normal(
+            scale=3.0, size=CLI_FLOW_HW + (2,)).astype(np.float32))
+    return (frames, flows, kinds,
+            sum(osp.getsize(p) for p in frames + flows))
+
+
+def write_rawframes(root):
+    """CLI_VIDEOS videos (written by 8 threads) of CLI_LIST frame entries
+    cycling over CLI_FRAME_FILES PNGs each, the
+    len(range(0, CLI_LIST - 8, 2)) flows MatchFlow(gap=2, adjacent=8)
+    wants cycling over CLI_FLOW_FILES .npy files, an MDS-like chosen_idx; a
+    train pickle that lists the videos CLI_REPEAT times (CLI_REPEAT * 2
+    steps an epoch) and a val pickle. Returns (train pkl, val pkl, bytes on
+    disk, filter rows by type)."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(8) as pool:
+        videos = list(pool.map(lambda v: write_video(root, v),
+                               range(CLI_VIDEOS)))
+    rng = np.random.default_rng(11)
+    n_flows = len(range(0, CLI_LIST - 8, 2))
+    annos = []
+    for v, (frames, flows, _, _) in enumerate(videos):
+        # the clip start a 121-entry flow timeline allows is 0..57
+        chosen = np.sort(rng.choice(58, size=12, replace=False)).tolist()
+        annos.append(dict(frames=[frames[i % CLI_FRAME_FILES]
+                                  for i in range(CLI_LIST)],
+                          enc_flows=[flows[i % CLI_FLOW_FILES]
+                                     for i in range(n_flows)],
+                          chosen_idx=chosen, label=v % 400))
+    paths = []
+    for name, part in (('train.pkl', annos * CLI_REPEAT),
+                       ('val.pkl', annos[:CLI_VAL_VIDEOS])):
+        paths.append(osp.join(root, name))
+        with open(paths[-1], 'wb') as f:
+            pickle.dump(part, f)
+    return (paths[0], paths[1], sum(v[3] for v in videos),
+            sum(v[2] for v in videos).tolist())
+
+
+def cli_run(train_pkl, val_pkl, work_dir, epochs, resume_from=None):
+    """The port's training CLI on the flagship config file, in this
+    process; returns (runner, launches, seconds)."""
+    argv = [FLAGSHIP_CONFIG, '--validate', '--seed', '0', '--cfg-options',
+            f'data.train.pkl_path={train_pkl}',
+            f'data.val.pkl_path={val_pkl}', f'total_epochs={epochs}',
+            'checkpoint_config.interval=1', 'evaluation.interval=1',
+            'log_config.interval=1', f'work_dir={work_dir}']
+    if resume_from:
+        argv[1:1] = ['--resume-from', resume_from]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    runner, _ = train_cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return runner, dict(l_neg=di.l_neg.launches, dq=di.dq.launches), seconds
+
+
+def states_equal(a, b):
+    """Names of what differs between two train_state dicts, bitwise."""
+    bad = [k for k, v in a['state_dict'].items()
+           if not torch.equal(v, b['state_dict'][k])]
+    oa, ob = a['optimizer'], b['optimizer']
+    if oa['steps'] != ob['steps']:
+        bad.append('steps')
+    for i, st in oa['sgd']['state'].items():
+        if not torch.equal(st['momentum_buffer'],
+                           ob['sgd']['state'][i]['momentum_buffer']):
+            bad.append(f'momentum {i}')
+    if not torch.equal(a['aug_rng'], b['aug_rng']):
+        bad.append('aug_rng')
+    return bad
+
+
+def png_decode_ms(frame):
+    """Host ms to decode one of the phase's frames (adaptive filters) with
+    the C row unfilter (mean of 20) and with numpy's wavefront (mean of 3),
+    and a Sub-only copy with numpy's row pass (mean of 20)."""
+    buf = open(frame, 'rb').read()
+    img = image_io.decode_png(buf)
+    sub = osp.join(osp.dirname(frame), 'sub_only.png')
+    write_png(sub, img, kinds=np.ones(len(img), np.int64))
+    sub_buf = open(sub, 'rb').read()
+    real = image_io._unfilter_lib
+
+    def mean_ms(b, n):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            out = image_io.decode_png(b)
+        if not np.array_equal(out, img):
+            raise AssertionError('PNG unfilter paths disagree')
+        return (time.perf_counter() - t0) / n * 1e3
+    c_ms = mean_ms(buf, 20)
+    image_io._unfilter_lib = lambda: None
+    try:
+        numpy_ms, numpy_sub_ms = mean_ms(buf, 3), mean_ms(sub_buf, 20)
+    finally:
+        image_io._unfilter_lib = real
+    return dict(c_ms=c_ms, numpy_wavefront_ms=numpy_ms,
+                numpy_sub_only_ms=numpy_sub_ms)
+
+
+def phase_pretrain_cli(dev):
+    """The pretrain entry point end to end on the card: the flagship config
+    file through ``python -m mscl_torch.tools.train`` (its main()), from
+    rawframes on disk through the config's own pipelines and thread workers,
+    2 epochs of CLI_REPEAT * 2 steps with validation by loss and a
+    checkpoint after each, then a resume from epoch_2 for a third epoch."""
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix='mscl_pretrain_cli_')
+    timings = dict(save_s=[], state_s=[], resume_s=[])
+    real_save, real_state = train_loop.save_checkpoint, \
+        train_loop.Runner.state
+    real_resume = train_loop.Runner.resume
+    resumed = []
+
+    def timed(fn, key):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            timings[key].append(time.perf_counter() - t0)
+            return out
+        return wrapper
+
+    def resume(self, path=None):
+        timed(real_resume, 'resume_s')(self, path)
+        resumed.append(self.state())
+
+    train_loop.save_checkpoint = timed(real_save, 'save_s')
+    train_loop.Runner.state = timed(real_state, 'state_s')
+    train_loop.Runner.resume = resume
+    try:
+        t0 = time.perf_counter()
+        train_pkl, val_pkl, data_bytes, filter_rows = write_rawframes(root)
+        write_s = time.perf_counter() - t0
+        decode = png_decode_ms(osp.join(root, 'video_000', 'img_00000.png'))
+        work = osp.join(root, 'work')
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        runner, first, first_s = cli_run(train_pkl, val_pkl, work, 2)
+        peak = torch.cuda.max_memory_allocated()
+        saved = real_state(runner)
+        model = runner.model
+        state = {f'{t}.{n}': int(getattr(getattr(model, t), n))
+                 for t in ('recognizer', 'recognizer_flow')
+                 for n in ('queue_ptr', 'iters')}
+        del runner, model
+        torch.cuda.empty_cache()
+        ckpt = osp.join(work, 'epoch_2.pth')
+        on_disk = load_checkpoint(ckpt)
+        runner, second, second_s = cli_run(train_pkl, val_pkl, work, 3,
+                                           resume_from=ckpt)
+        model = runner.model
+        final = {f'{t}.{n}': int(getattr(getattr(model, t), n))
+                 for t in ('recognizer', 'recognizer_flow')
+                 for n in ('queue_ptr', 'iters')}
+        steps = runner.optimizer.steps
+        del runner, model
+        torch.cuda.empty_cache()
+        with open(osp.join(work, 'log.json')) as f:
+            records = [json.loads(line) for line in f]
+        files = sorted(os.listdir(work))
+        ckpt_bytes = osp.getsize(ckpt)
+    finally:
+        train_loop.save_checkpoint, train_loop.Runner.state = \
+            real_save, real_state
+        train_loop.Runner.resume = real_resume
+        shutil.rmtree(root, ignore_errors=True)
+
+    bs = load_flagship_config().data['videos_per_gpu']
+    per_epoch = CLI_VIDEOS * CLI_REPEAT // bs
+    train = [r for r in records if r['mode'] == 'train']
+    val = [r for r in records if r['mode'] == 'val']
+    for r in records:
+        log(phase='pretrain_cli_log', mode=r['mode'], epoch=r['epoch'],
+            iter=r.get('iter'), time=r.get('time'),
+            data_time=r.get('data_time'), loss=r['loss'])
+    bad = [r for r in records
+           if not all(math.isfinite(v) for k, v in r.items()
+                      if k.startswith('loss'))]
+    if bad or len(train) != 3 * per_epoch or len(val) != 3:
+        raise AssertionError(f'{len(train)} train and {len(val)} val log '
+                             f'lines, non-finite losses in {bad}')
+    # a train step launches l_neg and dq 7 times each, a val step l_neg 7
+    want_first = dict(l_neg=7 * 2 * per_epoch + 7 * 2, dq=7 * 2 * per_epoch)
+    want_second = dict(l_neg=7 * per_epoch + 7, dq=7 * per_epoch)
+    if first != want_first or second != want_second:
+        raise AssertionError(f'launches {first}, {second}; want '
+                             f'{want_first}, {want_second}')
+    def moco_state(epochs):
+        n = epochs * per_epoch * bs         # clips trained on
+        return {'recognizer.queue_ptr': n % K, 'recognizer_flow.queue_ptr':
+                n % K, 'recognizer.iters': n, 'recognizer_flow.iters': 2 * n}
+    want, want_final = moco_state(2), moco_state(3)
+    if state != want or final != want_final:
+        raise AssertionError(f'moco state {state}, {final}; want {want}, '
+                             f'{want_final}')
+    missing = [n for n in ('epoch_1.pth', 'epoch_2.pth', 'epoch_3.pth',
+                           'latest') if n not in files]
+    if missing:
+        raise AssertionError(f'missing {missing} in {files}')
+    diff = states_equal(saved, on_disk) + states_equal(saved, resumed[0])
+    if diff or len(resumed) != 1:
+        raise AssertionError(f'the state loaded at resume differs from the '
+                             f'state saved: {diff[:10]}')
+    if resumed[0]['optimizer']['steps'] != 2 * per_epoch or \
+            steps != 3 * per_epoch:
+        raise AssertionError(f'resumed at step '
+                             f'{resumed[0]["optimizer"]["steps"]}, ended at '
+                             f'{steps}')
+    # an epoch's first step waits for a batch made from an empty queue
+    # (cold start) and its second starts while the producer refills the
+    # queue; its last CLI_TAIL steps run after the producer has made the
+    # epoch's last batch (2 queued and 1 in hand), alone. Between them the
+    # producer decodes beside every step, as through all but the ends of a
+    # Kinetics epoch: the steady window, all its time over all its steps,
+    # pooled over the 3 epochs
+    firsts = [r for r in train if r['iter'] == 1]
+    steady = [r for r in train if 3 <= r['iter'] <= per_epoch - CLI_TAIL]
+    tail = [r for r in train if r['iter'] > per_epoch - CLI_TAIL]
+    step_s = sum(r['time'] for r in steady) / len(steady)
+    wait_s = sum(r['data_time'] for r in steady) / len(steady)
+    launches = dict(l_neg=first['l_neg'] + second['l_neg'],
+                    dq=first['dq'] + second['dq'])
+    log(phase='png_decode', frame_hw=CLI_FRAME_HW,
+        filter_rows=dict(zip(('none', 'sub', 'up', 'avg', 'paeth'),
+                             filter_rows)), **decode)
+    log(phase='pretrain_cli', config=osp.relpath(FLAGSHIP_CONFIG),
+        videos=CLI_VIDEOS, train_entries=CLI_VIDEOS * CLI_REPEAT,
+        val_videos=CLI_VAL_VIDEOS, batch=bs, steps_per_epoch=per_epoch,
+        workers=load_flagship_config().data['workers_per_gpu'],
+        data_bytes=data_bytes, data_write_s=write_s,
+        train_steps=len(train), val_steps=len(val),
+        steady_steps=len(steady), steady_iters_per_s=1 / step_s,
+        steady_step_s=step_s, steady_data_wait_s=wait_s,
+        data_wait_share=wait_s / step_s,
+        steady_step_s_by_epoch=[
+            sum(r['time'] for r in steady if r['epoch'] == e) /
+            sum(1 for r in steady if r['epoch'] == e) for e in (1, 2, 3)],
+        cold_batch_wait_s=[r['data_time'] for r in firsts],
+        tail_step_s=[r['time'] for r in tail],
+        second_step=[dict(time=r['time'], data_time=r['data_time'])
+                     for r in train if r['iter'] == 2],
+        peak_bytes=peak, checkpoint_bytes=ckpt_bytes,
+        state_copy_s=timings['state_s'], save_s=timings['save_s'],
+        resume_load_s=timings['resume_s'], run_s=[first_s, second_s],
+        launches=launches, state=final, resumed_at_step=2 * per_epoch,
+        losses=[r['loss'] for r in train],
+        phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
 def _kernel_class(name):
     """Class of a device kernel by its name; the first match wins, so BN
     and resize kernels that cuDNN or a conv-like name carries come first."""
@@ -1013,8 +1372,10 @@ def main():
     dev = torch.device('cuda')
     t0 = time.perf_counter()
     cuda_build.build(cuda_build.all_sources())
+    if cuda_build.load_host('png_unfilter') is None:
+        raise RuntimeError('no host C compiler for csrc/png_unfilter.c')
     log(phase='build', sources=cuda_build.all_sources(),
-        seconds=time.perf_counter() - t0)
+        host_sources=['png_unfilter'], seconds=time.perf_counter() - t0)
 
     rows = phase_kernels(dev)
     corr = phase_corr_lookup(dev)
@@ -1024,9 +1385,10 @@ def main():
     phase_ssl_aug(dev)
     phase_card_vs_cpu()
     phase_raft_card_vs_cpu()
-    launches = phase_flagship(dev, torch.float32)
+    phase_flagship(dev, torch.float32)
     phase_flagship(dev, torch.bfloat16)
     corr_launches = phase_flow_extraction()
+    cli_launches = phase_pretrain_cli(dev)
 
     # the TPU functions that reach pl.pallas_call, and the row of each
     # kernel at the shape its main path gives it
@@ -1037,8 +1399,8 @@ def main():
                                '(corr_lookup_pallas_v2) and '
                                'mscl_tpu/ops/corr_lookup.py:198 '
                                '(corr_lookup_pallas)'}
-    counts = {'decayed_infonce_l_neg': launches['l_neg'],
-              'decayed_infonce_dq': launches['dq'],
+    counts = {'decayed_infonce_l_neg': cli_launches['l_neg'],
+              'decayed_infonce_dq': cli_launches['dq'],
               'corr_lookup': corr_launches}
     sources = {'decayed_infonce_l_neg': 'mscl_torch/csrc/decayed_infonce.cu',
                'decayed_infonce_dq': 'mscl_torch/csrc/decayed_infonce.cu',

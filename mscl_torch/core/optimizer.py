@@ -46,6 +46,14 @@ class SGD:
                             self.max_norm / norm)
         torch._foreach_mul_(grads, scale)
 
+    def state_dict(self) -> Dict:
+        """The momentum buffers and ``steps``: what the next update reads."""
+        return {'steps': self.steps, 'sgd': self.opt.state_dict()}
+
+    def load_state_dict(self, state: Dict) -> None:
+        self.steps = int(state['steps'])
+        self.opt.load_state_dict(state['sgd'])
+
     def step(self):
         self.clip_grads()
         for group in self.opt.param_groups:

@@ -1,18 +1,29 @@
-"""The train step (port of ``mscl_tpu/core/train_loop.py``
-``make_train_step``).
+"""The train step and the epoch runner (port of
+``mscl_tpu/core/train_loop.py`` ``make_train_step`` and ``Runner``).
 
 The step mutates the model and the optimizer in place: the EMA pre-update
 of the key towers, then the forward (which advances BN statistics and the
 MoCo queues), backward and the optimizer update. With update=False it
-computes the same losses and leaves every parameter and buffer as it was,
-as the JAX step discards its new state (validation by loss).
+computes the same losses and leaves every parameter and buffer, and the
+device aug's generator, as it was, as the JAX step's caller discards its
+new state (validation by loss).
 """
 from __future__ import annotations
 
+import json
+import os
+import os.path as osp
+import signal
+import threading
+import time
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
+
+from .checkpoint import (latest_checkpoint, load_checkpoint, load_meta,
+                         restore_train_state, save_checkpoint, train_state)
 
 
 def make_train_step(model: nn.Module, optimizer=None,
@@ -34,11 +45,201 @@ def make_train_step(model: nn.Module, optimizer=None,
             optimizer.step()
         else:
             saved = {k: v.clone() for k, v in model.state_dict().items()}
+            has_aug = hasattr(model, 'aug_state')
+            aug = model.aug_state() if has_aug else None
             with torch.no_grad():
                 if pre_update_fn is not None:
                     pre_update_fn()
                 loss, log_vars = model.train_step(batch)
             model.load_state_dict(saved)
+            if has_aug:
+                model.set_aug_state(aug)
         return {k: v.detach() for k, v in log_vars.items()}
 
     return train_step
+
+
+def to_torch(batch: Dict, device) -> Dict:
+    """numpy batch (dict of arrays or lists of arrays) -> tensors on
+    ``device``, one copy a step."""
+    def conv(x):
+        if isinstance(x, (list, tuple)):
+            return [conv(v) for v in x]
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    return {k: conv(v) for k, v in batch.items()}
+
+
+class Runner:
+    """Epoch-based training driver (the JAX package's Runner, itself the
+    reference's EpochBasedRunner with its logger, checkpoint and
+    validation-by-loss hooks): train epochs, a checkpoint every
+    ``checkpoint_config.interval`` epochs, validation every
+    ``evaluation.interval``, a JSON log (``log.json``), resume, and on
+    SIGTERM a ``preempt_`` checkpoint after the step in flight, then exit
+    143. The step's values are read from the device only at
+    ``log_config.interval``."""
+
+    def __init__(self, model, optimizer, train_loader, cfg, work_dir,
+                 val_loader=None, pre_update_fn=None, lr_schedule=None,
+                 device='cpu'):
+        if cfg.get('precise_bn'):
+            raise NotImplementedError('precise_bn is not ported')
+        self.model = model
+        self.optimizer = optimizer
+        self.train_loader = train_loader
+        self.cfg = cfg
+        self.work_dir = work_dir
+        self.val_loader = val_loader
+        self.lr_schedule = lr_schedule
+        self.device = torch.device(device)
+
+        self.total_epochs = cfg.get('total_epochs', 1)
+        self.log_interval = cfg.get('log_config', {}).get('interval', 20)
+        self.ckpt_interval = cfg.get('checkpoint_config', {}).get(
+            'interval', 1)
+        eval_cfg = cfg.get('evaluation', {}) or {}
+        self.eval_interval = eval_cfg.get('interval', 0)
+        self.eval_simple = eval_cfg.get('simple', False)
+        if val_loader is not None and self.eval_interval and \
+                not self.eval_simple:
+            raise NotImplementedError(
+                'validation by metrics (evaluation.simple=False) needs '
+                'apis/inference.py, which is not ported')
+        # save_best (reference core/evaluation/eval_hooks.py:51-416): keep
+        # a best_* checkpoint of a key metric; the rule from the key
+        self.save_best = eval_cfg.get('save_best')
+        rule = eval_cfg.get('rule')
+        if rule is None and self.save_best:
+            rule = 'less' if 'loss' in self.save_best else 'greater'
+        self.best_rule = rule
+        self.best_score = None
+        self.best_ckpt_path = None
+
+        self._train_step = make_train_step(model, optimizer, pre_update_fn)
+        self._val_step = make_train_step(model, None, pre_update_fn,
+                                         update=False)
+        os.makedirs(work_dir, exist_ok=True)
+        self.log_file = osp.join(work_dir, 'log.json')
+        self.epoch = 0
+        self._preempt_signum = None
+
+    def _note_preempt(self, signum, frame):
+        self._preempt_signum = signum
+
+    def state(self) -> Dict:
+        return train_state(self.model, self.optimizer)
+
+    def log(self, record: Dict):
+        record = {k: (float(v) if hasattr(v, 'dtype') or
+                      isinstance(v, (int, float, np.generic)) else v)
+                  for k, v in record.items()}
+        line = json.dumps(record)
+        print(line, flush=True)
+        with open(self.log_file, 'a') as f:
+            f.write(line + '\n')
+
+    def resume(self, path: Optional[str] = None) -> None:
+        path = path or latest_checkpoint(self.work_dir)
+        if path is None:
+            return
+        restore_train_state(self.model, self.optimizer,
+                            load_checkpoint(path))
+        self.epoch = load_meta(path).get('epoch', 0)
+        print(f'resumed from {path} at epoch {self.epoch}', flush=True)
+
+    def run(self) -> None:
+        """Train to ``total_epochs``. SIGTERM is caught (on the main thread
+        only, unless ``preempt_checkpoint=False``) while this runs."""
+        previous = None
+        if self.cfg.get('preempt_checkpoint', True) and \
+                threading.current_thread() is threading.main_thread():
+            previous = signal.signal(signal.SIGTERM, self._note_preempt)
+        try:
+            while self.epoch < self.total_epochs:
+                self.train_epoch()
+                self.epoch += 1
+                if self.ckpt_interval and \
+                        self.epoch % self.ckpt_interval == 0:
+                    save_checkpoint(self.state(), self.work_dir, self.epoch)
+                if self.eval_interval and \
+                        self.epoch % self.eval_interval == 0:
+                    self.validate()
+            # final checkpoint if not on an interval boundary
+            if not self.ckpt_interval or self.epoch % self.ckpt_interval:
+                save_checkpoint(self.state(), self.work_dir, self.epoch)
+        finally:
+            if previous is not None:
+                signal.signal(signal.SIGTERM, previous)
+
+    def train_epoch(self) -> None:
+        self.train_loader.set_epoch(self.epoch)
+        n_batches = len(self.train_loader)
+        if n_batches == 0:
+            print(f'WARNING: epoch {self.epoch + 1} has 0 batches — '
+                  f'dataset ({len(self.train_loader.dataset)} samples) '
+                  f'is smaller than the global batch '
+                  f'({self.train_loader.batch_size}) with drop_last',
+                  flush=True)
+        t_end = time.time()
+        it = iter(self.train_loader)
+        try:
+            for i, batch in enumerate(it):
+                data_time = time.time() - t_end
+                log_vars = self._train_step(to_torch(batch, self.device))
+                if (i + 1) % self.log_interval == 0 or i + 1 == n_batches:
+                    log_vars = {k: v.item() for k, v in log_vars.items()}
+                    step = self.optimizer.steps
+                    lr = float(self.lr_schedule(step)) if self.lr_schedule \
+                        else None
+                    self.log(dict(mode='train', epoch=self.epoch + 1,
+                                  iter=i + 1, total_iters=n_batches, lr=lr,
+                                  time=time.time() - t_end,
+                                  data_time=data_time, **log_vars))
+                if self._preempt_signum is not None:
+                    # meta epoch = completed epochs, so resume re-runs the
+                    # interrupted epoch; steps, queues and EMA are exact
+                    path = save_checkpoint(
+                        self.state(), self.work_dir, self.epoch,
+                        meta=dict(preempted=True, iter=i + 1),
+                        prefix='preempt_')
+                    with open(osp.join(self.work_dir, 'latest'), 'w') as f:
+                        f.write(osp.basename(path))
+                    self.log(dict(mode='preempt', epoch=self.epoch + 1,
+                                  iter=i + 1, checkpoint=path))
+                    raise SystemExit(128 + int(self._preempt_signum))
+                t_end = time.time()
+        finally:
+            it.close()  # stop the prefetch producer on an early exit
+
+    def validate(self) -> None:
+        """Validation by loss (``evaluation.simple``): the mean of each
+        loss of the train step over the val data, nothing updated."""
+        if self.val_loader is None:
+            return
+        meters: Dict[str, list] = {}
+        it = iter(self.val_loader)
+        try:
+            for batch in it:
+                log_vars = self._val_step(to_torch(batch, self.device))
+                for k, v in log_vars.items():
+                    meters.setdefault(k, []).append(v.item())
+        finally:
+            it.close()
+        metrics = {k: float(np.mean(v)) for k, v in meters.items()}
+        self.log(dict(mode='val', epoch=self.epoch, **metrics))
+        if self.save_best and self.save_best in metrics:
+            score = metrics[self.save_best]
+            better = (self.best_score is None or
+                      (score > self.best_score if self.best_rule == 'greater'
+                       else score < self.best_score))
+            if better:
+                self.best_score = score
+                if self.best_ckpt_path and osp.exists(self.best_ckpt_path):
+                    os.remove(self.best_ckpt_path)
+                    if osp.exists(self.best_ckpt_path + '.meta.json'):
+                        os.remove(self.best_ckpt_path + '.meta.json')
+                self.best_ckpt_path = save_checkpoint(
+                    self.state(), self.work_dir, self.epoch,
+                    prefix=f'best_{self.save_best}_'.replace('/', '_'))
+                self.log(dict(mode='val', epoch=self.epoch, best_score=score,
+                              best_ckpt=self.best_ckpt_path))

@@ -1,0 +1,34 @@
+"""Dataset and pipeline registries and builders.
+
+Port of ``mscl_tpu/datasets/builder.py`` (reference mmaction
+datasets/builder.py): one loader assembles the global batch of
+``videos_per_gpu`` x the number of cards, here one card.
+"""
+from __future__ import annotations
+
+from ..registry import Registry, build_from_cfg
+
+DATASETS = Registry('dataset')
+PIPELINES = Registry('pipeline')
+
+
+def build_dataset(cfg, default_args=None):
+    if cfg['type'] in ('RepeatDataset', 'ConcatDataset'):
+        raise NotImplementedError(f'{cfg["type"]} is not ported')
+    return build_from_cfg(cfg, DATASETS, default_args)
+
+
+def build_dataloader(dataset, videos_per_gpu, workers_per_gpu=0,
+                     num_gpus=1, shuffle=True, seed=None, drop_last=False,
+                     prefetch=2, sampler=None, workers_mode='thread'):
+    """A NumpyLoader over global batches of ``videos_per_gpu * num_gpus``
+    (the reference's lr-per-batch-size semantics)."""
+    from .loader import NumpyLoader
+    if sampler:
+        raise NotImplementedError(f'sampler {dict(sampler)} is not ported')
+    if workers_mode != 'thread':
+        raise NotImplementedError(
+            f"workers_mode={workers_mode!r} is not ported; use 'thread'")
+    return NumpyLoader(dataset, batch_size=videos_per_gpu * num_gpus,
+                       shuffle=shuffle, seed=seed, drop_last=drop_last,
+                       num_workers=workers_per_gpu, prefetch=prefetch)

@@ -1,0 +1,19 @@
+from .augmentations import get_random_resized_crop_bbox, rescale_size
+from .compose import Compose
+from .formatting import Collect, ToTensor, batched_to_tensor, to_tensor
+from .loading import ArrayDecode, LocalDecode, SampleFrames
+from .loading_mscl import (ChosenSampleFrames, MatchFlow,
+                           TemporalShiftChosenSampleFrames)
+from .moco_augmentations import (MoCoDecodePlan, MoCoNormalize,
+                                 MoCoRandomResizedCrop, MoCoResize)
+from .transforms_motion import (NormFlowWithAug, NormFlowWithStidedAug,
+                                norm_flow, rotate_flow)
+
+__all__ = [
+    'Compose', 'Collect', 'ToTensor', 'to_tensor', 'batched_to_tensor',
+    'SampleFrames', 'LocalDecode', 'ArrayDecode', 'MatchFlow',
+    'ChosenSampleFrames', 'TemporalShiftChosenSampleFrames',
+    'MoCoDecodePlan', 'MoCoRandomResizedCrop', 'MoCoResize', 'MoCoNormalize',
+    'NormFlowWithAug', 'NormFlowWithStidedAug', 'norm_flow', 'rotate_flow',
+    'get_random_resized_crop_bbox', 'rescale_size',
+]

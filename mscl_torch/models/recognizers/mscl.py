@@ -78,6 +78,19 @@ class MSCLWithAug(nn.Module):
                 self.aug_seed)
         return self._aug_gen
 
+    def aug_state(self):
+        """The aug generator's state (a CPU byte tensor), None before the
+        first batch made it."""
+        return None if self._aug_gen is None else self._aug_gen.get_state()
+
+    def set_aug_state(self, state) -> None:
+        """Put the aug generator back as ``aug_state`` gave it, on the
+        model's device (None: made from aug_seed at the next batch)."""
+        self._aug_gen = None
+        if state is not None:
+            device = next(self.parameters()).device
+            self.aug_generator(device).set_state(state)
+
     def init_weights(self, gen: torch.Generator):
         self.recognizer.init_weights(gen)
         self.recognizer_flow.init_weights(gen)

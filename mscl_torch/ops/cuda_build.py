@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` exposes a plain C interface. It is compiled by
 ``nvcc`` for ``sm_90a`` into ``build/<name>-<hash>.so`` at the root of the
 checkout (the hash is of the source, so an edited source rebuilds) and
 loaded with ``ctypes``; ptxas's report of each kernel's registers, shared
-memory and spills goes to ``build/<name>-<hash>.log``. Nothing is compiled
-or loaded at import time.
+memory and spills goes to ``build/<name>-<hash>.log``. Host helpers,
+``csrc/<name>.c``, are compiled the same way by the host C compiler
+(``load_host``). Nothing is compiled or loaded at import time.
 """
 from __future__ import annotations
 
@@ -16,13 +17,16 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+CC_FLAGS = ('-std=c99', '-O3', '-shared', '-fPIC')
+_HOST_LOCK = threading.Lock()
 
 
 def nvcc() -> str:
@@ -108,3 +112,41 @@ def all_sources() -> list:
 def load(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if needed and load it (once per process)."""
     return ctypes.CDLL(str(build([name])[name]))
+
+
+def host_cc() -> Optional[str]:
+    """The host C compiler: ``$CC``, else ``cc``, ``gcc`` or ``clang`` on
+    the PATH; None if there is none."""
+    for name in (os.environ.get('CC'), 'cc', 'gcc', 'clang'):
+        path = name and shutil.which(name)
+        if path:
+            return path
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def _load_host(name: str) -> Optional[ctypes.CDLL]:
+    cc = host_cc()
+    if cc is None:
+        return None
+    src = CSRC / f'{name}.c'
+    digest = hashlib.sha1(src.read_bytes()).hexdigest()
+    out = BUILD_DIR / f'{name}-{digest[:12]}.so'
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f'.{os.getpid()}.tmp')
+        proc = subprocess.run([cc, *CC_FLAGS, '-o', str(tmp), str(src)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f'{cc} failed for {src.name}:\n'
+                               f'{proc.stdout}{proc.stderr}')
+        os.replace(tmp, out)
+    return ctypes.CDLL(str(out))
+
+
+def load_host(name: str) -> Optional[ctypes.CDLL]:
+    """Build ``csrc/<name>.c`` with the host C compiler if needed and load
+    it (once per process, whichever thread asks first); None when the
+    machine has no C compiler."""
+    with _HOST_LOCK:
+        return _load_host(name)

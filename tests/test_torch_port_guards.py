@@ -1,6 +1,7 @@
 """Guards on the PyTorch port: it imports neither JAX nor mscl_tpu (nor cv2
 or msgpack, which only the functions that read frames and pack blobs import),
-runs on the card unless told otherwise, never falls back from a kernel to its
+runs on the card unless told otherwise (its models, flow extraction,
+train_model and the training CLI), never falls back from a kernel to its
 plain version on a CUDA tensor, and its copy of the flagship recipe agrees
 with the config file."""
 import os
@@ -10,8 +11,9 @@ import sys
 import pytest
 import torch
 
-from mscl_torch.apis import (build_model_from_cfg, flagship_model_cfg,
-                             load_flagship_config)
+from mscl_torch.apis import (FLAGSHIP_CONFIG, build_model_from_cfg,
+                             flagship_model_cfg, load_flagship_config,
+                             train_model)
 from mscl_torch.apis.flow_extraction import make_raft_fn
 from mscl_torch.ops import corr_lookup as cl
 from mscl_torch.ops import cuda_build
@@ -36,7 +38,15 @@ def test_port_imports_no_jax_and_no_mscl_tpu():
         'assert {"mscl_torch.tools.bench_mxu_fill", "mscl_torch.ops.mxu_fill",'
         ' "mscl_torch.models.common", "mscl_torch.models.common.ssl_aug",'
         ' "mscl_torch.models.common.motion_map",'
-        ' "mscl_torch.utils.flow_viz"} <= set(sys.modules)\n')
+        ' "mscl_torch.utils.flow_viz", "mscl_torch.utils.image_io",'
+        ' "mscl_torch.datasets.loader", "mscl_torch.datasets.file_dataset",'
+        ' "mscl_torch.datasets.pipelines.loading",'
+        ' "mscl_torch.datasets.pipelines.loading_mscl",'
+        ' "mscl_torch.datasets.pipelines.moco_augmentations",'
+        ' "mscl_torch.datasets.pipelines.transforms_motion",'
+        ' "mscl_torch.datasets.pipelines.formatting",'
+        ' "mscl_torch.core.checkpoint", "mscl_torch.tools.train"}'
+        ' <= set(sys.modules)\n')
     out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
@@ -48,6 +58,25 @@ def test_build_model_needs_the_card_unless_told():
         pytest.skip('this box has a CUDA device')
     with pytest.raises(RuntimeError, match='CUDA'):
         build_model_from_cfg(flagship_model_cfg(K=64, dim=16))
+
+
+def test_train_model_needs_the_card_unless_told():
+    if torch.cuda.is_available():
+        pytest.skip('this box has a CUDA device')
+    with pytest.raises(RuntimeError, match='CUDA'):
+        train_model(load_flagship_config(), seed=0)
+
+
+def test_train_cli_needs_the_card_unless_told(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip('this box has a CUDA device')
+    out = subprocess.run(
+        [sys.executable, '-m', 'mscl_torch.tools.train', FLAGSHIP_CONFIG,
+         '--work-dir', str(tmp_path)], cwd=ROOT, capture_output=True,
+        text=True, timeout=300)
+    assert out.returncode != 0
+    assert "pass device='cpu'" in out.stderr
+    assert not (tmp_path / 'log.json').exists()
 
 
 def test_flow_extraction_needs_the_card_unless_told():
