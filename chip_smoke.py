@@ -44,8 +44,10 @@ the exit code is nonzero:
    which fails on any host synchronisation;
 6. hold the port on the card against the port on the CPU (kernels and
    cuDNN against the plain versions): two train steps of a narrow
-   MSCLWithAug with IdentityAug and with V5 (both fed the same draws), and
-   RAFT (full width, 64x64 images, 3 iterations);
+   MSCLWithAug with IdentityAug and with V5 (both fed the same draws), two
+   train steps and forward_test of a narrow Recognizer3D (r3d_18 8 wide,
+   I3DHead, dropout 0, SGD under the step policy with the clip acting),
+   and RAFT (full width, 64x64 images, 3 iterations);
 7. drive the flagship config's own MSCLWithAug r18 pretrain step (full
    width, K=65536, SyncMoCoAugmentV5, batch 32) through
    build_model_from_cfg, build_optimizer and make_train_step, in float32
@@ -58,30 +60,60 @@ the exit code is nonzero:
    frame entries over 16 distinct 256x340 PNGs each, every row's filter
    chosen adaptively as libpng does, flows as 128x171 float32 .npy, an
    MDS-like chosen_idx, a train pickle listing the videos 4 times and a
-   val pickle; deleted after), then ``python -m mscl_torch.tools.train``
-   runs in this process on the flagship config file itself with
-   --validate --seed 0 and --cfg-options for the pickles, total_epochs=2,
-   a checkpoint, validation and a log line every epoch and step, and the
-   work dir (workers_per_gpu stays 4): 2 epochs of 8 steps, each followed
-   by one val step; then it resumes from epoch_2 with total_epochs=3. It
-   fails unless every logged loss is finite, queue_ptr, iters and the
-   launches are those of 24 train steps and 3 val steps (a val step
-   launches l_neg 7 times and dq never), epoch_1..3 and latest exist, the
-   state loaded at resume equals the state saved bitwise (parameters,
-   buffers, momentum, steps, the aug generator) and the resumed run starts
-   at step 16. It logs each log line's time and data_time, the steady
-   iterations a second and data-wait share (each epoch's steps 3..5, while
-   the producer decodes beside them), the cold-start batch wait, the
-   epoch's last 3 steps (alone), peak memory, checkpoint bytes and the
-   seconds to copy the state, save and load it, and the host time to
-   decode one frame with the C row unfilter and with numpy's;
-10. print the kernel table, the card's name and power limit, and the
-   result.
+   val pickle), then ``python -m mscl_torch.tools.train`` runs in this
+   process on the flagship config file itself with --validate --seed 0
+   and --cfg-options for the pickles, total_epochs=2, a checkpoint,
+   validation and a log line every epoch and step, and the work dir
+   (workers_per_gpu stays 4): 2 epochs of 8 steps, each followed by one
+   val step; then it resumes from epoch_2 with total_epochs=3. It fails
+   unless every logged loss is finite, queue_ptr, iters and the launches
+   are those of 24 train steps and 3 val steps (a val step launches l_neg
+   7 times and dq never), epoch_1..3 and latest exist, the state loaded at
+   resume equals the state saved bitwise (parameters, buffers, momentum,
+   steps, the aug generator) and the resumed run starts at step 16. It
+   logs each log line's time and data_time, the steady iterations a second
+   and data-wait share (each epoch's steps 3..5, while the producer
+   decodes beside them), the cold-start batch wait, the epoch's last 3
+   steps (alone), peak memory, checkpoint bytes and the seconds to copy
+   the state, save and load it, and the host time to decode one frame
+   with the C row unfilter and with numpy's;
+10. pretrain_cli_process: the same config and data with
+   ``data.workers_mode=process`` (4 decode processes, a whole batch
+   each), 2 epochs: the same checks of losses, launches and queues, no
+   decode process left after the run, the steady window beside thread
+   mode's, and the bytes of one batch's pickle on the result queue and
+   the time to unpickle it;
+11. finetune_cli: README workload 2, the fine-tune config
+   (configs/recognition/ssl_test/test_ssv2_r18.py: r3d_18 64 wide,
+   I3DHead for 174 classes, dropout 0.5, batch 32, 16-frame 112x112
+   training clips, 16-frame 128x128 val clips, SGD lr 0.12 under the step
+   policy) through ``python -m mscl_torch.tools.train --validate`` over a
+   synthetic SSv2-shaped set (64 videos of 24 240x320 PNG frames, 174
+   labels, listed 4 times: 8 steps an epoch; 32 val videos), its backbone
+   from pretrain_cli's last checkpoint, 2 epochs with the step policy's
+   milestone at epoch 1 and validation by metrics after each. It fails
+   unless the backbone equals the checkpoint's encoder_q bitwise before
+   step 1, each logged lr is the policy's, every val line has top1, top5
+   and mean-class accuracy and the checkpoints exist; it logs the steady
+   window as pretrain_cli's, peak memory, checkpoint bytes, and one more
+   train step profiled;
+12. test_cli: ``python -m mscl_torch.tools.test`` on the fine-tuned
+   checkpoint over the 32 val videos (8 clips of 128x128): the metrics it
+   prints and writes, videos/s over the CLI and over its decode and
+   forward loop;
+13. retrieval_cli: README workload 3, ``python -m
+   mscl_torch.tools.test_retrieval --ssl`` on the pretrain checkpoint's
+   encoder, as configured and with the train split set to the test split,
+   where recall@1 must be 1; features/s;
+14. print the kernel table, the card's name and power limit, and the
+   result. Each phase's seconds are logged (phase_seconds).
 
 Every kernel launch counter is set to 0 just before each of the paths 7
-(each dtype), 8, 9 (each of its two runs) and the probe tool's run in 4,
-and read just after. The kernel table's decayed-InfoNCE launches are the
-pretrain CLI's (both runs). It needs a CUDA device: without one it exits
+(each dtype), 8, 9 (each of its two runs), 10-13 (each CLI run; the
+fine-tune, test and retrieval paths must launch no decayed-InfoNCE
+kernel: r3d_18 goes to cuDNN) and the probe tool's run in 4, and read
+just after. The kernel table's decayed-InfoNCE launches are the pretrain
+CLI's (both runs of 9). It needs a CUDA device: without one it exits
 nonzero before printing any result.
 """
 from __future__ import annotations
@@ -108,6 +140,7 @@ from mscl_torch.apis import (FLAGSHIP_AUG, MOCO_FREEZE, build_model_from_cfg,
                              flagship_batch, load_flagship_config,
                              narrow_flagship_cfg, to_torch)
 from mscl_torch.apis.flow_extraction import make_raft_fn
+from mscl_torch.config import Config
 from mscl_torch.apis import FLAGSHIP_CONFIG
 from mscl_torch.core import build_lr_schedule, build_optimizer, \
     load_checkpoint, make_train_step, train_loop
@@ -119,6 +152,8 @@ from mscl_torch.ops import cuda_build
 from mscl_torch.ops import decayed_infonce as di
 from mscl_torch.ops import mxu_fill as mf
 from mscl_torch.tools import bench_mxu_fill as bm
+from mscl_torch.tools import test as test_cli
+from mscl_torch.tools import test_retrieval as retrieval_cli
 from mscl_torch.tools import train as train_cli
 from mscl_torch.utils import image_io
 
@@ -183,6 +218,16 @@ CLI_VIDEOS, CLI_VAL_VIDEOS, CLI_LIST, CLI_REPEAT = 64, 32, 250, 4
 CLI_TAIL = 3                       # an epoch's steps after its last batch
 CLI_FRAME_FILES, CLI_FLOW_FILES = 16, 8
 CLI_FRAME_HW, CLI_FLOW_HW = (256, 340), (128, 171)
+# finetune_cli, test_cli, retrieval_cli: the README's fine-tune config over
+# an SSv2-shaped rawframe set (240x320 PNG frames, SSv2's short side, 174
+# labels); FT_VIDEOS videos listed FT_REPEAT times in the train pickle (8
+# steps an epoch at the config's batch of 32, a steady window of steps
+# 3..5 as pretrain_cli's), the first FT_VAL_VIDEOS the val and test set
+# (one batch)
+FT_CONFIG = 'configs/recognition/ssl_test/test_ssv2_r18.py'
+FT_VIDEOS, FT_VAL_VIDEOS, FT_REPEAT, FT_FRAMES = 64, 32, 4, 24
+FT_FRAME_HW, FT_CLASSES = (240, 320), 174
+FT_FEATURES = 512                  # r3d_18's last stage, 64 wide
 
 
 def log(**kw):
@@ -1041,14 +1086,14 @@ def write_png(path, img, kinds=None):
     return kinds
 
 
-def write_video(root, v):
-    """One video: CLI_FRAME_FILES PNGs whose 32-row bands alternate a
-    colour ramp with little noise and a colour wave with more (so the
-    adaptive writer picks Up, Paeth and Avg rows, as on camera frames),
-    CLI_FLOW_FILES .npy flows. Returns (frames, flows, filter rows by
-    type, bytes)."""
+def write_video(root, v, hw=CLI_FRAME_HW, n_frames=CLI_FRAME_FILES,
+                n_flows=CLI_FLOW_FILES):
+    """One video: n_frames PNGs of hw whose 32-row bands alternate a colour
+    ramp with little noise and a colour wave with more (so the adaptive
+    writer picks Up, Paeth and Avg rows, as on camera frames), n_flows
+    .npy flows. Returns (frames, flows, filter rows by type, bytes)."""
     rng = np.random.default_rng((11, v))
-    h, w = CLI_FRAME_HW
+    h, w = hw
     yy, xx = np.mgrid[0:h, 0:w]
     ramp = yy[..., None] + 2 * xx[..., None] + np.array([0, 60, 120])
     wave = 128 + 60 * np.sin(xx[..., None] / 23 + np.array([0, 1, 2])) * \
@@ -1057,7 +1102,7 @@ def write_video(root, v):
     vdir = osp.join(root, f'video_{v:03d}')
     os.makedirs(vdir)
     frames, flows, kinds = [], [], np.zeros(5, np.int64)
-    for i in range(CLI_FRAME_FILES):
+    for i in range(n_frames):
         img = np.where(band ^ bool(i % 2),
                        (ramp + 7 * v + 11 * i +
                         rng.integers(0, 6, (h, w, 3))) % 256,
@@ -1066,7 +1111,7 @@ def write_video(root, v):
         frames.append(osp.join(vdir, f'img_{i:05d}.png'))
         kinds += np.bincount(write_png(frames[-1], img.astype(np.uint8)),
                              minlength=5)
-    for i in range(CLI_FLOW_FILES):
+    for i in range(n_flows):
         flows.append(osp.join(vdir, f'flow_{i:05d}.npy'))
         np.save(flows[-1], rng.normal(
             scale=3.0, size=CLI_FLOW_HW + (2,)).astype(np.float32))
@@ -1107,22 +1152,62 @@ def write_rawframes(root):
             sum(v[2] for v in videos).tolist())
 
 
-def cli_run(train_pkl, val_pkl, work_dir, epochs, resume_from=None):
+def cli_run(main, argv):
+    """A CLI's main(argv) in this process; returns (its result, kernel
+    launches, seconds)."""
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return out, dict(l_neg=di.l_neg.launches, dq=di.dq.launches), seconds
+
+
+def pretrain_run(train_pkl, val_pkl, work_dir, epochs, resume_from=None,
+                 options=()):
     """The port's training CLI on the flagship config file, in this
     process; returns (runner, launches, seconds)."""
     argv = [FLAGSHIP_CONFIG, '--validate', '--seed', '0', '--cfg-options',
             f'data.train.pkl_path={train_pkl}',
             f'data.val.pkl_path={val_pkl}', f'total_epochs={epochs}',
             'checkpoint_config.interval=1', 'evaluation.interval=1',
-            'log_config.interval=1', f'work_dir={work_dir}']
+            'log_config.interval=1', f'work_dir={work_dir}', *options]
     if resume_from:
         argv[1:1] = ['--resume-from', resume_from]
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    runner, _ = train_cli.main(argv)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    return runner, dict(l_neg=di.l_neg.launches, dq=di.dq.launches), seconds
+    (runner, _), launches, seconds = cli_run(train_cli.main, argv)
+    return runner, launches, seconds
+
+
+def steady_window(train, per_epoch, tail):
+    """An epoch's first step waits for a batch made from an empty queue
+    (cold start) and its second starts while the producer refills the
+    queue; its last ``tail`` steps run after the producer has made the
+    epoch's last batch (2 queued and 1 in hand), alone. Between them the
+    producer decodes beside every step, as through all but the ends of a
+    long epoch: the steady window, all its time over all its steps, pooled
+    over the epochs. Returns the window's stats."""
+    firsts = [r for r in train if r['iter'] == 1]
+    steady = [r for r in train if 3 <= r['iter'] <= per_epoch - tail]
+    step_s = sum(r['time'] for r in steady) / len(steady)
+    wait_s = sum(r['data_time'] for r in steady) / len(steady)
+    epochs = sorted({r['epoch'] for r in steady})
+    return dict(
+        steady_steps=len(steady), steady_iters_per_s=1 / step_s,
+        steady_step_s=step_s, steady_data_wait_s=wait_s,
+        data_wait_share=wait_s / step_s,
+        steady_step_s_by_epoch=[
+            sum(r['time'] for r in steady if r['epoch'] == e) /
+            sum(1 for r in steady if r['epoch'] == e) for e in epochs],
+        cold_batch_wait_s=[r['data_time'] for r in firsts],
+        tail_step_s=[r['time'] for r in train
+                     if r['iter'] > per_epoch - tail],
+        second_step=[dict(time=r['time'], data_time=r['data_time'])
+                     for r in train if r['iter'] == 2])
+
+
+def read_log(work_dir):
+    with open(osp.join(work_dir, 'log.json')) as f:
+        return [json.loads(line) for line in f]
 
 
 def states_equal(a, b):
@@ -1169,14 +1254,15 @@ def png_decode_ms(frame):
                 numpy_sub_only_ms=numpy_sub_ms)
 
 
-def phase_pretrain_cli(dev):
+def phase_pretrain_cli(root):
     """The pretrain entry point end to end on the card: the flagship config
     file through ``python -m mscl_torch.tools.train`` (its main()), from
-    rawframes on disk through the config's own pipelines and thread workers,
-    2 epochs of CLI_REPEAT * 2 steps with validation by loss and a
-    checkpoint after each, then a resume from epoch_2 for a third epoch."""
+    rawframes on disk (written under root) through the config's own
+    pipelines and thread workers, 2 epochs of CLI_REPEAT * 2 steps with
+    validation by loss and a checkpoint after each, then a resume from
+    epoch_2 for a third epoch. Returns (launches, the steady window, the
+    pickles, the last checkpoint)."""
     t_phase = time.perf_counter()
-    root = tempfile.mkdtemp(prefix='mscl_pretrain_cli_')
     timings = dict(save_s=[], state_s=[], resume_s=[])
     real_save, real_state = train_loop.save_checkpoint, \
         train_loop.Runner.state
@@ -1206,8 +1292,10 @@ def phase_pretrain_cli(dev):
         work = osp.join(root, 'work')
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        runner, first, first_s = cli_run(train_pkl, val_pkl, work, 2)
+        runner, first, first_s = pretrain_run(train_pkl, val_pkl, work, 2)
         peak = torch.cuda.max_memory_allocated()
+        bs, per_epoch = runner.train_loader.batch_size, len(
+            runner.train_loader)
         saved = real_state(runner)
         model = runner.model
         state = {f'{t}.{n}': int(getattr(getattr(model, t), n))
@@ -1217,8 +1305,8 @@ def phase_pretrain_cli(dev):
         torch.cuda.empty_cache()
         ckpt = osp.join(work, 'epoch_2.pth')
         on_disk = load_checkpoint(ckpt)
-        runner, second, second_s = cli_run(train_pkl, val_pkl, work, 3,
-                                           resume_from=ckpt)
+        runner, second, second_s = pretrain_run(train_pkl, val_pkl, work, 3,
+                                                resume_from=ckpt)
         model = runner.model
         final = {f'{t}.{n}': int(getattr(getattr(model, t), n))
                  for t in ('recognizer', 'recognizer_flow')
@@ -1226,18 +1314,16 @@ def phase_pretrain_cli(dev):
         steps = runner.optimizer.steps
         del runner, model
         torch.cuda.empty_cache()
-        with open(osp.join(work, 'log.json')) as f:
-            records = [json.loads(line) for line in f]
+        records = read_log(work)
         files = sorted(os.listdir(work))
         ckpt_bytes = osp.getsize(ckpt)
     finally:
         train_loop.save_checkpoint, train_loop.Runner.state = \
             real_save, real_state
         train_loop.Runner.resume = real_resume
-        shutil.rmtree(root, ignore_errors=True)
 
-    bs = load_flagship_config().data['videos_per_gpu']
-    per_epoch = CLI_VIDEOS * CLI_REPEAT // bs
+    if per_epoch != CLI_VIDEOS * CLI_REPEAT // bs:
+        raise AssertionError(f'{per_epoch} steps an epoch at batch {bs}')
     train = [r for r in records if r['mode'] == 'train']
     val = [r for r in records if r['mode'] == 'val']
     for r in records:
@@ -1256,11 +1342,8 @@ def phase_pretrain_cli(dev):
     if first != want_first or second != want_second:
         raise AssertionError(f'launches {first}, {second}; want '
                              f'{want_first}, {want_second}')
-    def moco_state(epochs):
-        n = epochs * per_epoch * bs         # clips trained on
-        return {'recognizer.queue_ptr': n % K, 'recognizer_flow.queue_ptr':
-                n % K, 'recognizer.iters': n, 'recognizer_flow.iters': 2 * n}
-    want, want_final = moco_state(2), moco_state(3)
+    want, want_final = moco_state(2, per_epoch, bs), \
+        moco_state(3, per_epoch, bs)
     if state != want or final != want_final:
         raise AssertionError(f'moco state {state}, {final}; want {want}, '
                              f'{want_final}')
@@ -1277,18 +1360,7 @@ def phase_pretrain_cli(dev):
         raise AssertionError(f'resumed at step '
                              f'{resumed[0]["optimizer"]["steps"]}, ended at '
                              f'{steps}')
-    # an epoch's first step waits for a batch made from an empty queue
-    # (cold start) and its second starts while the producer refills the
-    # queue; its last CLI_TAIL steps run after the producer has made the
-    # epoch's last batch (2 queued and 1 in hand), alone. Between them the
-    # producer decodes beside every step, as through all but the ends of a
-    # Kinetics epoch: the steady window, all its time over all its steps,
-    # pooled over the 3 epochs
-    firsts = [r for r in train if r['iter'] == 1]
-    steady = [r for r in train if 3 <= r['iter'] <= per_epoch - CLI_TAIL]
-    tail = [r for r in train if r['iter'] > per_epoch - CLI_TAIL]
-    step_s = sum(r['time'] for r in steady) / len(steady)
-    wait_s = sum(r['data_time'] for r in steady) / len(steady)
+    window = steady_window(train, per_epoch, CLI_TAIL)
     launches = dict(l_neg=first['l_neg'] + second['l_neg'],
                     dq=first['dq'] + second['dq'])
     log(phase='png_decode', frame_hw=CLI_FRAME_HW,
@@ -1298,25 +1370,364 @@ def phase_pretrain_cli(dev):
         videos=CLI_VIDEOS, train_entries=CLI_VIDEOS * CLI_REPEAT,
         val_videos=CLI_VAL_VIDEOS, batch=bs, steps_per_epoch=per_epoch,
         workers=load_flagship_config().data['workers_per_gpu'],
-        data_bytes=data_bytes, data_write_s=write_s,
-        train_steps=len(train), val_steps=len(val),
-        steady_steps=len(steady), steady_iters_per_s=1 / step_s,
-        steady_step_s=step_s, steady_data_wait_s=wait_s,
-        data_wait_share=wait_s / step_s,
-        steady_step_s_by_epoch=[
-            sum(r['time'] for r in steady if r['epoch'] == e) /
-            sum(1 for r in steady if r['epoch'] == e) for e in (1, 2, 3)],
-        cold_batch_wait_s=[r['data_time'] for r in firsts],
-        tail_step_s=[r['time'] for r in tail],
-        second_step=[dict(time=r['time'], data_time=r['data_time'])
-                     for r in train if r['iter'] == 2],
+        workers_mode='thread', data_bytes=data_bytes, data_write_s=write_s,
+        train_steps=len(train), val_steps=len(val), **window,
         peak_bytes=peak, checkpoint_bytes=ckpt_bytes,
         state_copy_s=timings['state_s'], save_s=timings['save_s'],
         resume_load_s=timings['resume_s'], run_s=[first_s, second_s],
         launches=launches, state=final, resumed_at_step=2 * per_epoch,
         losses=[r['loss'] for r in train],
         phase_s=time.perf_counter() - t_phase)
+    return launches, window, (train_pkl, val_pkl), \
+        osp.join(work, 'epoch_3.pth')
+
+
+def moco_state(epochs, per_epoch, bs):
+    n = epochs * per_epoch * bs         # clips trained on
+    return {'recognizer.queue_ptr': n % K, 'recognizer_flow.queue_ptr':
+            n % K, 'recognizer.iters': n, 'recognizer_flow.iters': 2 * n}
+
+
+def batch_transport(dataset, bs):
+    """What one batch of the process workers costs to move: the bytes of
+    the pickle a worker puts on the result queue (its samples, as
+    multiprocessing pickles them) and the parent's time to unpickle it
+    (mean of 3)."""
+    from multiprocessing.reduction import ForkingPickler
+    samples = [dataset[i] for i in range(bs)]
+    blob = bytes(ForkingPickler.dumps((1, 0, samples)))
+    t0 = time.perf_counter()
+    for _ in range(3):
+        pickle.loads(blob)
+    return dict(batch_pickle_bytes=len(blob),
+                batch_unpickle_s=(time.perf_counter() - t0) / 3)
+
+
+def phase_pretrain_cli_process(root, pkls, thread_window):
+    """pretrain_cli's config and data with the decode workers as processes
+    (``data.workers_mode=process``): 2 epochs with validation; its steady
+    window beside thread mode's, what a batch moves through the result
+    queue, and no decode process left after the run."""
+    import multiprocessing
+    from mscl_torch.datasets import loader as t_loader
+    t_phase = time.perf_counter()
+    work = osp.join(root, 'work_process')
+    train_pkl, val_pkl = pkls
+    # each read of a batch's bytes from the result pipe in the parent's
+    # producer thread, live: its seconds and bytes
+    reads, real_init = [], t_loader._ProcessPool.__init__
+
+    def init(self, *args, **kwargs):
+        real_init(self, *args, **kwargs)
+        recv = self.result_q._recv_bytes
+
+        def timed_recv(*a):
+            t0 = time.perf_counter()
+            buf = recv(*a)
+            reads.append((time.perf_counter() - t0, len(buf)))
+            return buf
+        self.result_q._recv_bytes = timed_recv
+
+    t_loader._ProcessPool.__init__ = init
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        runner, launches, run_s = pretrain_run(
+            train_pkl, val_pkl, work, 2,
+            options=['data.workers_mode=process'])
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        t_loader._ProcessPool.__init__ = real_init
+    loader = runner.train_loader
+    if loader.workers_mode != 'process' or loader._pool is not None or \
+            multiprocessing.active_children():
+        raise AssertionError(f'mode {loader.workers_mode}, pool '
+                             f'{loader._pool}, children '
+                             f'{multiprocessing.active_children()}')
+    bs = loader.batch_size
+    per_epoch = len(loader)
+    state = {f'{t}.{n}': int(getattr(getattr(runner.model, t), n))
+             for t in ('recognizer', 'recognizer_flow')
+             for n in ('queue_ptr', 'iters')}
+    transport = batch_transport(loader.dataset, bs)
+    del runner, loader
+    torch.cuda.empty_cache()
+    records = read_log(work)
+    train = [r for r in records if r['mode'] == 'train']
+    val = [r for r in records if r['mode'] == 'val']
+    bad = [r for r in records
+           if not all(math.isfinite(v) for k, v in r.items()
+                      if k.startswith('loss'))]
+    if bad or len(train) != 2 * per_epoch or len(val) != 2:
+        raise AssertionError(f'{len(train)} train and {len(val)} val log '
+                             f'lines, non-finite losses in {bad}')
+    want = dict(l_neg=7 * 2 * per_epoch + 7 * 2, dq=7 * 2 * per_epoch)
+    if launches != want or state != moco_state(2, per_epoch, bs):
+        raise AssertionError(f'launches {launches}, state {state}')
+    window = steady_window(train, per_epoch, CLI_TAIL)
+    log(phase='pretrain_cli_process', workers_mode='process',
+        workers=load_flagship_config().data['workers_per_gpu'], batch=bs,
+        steps_per_epoch=per_epoch, train_steps=len(train), **window,
+        steady_step_ratio_to_thread=(window['steady_step_s'] /
+                                     thread_window['steady_step_s']),
+        **transport, live_reads=len(reads),
+        live_read_bytes=[n for _, n in reads],
+        live_read_s=[t for t, _ in reads], peak_bytes=peak, run_s=run_s,
+        launches=launches,
+        state=state, losses=[r['loss'] for r in train],
+        phase_s=time.perf_counter() - t_phase)
     return launches
+
+
+def write_ssv2_frames(root):
+    """FT_VIDEOS SSv2-shaped videos (FT_FRAMES PNG frames of FT_FRAME_HW,
+    written by 8 threads, label v % FT_CLASSES); a train pickle listing
+    them FT_REPEAT times and a val pickle of the first FT_VAL_VIDEOS.
+    Returns (train pkl, val pkl, bytes on disk)."""
+    from concurrent.futures import ThreadPoolExecutor
+    root = osp.join(root, 'ssv2')
+    os.makedirs(root)
+    with ThreadPoolExecutor(8) as pool:
+        videos = list(pool.map(lambda v: write_video(
+            root, v, FT_FRAME_HW, FT_FRAMES, 0), range(FT_VIDEOS)))
+    annos = [dict(frames=frames, label=v % FT_CLASSES)
+             for v, (frames, _, _, _) in enumerate(videos)]
+    paths = []
+    for name, part in (('train.pkl', annos * FT_REPEAT),
+                       ('val.pkl', annos[:FT_VAL_VIDEOS])):
+        paths.append(osp.join(root, name))
+        with open(paths[-1], 'wb') as f:
+            pickle.dump(part, f)
+    return paths[0], paths[1], sum(v[3] for v in videos)
+
+
+def finetune_options(train_pkl, val_pkl, work):
+    """--cfg-options of the fine-tune phases: the pickles, the work dir
+    (the val and test sets' per-class files too), a checkpoint, validation
+    and a log line every epoch and step, and the step policy's milestone
+    at epoch 1 (the config's 14 and 18 of 22 epochs, cut to 2)."""
+    return [f'data.train.pkl_path={train_pkl}',
+            f'data.val.pkl_path={val_pkl}', f'data.test.pkl_path={val_pkl}',
+            f'data.val.visual_cfg.cur_path={work}',
+            f'data.test.visual_cfg.cur_path={work}', f'work_dir={work}',
+            'total_epochs=2', 'lr_config.step=[1]', 'evaluation.interval=1',
+            'checkpoint_config.interval=1', 'log_config.interval=1']
+
+
+def phase_finetune_cli(root, pretrain_ckpt):
+    """README workload 2 on the card: test_ssv2_r18.py at full width
+    (r3d_18 64 wide, I3DHead for 174 classes, dropout 0.5, batch 32, SGD lr
+    0.12 under the step policy) through ``python -m mscl_torch.tools.train
+    --validate`` over an SSv2-shaped PNG set, its backbone from the
+    pretrain phase's checkpoint: 2 epochs of FT_STEPS steps with
+    validation by metrics after each; then one step profiled. Fails unless
+    the backbone equals the checkpoint's encoder_q bitwise before step 1,
+    each logged lr is the step policy's and every val line has top1, top5
+    and mean-class accuracy. Returns (pickles, work dir, the log line)."""
+    from mscl_torch.apis import train as train_api
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    train_pkl, val_pkl, data_bytes = write_ssv2_frames(root)
+    write_s = time.perf_counter() - t0
+    work = osp.join(root, 'finetune')
+    options = finetune_options(train_pkl, val_pkl, work) + [
+        f'model.train_cfg.ssl_pretrain.pretrained.filename={pretrain_ckpt}']
+    encoder = {k[len('recognizer.encoder_q.'):]: v for k, v in
+               load_checkpoint(pretrain_ckpt)['state_dict'].items()
+               if k.startswith('recognizer.encoder_q.')}
+    grafted = []
+    real = train_api.apply_ssl_pretrain
+
+    def apply_and_check(model, ssl_cfg):
+        real(model, ssl_cfg)
+        got = {k[len('backbone.'):]: v.cpu() for k, v in
+               model.state_dict().items() if k.startswith('backbone.')}
+        grafted.append(sorted(got) == sorted(encoder) and all(
+            torch.equal(got[k], v) for k, v in encoder.items()))
+
+    train_api.apply_ssl_pretrain = apply_and_check
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        (runner, model), launches, run_s = cli_run(
+            train_cli.main, [FT_CONFIG, '--validate', '--seed', '0',
+                             '--cfg-options', *options])
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        train_api.apply_ssl_pretrain = real
+    if grafted != [True]:
+        raise AssertionError(f'the backbone is not the pretrain encoder_q '
+                             f'({grafted})')
+    fc = model.cls_head.fc_cls
+    if (fc.in_features, fc.out_features) != (FT_FEATURES, FT_CLASSES) or \
+            model.backbone.layer4[-1].conv2[0].out_channels != FT_FEATURES \
+            or model.cls_head.dropout_ratio != 0.5:
+        raise AssertionError(f'not the config\'s model: {model}')
+    if launches != dict(l_neg=0, dq=0):
+        raise AssertionError(f'decayed InfoNCE launched: {launches}')
+    it = iter(runner.train_loader)
+    batch = to_torch(next(it), 'cuda')
+    it.close()
+    it._thread.join()               # no decode thread beside the step
+    profile('finetune_step', lambda: runner._train_step(batch))
+    per_epoch = len(runner.train_loader)
+    bs = runner.train_loader.batch_size
+    dropout_state = runner.model.dropout_state()
+    del runner, model, batch
+    torch.cuda.empty_cache()
+    records = read_log(work)
+    train = [r for r in records if r['mode'] == 'train']
+    val = [r for r in records if r['mode'] == 'val' and 'best_score' not in r]
+    cfg = Config.fromfile(FT_CONFIG)
+    base_lr = cfg.optimizer['lr']
+    bad = [r for r in train if not math.isfinite(r['loss']) or not
+           math.isclose(r['lr'], base_lr * 0.1 ** (
+               ((r['epoch'] - 1) * per_epoch + r['iter']) // per_epoch >= 1),
+               rel_tol=1e-12)]
+    if bad or len(train) != 2 * per_epoch or len(val) != 2 or \
+            dropout_state is None:
+        raise AssertionError(f'{len(train)} train and {len(val)} val lines; '
+                             f'lr or loss off in {bad}')
+    if not all({'top1_acc', 'top5_acc', 'mean_class_accuracy'} <= set(r)
+               for r in val):
+        raise AssertionError(f'val lines without the metrics: {val}')
+    files = sorted(os.listdir(work))
+    if not {'epoch_1.pth', 'epoch_2.pth', 'latest'} <= set(files):
+        raise AssertionError(f'checkpoints missing in {files}')
+    window = steady_window(train, per_epoch, CLI_TAIL)
+    log(phase='finetune_cli', config=FT_CONFIG, videos=FT_VIDEOS,
+        train_entries=FT_VIDEOS * FT_REPEAT, val_videos=FT_VAL_VIDEOS,
+        frame_hw=FT_FRAME_HW, frames=FT_FRAMES, classes=FT_CLASSES,
+        batch=bs, steps_per_epoch=per_epoch,
+        workers=cfg.data['workers_per_gpu'], data_bytes=data_bytes,
+        data_write_s=write_s, surgery_bitwise=True, **window,
+        lr=[r['lr'] for r in train], losses=[r['loss'] for r in train],
+        val=[{k: r[k] for k in ('top1_acc', 'top5_acc',
+                                'mean_class_accuracy')} for r in val],
+        peak_bytes=peak, checkpoint_bytes=osp.getsize(
+            osp.join(work, 'epoch_2.pth')), run_s=run_s,
+        phase_s=time.perf_counter() - t_phase)
+    return (train_pkl, val_pkl), work
+
+
+def timed_calls(module, name):
+    """Patch ``module.name`` to add each call's seconds to the returned
+    list; returns (list, a function that restores it)."""
+    real, spent = getattr(module, name), []
+
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return out
+    setattr(module, name, wrapper)
+    return spent, lambda: setattr(module, name, real)
+
+
+def phase_test_cli(pkls, work):
+    """README workload 2's test: ``python -m mscl_torch.tools.test`` on the
+    fine-tuned checkpoint over the test set (the val videos, 8 clips at
+    128x128 each): its metrics, and videos/s over the CLI's whole run and
+    over its loop of decode and forward (``run_test``) alone."""
+    from mscl_torch.apis import inference
+    out = osp.join(work, 'test.json')
+    argv = [FT_CONFIG, osp.join(work, 'epoch_2.pth'), '--out', out,
+            '--cfg-options', *finetune_options(*pkls, work)]
+    loop_s, restore = timed_calls(inference, 'run_test')
+    try:
+        metrics, launches, seconds = cli_run(test_cli.main, argv)
+    finally:
+        restore()
+    with open(out) as f:
+        written = json.load(f)
+    if written != metrics or sorted(metrics) != [
+            'mean_class_accuracy', 'top1_acc', 'top5_acc'] or \
+            not all(0 <= v <= 1 for v in metrics.values()) or \
+            any(launches.values()):
+        raise AssertionError(f'test metrics {metrics}, written {written}')
+    log(phase='test_cli', videos=FT_VAL_VIDEOS, metrics=metrics,
+        run_s=seconds, videos_per_s=FT_VAL_VIDEOS / seconds,
+        loop_s=loop_s, loop_videos_per_s=FT_VAL_VIDEOS / sum(loop_s),
+        launches=launches)
+
+
+def phase_retrieval_cli(root, pkls, pretrain_ckpt):
+    """README workload 3: ``python -m mscl_torch.tools.test_retrieval
+    --ssl`` with the pretrain checkpoint's encoder (train split: the
+    fine-tune train list through the train pipeline, test split: the val
+    videos), then with train = test (the config dumped with data.train set
+    to data.test), where every video retrieves itself: recall@1 = 1."""
+    work = osp.join(root, 'retrieval')
+    options = finetune_options(*pkls, work) + [
+        f'model.train_cfg.ssl_pretrain.pretrained.filename={pretrain_ckpt}']
+    cfg = Config.fromfile(FT_CONFIG)
+    cfg.merge_from_dict(dict(o.split('=', 1) for o in options[:3]))
+    cfg.merge_from_dict({'data.train': cfg.data.test.to_dict()})
+    same = osp.join(root, 'retrieval_same.py')
+    cfg.dump(same)
+    runs = (('config', FT_CONFIG, options,
+             FT_VIDEOS * FT_REPEAT + FT_VAL_VIDEOS),
+            ('train_is_test', same, options[1:], 2 * FT_VAL_VIDEOS))
+    from mscl_torch.apis import inference
+    out = {}
+    for name, config, opts, n in runs:
+        loop_s, restore = timed_calls(inference, 'extract_features')
+        try:
+            metrics, launches, seconds = cli_run(
+                retrieval_cli.main, [config, '--ssl', '--cfg-options', *opts])
+        finally:
+            restore()
+        out[name] = dict(metrics=metrics, run_s=seconds, features=n,
+                         features_per_s=n / seconds, loop_s=loop_s,
+                         loop_features_per_s=n / sum(loop_s),
+                         launches=launches)
+    if out['train_is_test']['metrics']['recall@1'] != 1.0 or not all(
+            0 <= v <= 1 for v in out['config']['metrics'].values()) or \
+            any(any(o['launches'].values()) for o in out.values()):
+        raise AssertionError(f'retrieval {out}')
+    log(phase='retrieval_cli', **out)
+
+
+def phase_recognizer3d_card_vs_cpu():
+    """Two train steps of a narrow Recognizer3D (r3d_18 8 wide, I3DHead 10
+    classes, dropout 0) on the card and on the CPU from the same weights
+    and batches, SGD under the step policy with the clip acting, then
+    forward_test."""
+    cfg = dict(type='Recognizer3D',
+               backbone=dict(type='torchvision.r3d_18', base_width=8),
+               cls_head=dict(type='I3DHead', num_classes=10, in_channels=64,
+                             spatial_type='none', dropout_ratio=0.0),
+               test_cfg=dict(average_clips='prob'))
+    rng = np.random.default_rng(4)
+    batches = [dict(imgs=rng.normal(size=(4, 1, 3, 4, 32, 32)).astype(
+        np.float32), label=rng.integers(0, 10, 4)) for _ in range(2)]
+    test_imgs = rng.normal(size=(4, 2, 3, 4, 32, 32)).astype(np.float32)
+    logs, scores = {}, {}
+    for dev in ('cpu', 'cuda'):
+        model = build_model_from_cfg(cfg, device=dev, seed=1)
+        opt = build_optimizer(
+            model, dict(type='SGD', lr=0.1, momentum=0.9, weight_decay=1e-6),
+            build_lr_schedule(dict(policy='step', step=[1]), 0.1, 2, 1),
+            grad_clip=dict(max_norm=0.5))
+        step = make_train_step(model, opt)
+        logs[dev] = [{k: v.item() for k, v in step(to_torch(b, dev)).items()}
+                     for b in batches]
+        model.eval()
+        with torch.no_grad():
+            scores[dev] = model.forward_test(
+                torch.from_numpy(test_imgs).to(dev)).cpu()
+    worst = 0.0
+    for cpu, card in zip(logs['cpu'], logs['cuda']):
+        torch.testing.assert_close(torch.tensor(card['loss_cls']),
+                                   torch.tensor(cpu['loss_cls']), **STEP_TOL)
+        worst = max(worst, abs(card['loss_cls'] - cpu['loss_cls']))
+    torch.testing.assert_close(scores['cuda'], scores['cpu'], **STEP_TOL)
+    log(phase='card_vs_cpu', model='Recognizer3D', steps=2,
+        max_abs_loss_diff=worst,
+        max_abs_score_diff=(scores['cuda'] - scores['cpu']).abs().max()
+        .item(), **{f'loss_step{i + 1}': v['loss'] for i, v in
+                    enumerate(logs['cuda'])})
 
 
 def _kernel_class(name):
@@ -1370,6 +1781,15 @@ def main():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         return 1
     dev = torch.device('cuda')
+    seconds = {}
+
+    def run(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        log(phase='phase_seconds', name=name, seconds=seconds[name])
+        return out
+
     t0 = time.perf_counter()
     cuda_build.build(cuda_build.all_sources())
     if cuda_build.load_host('png_unfilter') is None:
@@ -1377,18 +1797,32 @@ def main():
     log(phase='build', sources=cuda_build.all_sources(),
         host_sources=['png_unfilter'], seconds=time.perf_counter() - t0)
 
-    rows = phase_kernels(dev)
-    corr = phase_corr_lookup(dev)
-    mxu = phase_mxu_fill(dev)
-    mxu_launches = phase_mxu_fill_tool()
-    phase_conv_yardstick(dev)
-    phase_ssl_aug(dev)
-    phase_card_vs_cpu()
-    phase_raft_card_vs_cpu()
-    phase_flagship(dev, torch.float32)
-    phase_flagship(dev, torch.bfloat16)
-    corr_launches = phase_flow_extraction()
-    cli_launches = phase_pretrain_cli(dev)
+    rows = run('kernels', phase_kernels, dev)
+    corr = run('corr_lookup', phase_corr_lookup, dev)
+    mxu = run('mxu_fill', phase_mxu_fill, dev)
+    mxu_launches = run('mxu_fill_tool', phase_mxu_fill_tool)
+    run('conv_yardstick', phase_conv_yardstick, dev)
+    run('ssl_aug', phase_ssl_aug, dev)
+    run('card_vs_cpu', phase_card_vs_cpu)
+    run('recognizer3d_card_vs_cpu', phase_recognizer3d_card_vs_cpu)
+    run('raft_card_vs_cpu', phase_raft_card_vs_cpu)
+    run('flagship_float32', phase_flagship, dev, torch.float32)
+    run('flagship_bfloat16', phase_flagship, dev, torch.bfloat16)
+    corr_launches = run('flow_extraction', phase_flow_extraction)
+    root = tempfile.mkdtemp(prefix='mscl_chip_smoke_')
+    try:
+        cli_launches, thread_window, pkls, pretrain_ckpt = run(
+            'pretrain_cli', phase_pretrain_cli, root)
+        run('pretrain_cli_process', phase_pretrain_cli_process, root, pkls,
+            thread_window)
+        ft_pkls, ft_work = run('finetune_cli', phase_finetune_cli, root,
+                               pretrain_ckpt)
+        run('test_cli', phase_test_cli, ft_pkls, ft_work)
+        run('retrieval_cli', phase_retrieval_cli, root, ft_pkls,
+            pretrain_ckpt)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(phase='phase_seconds', total=sum(seconds.values()), **seconds)
 
     # the TPU functions that reach pl.pallas_call, and the row of each
     # kernel at the shape its main path gives it

@@ -1,7 +1,8 @@
-"""Model construction and ``train_model`` (port of
-``mscl_tpu/apis/train.py``): config -> datasets, loaders, model, SGD and its
-lr schedule, the Runner -> resume -> run, on one card (or the CPU when asked
-for). The global batch is ``videos_per_gpu`` x 1 card.
+"""Model construction, the SSL checkpoint surgery and ``train_model``
+(port of ``mscl_tpu/apis/train.py``): config -> datasets, loaders, model
+(and, for a fine-tune config, its backbone from a pretrained encoder), SGD
+and its lr schedule, the Runner -> resume -> run, on one card (or the CPU
+when asked for). The global batch is ``videos_per_gpu`` x 1 card.
 """
 from __future__ import annotations
 
@@ -10,9 +11,10 @@ from typing import Dict, Optional, Union
 import torch
 
 from ..core import Runner, build_lr_schedule, build_optimizer
+from ..core.checkpoint import FORMAT, load_checkpoint
 from ..datasets import build_dataloader, build_dataset
 from ..models import RECOGNIZERS
-from ..models.recognizers import build_ema_fn
+from ..models.recognizers import build_ema_fn, init_from_ssl_pretrain
 from ..models.recognizers.moco import KEY_PATTERNS
 
 # key towers follow the query towers by EMA, not by the optimizer
@@ -55,7 +57,44 @@ def build_model_from_cfg(model_cfg: Dict, device=None, seed: int = 0,
     model.init_weights(torch.Generator().manual_seed(seed))
     if hasattr(model, 'seed_aug'):
         model.seed_aug(seed)
+    if hasattr(model, 'seed_dropout'):
+        model.seed_dropout(seed)
     return model.to(device)
+
+
+def _is_moco(model_cfg: Dict) -> bool:
+    """The MoCo family: key towers by EMA, frozen for the optimizer."""
+    return model_cfg.get('type', '') in ('MoCo', 'MoCoV2', 'MSCL',
+                                         'MSCLWithAug', 'MoDist')
+
+
+def apply_ssl_pretrain(model, ssl_cfg: Dict) -> None:
+    """Load a pretrained encoder into ``model.backbone`` in place
+    (reference base.py:129-203, ``init_from_ssl_pretrain``). The file is a
+    checkpoint of the port (the Runner's ``epoch_N.pth``) or a reference
+    ``.pth``; both hold ``recognizer.encoder_q.*`` (the prefix is
+    ``ssl_cfg.backbone.prefix``)."""
+    path = ssl_cfg['pretrained']['filename']
+    if path.endswith('.ckpt'):
+        raise NotImplementedError(
+            f'{path} is a checkpoint of the JAX package (msgpack), which the '
+            f'port does not read. Convert it where JAX runs: load it with '
+            f'mscl_tpu.core.load_checkpoint, turn its params and '
+            f'batch_stats into a state dict with '
+            f'mscl_torch.convert.jax_to_state_dict, and torch.save '
+            f'{{"state_dict": ...}} (tensors) to a .pth')
+    ckpt = load_checkpoint(path)
+    sd = ckpt['state_dict'] if ckpt.get('format') == FORMAT else ckpt
+    prefix = (ssl_cfg.get('backbone') or {}).get('prefix',
+                                                 'recognizer.encoder_q')
+    if not any(k.startswith(prefix + '.') for k in sd):
+        raise KeyError(f'no keys under prefix {prefix + "."!r} in {path} '
+                       f'(found e.g. {list(sd)[:3]})')
+    model.load_state_dict(init_from_ssl_pretrain(
+        model.state_dict(), sd, module_name='backbone', prefix=prefix,
+        extras=tuple(ssl_cfg.get('extras', ('fc',))),
+        revise_keys=ssl_cfg.get('revise_keys', ()),
+        duplicate_keys=ssl_cfg.get('duplicate_keys', ())))
 
 
 def _plain(cfg_node) -> Dict:
@@ -70,7 +109,10 @@ def train_model(cfg, validate: bool = True, resume_from: Optional[str] = None,
 
     ``device`` None means the card, and raises without one; the CPU runs
     only when it is named. The model is initialised from ``seed`` (0 when
-    None), which also seeds the epoch order and the device aug's generator.
+    None), which also seeds the epoch order and the device aug's and the
+    head's dropout generators; then ``model.train_cfg.ssl_pretrain``, if
+    set, loads its backbone. The loaders' decode processes are stopped
+    when the run ends.
     """
     device = resolve_device(device)
     data = cfg.data
@@ -83,7 +125,7 @@ def train_model(cfg, validate: bool = True, resume_from: Optional[str] = None,
         workers_mode=data.get('workers_mode', 'thread'),
         sampler=data.get('sampler'))
 
-    val_loader = None
+    val_loader = val_dataset = None
     if validate and 'val' in data:
         val_dataset = build_dataset(_plain(data['val']))
         val_loader = build_dataloader(
@@ -93,14 +135,11 @@ def train_model(cfg, validate: bool = True, resume_from: Optional[str] = None,
             drop_last=data.get('val_dataloader', {}).get('drop_last', False))
 
     model_cfg = _plain(cfg.model)
-    if model_cfg.get('type') != 'MSCLWithAug':
-        raise NotImplementedError(
-            f'train_model trains MSCLWithAug; {model_cfg.get("type")} is not '
-            f'ported')
-    if (model_cfg.get('train_cfg') or {}).get('ssl_pretrain'):
-        raise NotImplementedError('ssl_pretrain surgery comes with the '
-                                  'fine-tune slice')
+    is_moco = _is_moco(model_cfg)
     model = build_model_from_cfg(model_cfg, device=device, seed=seed or 0)
+    ssl_cfg = (model_cfg.get('train_cfg') or {}).get('ssl_pretrain')
+    if ssl_cfg:
+        apply_ssl_pretrain(model, dict(ssl_cfg))
 
     total_epochs = max_epochs or cfg.get('total_epochs', 1)
     steps_per_epoch = max(len(train_loader), 1)
@@ -110,15 +149,27 @@ def train_model(cfg, validate: bool = True, resume_from: Optional[str] = None,
     optimizer = build_optimizer(
         model, dict(cfg.optimizer), lr_schedule,
         grad_clip=(cfg.get('optimizer_config') or {}).get('grad_clip'),
-        freeze_patterns=MOCO_FREEZE)
+        freeze_patterns=MOCO_FREEZE if is_moco else ())
+
+    eval_fn = None
+    if val_loader is not None and not (cfg.get('evaluation') or {}).get(
+            'simple', False):
+        from .inference import make_eval_fn
+        eval_fn = make_eval_fn(model)
 
     runner = Runner(model, optimizer, train_loader, cfg,
                     cfg.get('work_dir', './work_dir'), val_loader=val_loader,
-                    pre_update_fn=build_ema_fn(model),
-                    lr_schedule=lr_schedule, device=device)
+                    val_dataset=val_dataset,
+                    pre_update_fn=build_ema_fn(model) if is_moco else None,
+                    lr_schedule=lr_schedule, device=device, eval_fn=eval_fn)
     if max_epochs is not None:
         runner.total_epochs = max_epochs
-    if resume_from or cfg.get('resume_from'):
-        runner.resume(resume_from or cfg.get('resume_from'))
-    runner.run()
+    try:
+        if resume_from or cfg.get('resume_from'):
+            runner.resume(resume_from or cfg.get('resume_from'))
+        runner.run()
+    finally:
+        for loader in (train_loader, val_loader):
+            if loader is not None:
+                loader.shutdown()
     return runner, model

@@ -9,7 +9,9 @@ step reads, as the JAX package's TrainState does:
   ``optimizer``   the SGD momentum buffers and ``steps`` (the lr schedule
                   reads it)
   ``aug_rng``     the state of the device aug's generator (None before the
-                  first batch)
+                  first batch, or without a device aug)
+  ``dropout_rng`` the state of the head's dropout generator (None before
+                  the first batch, or without one)
   ``meta``        ``epoch`` and whatever the caller adds
 
 only tensors, numbers, strings and containers of them, so it loads with
@@ -43,11 +45,13 @@ def _to_host(tree):
 def train_state(model, optimizer=None) -> Dict[str, Any]:
     """The model's and optimizer's state, copied to the host."""
     aug = getattr(model, 'aug_state', None)
+    dropout = getattr(model, 'dropout_state', None)
     return _to_host({
         'format': FORMAT,
         'state_dict': model.state_dict(),
         'optimizer': None if optimizer is None else optimizer.state_dict(),
         'aug_rng': aug() if aug is not None else None,
+        'dropout_rng': dropout() if dropout is not None else None,
     })
 
 
@@ -115,6 +119,8 @@ def restore_train_state(model, optimizer, ckpt: Dict[str, Any]) -> None:
         optimizer.load_state_dict(ckpt['optimizer'])
     if hasattr(model, 'set_aug_state'):
         model.set_aug_state(ckpt.get('aug_rng'))
+    if hasattr(model, 'set_dropout_state'):
+        model.set_dropout_state(ckpt.get('dropout_rng'))
 
 
 def publish_model(in_path: str, out_path: str) -> str:

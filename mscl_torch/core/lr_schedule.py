@@ -1,6 +1,6 @@
 """LR schedules with mmcv LrUpdaterHook semantics.
 
-Port of ``mscl_tpu/core/lr_schedule.py`` for the 'fixed' and
+Port of ``mscl_tpu/core/lr_schedule.py`` for the 'fixed', 'step' and
 'CosineAnnealing' policies with optional linear/constant/exp warmup
 (``warmup_by_epoch`` converts warmup_iters from epochs). Warmup applies only
 when the ``warmup`` key is set, as in the JAX package. Returns a
@@ -26,6 +26,16 @@ def build_lr_schedule(lr_config: Dict, base_lr: float, total_epochs: int,
     if policy == 'fixed':
         def regular(step):
             return base_lr
+    elif policy == 'step':
+        # lr * gamma ** (the number of milestones reached); progress in
+        # epochs unless by_epoch=False
+        steps = cfg.get('step')
+        steps = [steps] if isinstance(steps, int) else list(steps)
+        gamma = cfg.get('gamma', 0.1)
+
+        def regular(step):
+            progress = step // steps_per_epoch if by_epoch else step
+            return base_lr * gamma ** sum(progress >= s for s in steps)
     elif policy == 'CosineAnnealing':
         min_lr = cfg.get('min_lr', 0.0)
         if cfg.get('min_lr_ratio') is not None:

@@ -51,8 +51,15 @@ class SGD:
         return {'steps': self.steps, 'sgd': self.opt.state_dict()}
 
     def load_state_dict(self, state: Dict) -> None:
+        """The saved momentum buffers and ``steps``; the hyperparameters
+        stay this optimizer's (its config's), as the JAX package's resume
+        restores only the optax state into the chain its config built."""
         self.steps = int(state['steps'])
-        self.opt.load_state_dict(state['sgd'])
+        saved = state['sgd']
+        groups = [dict(g, params=s['params']) for g, s in
+                  zip(self.opt.state_dict()['param_groups'],
+                      saved['param_groups'])]
+        self.opt.load_state_dict(dict(saved, param_groups=groups))
 
     def step(self):
         self.clip_grads()

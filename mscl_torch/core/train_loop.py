@@ -5,8 +5,10 @@ The step mutates the model and the optimizer in place: the EMA pre-update
 of the key towers, then the forward (which advances BN statistics and the
 MoCo queues), backward and the optimizer update. With update=False it
 computes the same losses and leaves every parameter and buffer, and the
-device aug's generator, as it was, as the JAX step's caller discards its
-new state (validation by loss).
+device aug's and dropout's generators, as it was, as the JAX step's caller
+discards its new state (validation by loss). Validation by metrics runs an
+``eval_fn`` (``apis.inference.make_eval_fn``) and the val dataset's
+``evaluate``.
 """
 from __future__ import annotations
 
@@ -45,15 +47,17 @@ def make_train_step(model: nn.Module, optimizer=None,
             optimizer.step()
         else:
             saved = {k: v.clone() for k, v in model.state_dict().items()}
-            has_aug = hasattr(model, 'aug_state')
-            aug = model.aug_state() if has_aug else None
+            rngs = [(getattr(model, f'set_{name}_state'),
+                     getattr(model, f'{name}_state')())
+                    for name in ('aug', 'dropout')
+                    if hasattr(model, f'{name}_state')]
             with torch.no_grad():
                 if pre_update_fn is not None:
                     pre_update_fn()
                 loss, log_vars = model.train_step(batch)
             model.load_state_dict(saved)
-            if has_aug:
-                model.set_aug_state(aug)
+            for put_back, state in rngs:
+                put_back(state)
         return {k: v.detach() for k, v in log_vars.items()}
 
     return train_step
@@ -70,18 +74,19 @@ def to_torch(batch: Dict, device) -> Dict:
 
 
 class Runner:
-    """Epoch-based training driver (the JAX package's Runner, itself the
-    reference's EpochBasedRunner with its logger, checkpoint and
-    validation-by-loss hooks): train epochs, a checkpoint every
-    ``checkpoint_config.interval`` epochs, validation every
-    ``evaluation.interval``, a JSON log (``log.json``), resume, and on
+    """Epoch-based training loop (the JAX package's Runner, itself the
+    reference's EpochBasedRunner with its logger, checkpoint and evaluation
+    hooks): train epochs, a checkpoint every ``checkpoint_config.interval``
+    epochs, validation every ``evaluation.interval`` (by loss with
+    ``evaluation.simple``, else by ``evaluation.metrics`` over
+    ``eval_fn``'s scores), a JSON log (``log.json``), resume, and on
     SIGTERM a ``preempt_`` checkpoint after the step in flight, then exit
     143. The step's values are read from the device only at
     ``log_config.interval``."""
 
     def __init__(self, model, optimizer, train_loader, cfg, work_dir,
                  val_loader=None, pre_update_fn=None, lr_schedule=None,
-                 device='cpu'):
+                 device='cpu', val_dataset=None, eval_fn=None):
         if cfg.get('precise_bn'):
             raise NotImplementedError('precise_bn is not ported')
         self.model = model
@@ -90,6 +95,8 @@ class Runner:
         self.cfg = cfg
         self.work_dir = work_dir
         self.val_loader = val_loader
+        self.val_dataset = val_dataset
+        self.eval_fn = eval_fn
         self.lr_schedule = lr_schedule
         self.device = torch.device(device)
 
@@ -100,11 +107,7 @@ class Runner:
         eval_cfg = cfg.get('evaluation', {}) or {}
         self.eval_interval = eval_cfg.get('interval', 0)
         self.eval_simple = eval_cfg.get('simple', False)
-        if val_loader is not None and self.eval_interval and \
-                not self.eval_simple:
-            raise NotImplementedError(
-                'validation by metrics (evaluation.simple=False) needs '
-                'apis/inference.py, which is not ported')
+        self.eval_metrics = eval_cfg.get('metrics', ['top_k_accuracy'])
         # save_best (reference core/evaluation/eval_hooks.py:51-416): keep
         # a best_* checkpoint of a key metric; the rule from the key
         self.save_best = eval_cfg.get('save_best')
@@ -212,23 +215,32 @@ class Runner:
             it.close()  # stop the prefetch producer on an early exit
 
     def validate(self) -> None:
-        """Validation by loss (``evaluation.simple``): the mean of each
-        loss of the train step over the val data, nothing updated."""
+        """Validation by loss (``evaluation.simple``: the mean of each loss
+        of the train step over the val data, nothing updated) or by metrics
+        (``eval_fn``'s scores for each video, then the val dataset's
+        ``evaluate``); then ``save_best``."""
         if self.val_loader is None:
             return
-        meters: Dict[str, list] = {}
-        it = iter(self.val_loader)
-        try:
-            for batch in it:
-                log_vars = self._val_step(to_torch(batch, self.device))
-                for k, v in log_vars.items():
-                    meters.setdefault(k, []).append(v.item())
-        finally:
-            it.close()
-        metrics = {k: float(np.mean(v)) for k, v in meters.items()}
-        self.log(dict(mode='val', epoch=self.epoch, **metrics))
-        if self.save_best and self.save_best in metrics:
-            score = metrics[self.save_best]
+        metrics = None
+        if self.eval_simple:
+            meters: Dict[str, list] = {}
+            it = iter(self.val_loader)
+            try:
+                for batch in it:
+                    log_vars = self._val_step(to_torch(batch, self.device))
+                    for k, v in log_vars.items():
+                        meters.setdefault(k, []).append(v.item())
+            finally:
+                it.close()
+            metrics = {k: float(np.mean(v)) for k, v in meters.items()}
+            self.log(dict(mode='val', epoch=self.epoch, **metrics))
+        elif self.eval_fn is not None:
+            results = self.eval_fn(self.val_loader)
+            metrics = self.val_dataset.evaluate(results,
+                                                metrics=self.eval_metrics)
+            self.log(dict(mode='val', epoch=self.epoch, **metrics))
+        if self.save_best and metrics and self.save_best in metrics:
+            score = float(metrics[self.save_best])
             better = (self.best_score is None or
                       (score > self.best_score if self.best_rule == 'greater'
                        else score < self.best_score))

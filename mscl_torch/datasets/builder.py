@@ -26,9 +26,7 @@ def build_dataloader(dataset, videos_per_gpu, workers_per_gpu=0,
     from .loader import NumpyLoader
     if sampler:
         raise NotImplementedError(f'sampler {dict(sampler)} is not ported')
-    if workers_mode != 'thread':
-        raise NotImplementedError(
-            f"workers_mode={workers_mode!r} is not ported; use 'thread'")
     return NumpyLoader(dataset, batch_size=videos_per_gpu * num_gpus,
                        shuffle=shuffle, seed=seed, drop_last=drop_last,
-                       num_workers=workers_per_gpu, prefetch=prefetch)
+                       num_workers=workers_per_gpu, prefetch=prefetch,
+                       workers_mode=workers_mode)

@@ -1,17 +1,23 @@
 """NumpyLoader: host-side assembly of global batches.
 
-Port of ``mscl_tpu/datasets/loader.py`` with its thread workers (the
-reference's torch DataLoader + DistributedSampler, re-expressed in the JAX
-package as one loader of global batches): a producer thread builds the
-batches of an epoch in order into a bounded prefetch queue; with more than
-one worker it decodes the samples of a batch on a thread each. The order of
-an epoch is ``np.random.default_rng(seed + epoch)``'s permutation.
+Port of ``mscl_tpu/datasets/loader.py`` (the reference's torch DataLoader +
+DistributedSampler, re-expressed in the JAX package as one loader of global
+batches): a producer thread emits the batches of an epoch in order into a
+bounded prefetch queue. With ``workers_mode='thread'`` and more than one
+worker it decodes the samples of a batch on a thread each; with
+``workers_mode='process'`` a pool of decode processes makes whole batches,
+``workers + prefetch`` of them in flight. The order of an epoch is
+``np.random.default_rng(seed + epoch)``'s permutation.
 """
 from __future__ import annotations
 
+import multiprocessing
+import os
 import queue
+import random
 import threading
-from typing import Any, Dict, List
+import time
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
@@ -47,6 +53,102 @@ def default_collate(samples: List[Dict[str, Any]]) -> Dict[str, Any]:
     return out
 
 
+def _pool_worker_main(dataset, task_q, result_q, seed, worker_id):
+    """Decode-worker loop. Reseeds numpy's and Python's generators with
+    ``seed + worker_id``, as the reference's worker_init_fn does, so the
+    stochastic transforms of the workers differ. A task is a whole batch,
+    tagged with its epoch's generation, so results of an abandoned epoch
+    are never taken for the next epoch's batches.
+
+    A worker runs only the dataset's numpy pipeline (and the ctypes PNG row
+    unfilter): never a torch op, never CUDA. The devices are hidden before
+    anything in the child could look for them (a ``forkserver`` or
+    ``spawn`` child imports torch afresh), and a ``fork`` child of a parent
+    that already holds a CUDA context cannot reach it: torch refuses CUDA
+    in a forked child, so a stray call fails loudly there instead of
+    sharing the parent's context."""
+    os.environ['CUDA_VISIBLE_DEVICES'] = ''
+    np.random.seed((seed + worker_id) % (2 ** 32))
+    random.seed(seed + worker_id)
+    while True:
+        task = task_q.get()
+        if task is None:
+            return
+        gen, bid, inds = task
+        try:
+            result_q.put((gen, bid, [dataset[int(i)] for i in inds]))
+        except BaseException as e:  # surface to the consumer
+            result_q.put((gen, bid, RuntimeError(
+                f'decode worker {worker_id} failed on batch {bid}: '
+                f'{type(e).__name__}: {e}')))
+
+
+def _route_result(result_q, gen: int, pending: Dict[int, Any],
+                  timeout: float = 0.5) -> None:
+    """Pop one result and route it by generation tag.
+
+    - rgen == gen: this epoch's batch -> pending.
+    - rgen <  gen: an abandoned epoch's leftover -> dropped.
+    - rgen >  gen: a newer epoch's result popped by this (closing) epoch's
+      lingering producer -> re-queued, so that the newer epoch's in-order
+      emit finds it; dropping it would hang that epoch."""
+    try:
+        rgen, bid, payload = result_q.get(timeout=timeout)
+    except queue.Empty:
+        return
+    if rgen == gen:
+        pending[bid] = payload
+    elif rgen > gen:
+        result_q.put((rgen, bid, payload))
+        time.sleep(0.02)   # yield so the newer epoch's thread wins the re-get
+
+
+class _ProcessPool:
+    """Decode-worker processes: the numpy pipelines of a batch run outside
+    the trainer's GIL.
+
+    Start method: 'fork' by default. It inherits the dataset without
+    pickling it, and is safe in a trainer that already drives the card
+    because a child runs pure numpy (see ``_pool_worker_main``) and the
+    host C unfilter is loaded here first, so no child compiles it or waits
+    on its loader's lock. A parent with other threads can in principle hold
+    some other lock at the fork; 'forkserver' or 'spawn' (``mp_context``)
+    avoid that when the dataset pickles."""
+
+    def __init__(self, dataset, num_workers: int, seed: int,
+                 mp_context: str = 'fork'):
+        from ..utils import image_io
+        image_io._unfilter_lib()
+        ctx = multiprocessing.get_context(mp_context)
+        self.task_q = ctx.Queue()
+        self.result_q = ctx.Queue()
+        self.generation = 0
+        self.workers = []
+        for wid in range(num_workers):
+            p = ctx.Process(target=_pool_worker_main,
+                            args=(dataset, self.task_q, self.result_q,
+                                  seed, wid),
+                            daemon=True)
+            p.start()
+            self.workers.append(p)
+
+    def shutdown(self):
+        for _ in self.workers:
+            try:
+                self.task_q.put(None)
+            except Exception:
+                pass
+        for p in self.workers:
+            p.join(timeout=2.0)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=2.0)
+        self.workers = []
+        for q in (self.task_q, self.result_q):
+            q.close()
+            q.cancel_join_thread()
+
+
 class _EpochIterator:
 
     def __init__(self, loader: 'NumpyLoader', order: np.ndarray):
@@ -60,12 +162,57 @@ class _EpochIterator:
             self.num_batches = (n + self.batch_size - 1) // self.batch_size
         self._q: 'queue.Queue' = queue.Queue(maxsize=loader.prefetch)
         self._stop = threading.Event()
-        self._thread = threading.Thread(target=self._producer, daemon=True)
+        target = (self._producer_pool
+                  if loader.workers_mode == 'process' and
+                  loader.num_workers > 0 else self._producer)
+        self._thread = threading.Thread(target=target, daemon=True)
         self._thread.start()
         self._served = 0
 
     def _load_one(self, idx):
         return self.loader.dataset[int(idx)]
+
+    def _put(self, batch):
+        # timeout-put loop so a producer blocked on a full queue still
+        # observes close() (no daemon-thread leak)
+        while not self._stop.is_set():
+            try:
+                self._q.put(batch, timeout=0.5)
+                return
+            except queue.Full:
+                continue
+
+    def _producer_pool(self):
+        """Dispatch batches to the process pool and emit the results in
+        order. Each epoch bumps the pool's generation; results tagged with
+        an older one (an abandoned epoch's leftovers) are dropped."""
+        try:
+            pool = self.loader._get_pool()
+            pool.generation += 1
+            gen = pool.generation
+            max_out = len(pool.workers) + self.loader.prefetch
+            pending: Dict[int, Any] = {}
+            next_submit = next_emit = 0
+            while next_emit < self.num_batches:
+                while (next_submit < self.num_batches and
+                       next_submit - next_emit < max_out):
+                    inds = self.order[next_submit * self.batch_size:
+                                      (next_submit + 1) * self.batch_size]
+                    pool.task_q.put((gen, next_submit,
+                                     list(map(int, inds))))
+                    next_submit += 1
+                while next_emit not in pending:
+                    if self._stop.is_set():
+                        return
+                    _route_result(pool.result_q, gen, pending)
+                payload = pending.pop(next_emit)
+                if isinstance(payload, BaseException):
+                    raise payload
+                batch = self.loader.collate_fn(payload)
+                next_emit += 1
+                self._put(batch)
+        except BaseException as e:
+            self._q.put(e)
 
     def _producer(self):
         try:
@@ -89,15 +236,7 @@ class _EpochIterator:
                         t.join()
                 else:
                     samples = [self._load_one(i) for i in inds]
-                batch = self.loader.collate_fn(samples)
-                # timeout-put loop so a producer blocked on a full queue
-                # still observes close() (no daemon-thread leak)
-                while not self._stop.is_set():
-                    try:
-                        self._q.put(batch, timeout=0.5)
-                        break
-                    except queue.Full:
-                        continue
+                self._put(self.loader.collate_fn(samples))
         except BaseException as e:  # surface worker errors to the consumer
             self._q.put(e)
 
@@ -129,7 +268,12 @@ class NumpyLoader:
 
     def __init__(self, dataset, batch_size, shuffle=True, seed=None,
                  drop_last=False, num_workers=0, prefetch=2,
-                 collate_fn=default_collate):
+                 collate_fn=default_collate, workers_mode='thread',
+                 mp_context='fork'):
+        assert workers_mode in ('thread', 'process'), workers_mode
+        self.workers_mode = workers_mode
+        self.mp_context = mp_context
+        self._pool: Optional[_ProcessPool] = None
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -139,6 +283,18 @@ class NumpyLoader:
         self.prefetch = max(1, prefetch)
         self.collate_fn = collate_fn
         self.epoch = 0
+
+    def _get_pool(self) -> _ProcessPool:
+        if self._pool is None or not self._pool.workers:
+            self._pool = _ProcessPool(self.dataset, self.num_workers,
+                                      self.seed, self.mp_context)
+        return self._pool
+
+    def shutdown(self):
+        """Stop the decode processes (a later epoch starts new ones)."""
+        if self._pool is not None:
+            self._pool.shutdown()
+            self._pool = None
 
     def set_epoch(self, epoch: int):
         self.epoch = epoch

@@ -1,8 +1,10 @@
-from .augmentations import get_random_resized_crop_bbox, rescale_size
+from .augmentations import (CenterCrop, Normalize, RandomResizedCrop,
+                            Resize, get_random_resized_crop_bbox,
+                            rescale_size)
 from .compose import Compose
 from .formatting import Collect, ToTensor, batched_to_tensor, to_tensor
 from .loading import ArrayDecode, LocalDecode, SampleFrames
-from .loading_mscl import (ChosenSampleFrames, MatchFlow,
+from .loading_mscl import (ChosenSampleFrames, MatchFlow, Seg2T,
                            TemporalShiftChosenSampleFrames)
 from .moco_augmentations import (MoCoDecodePlan, MoCoNormalize,
                                  MoCoRandomResizedCrop, MoCoResize)
@@ -15,5 +17,5 @@ __all__ = [
     'ChosenSampleFrames', 'TemporalShiftChosenSampleFrames',
     'MoCoDecodePlan', 'MoCoRandomResizedCrop', 'MoCoResize', 'MoCoNormalize',
     'NormFlowWithAug', 'NormFlowWithStidedAug', 'norm_flow', 'rotate_flow',
-    'get_random_resized_crop_bbox', 'rescale_size',
+    'get_random_resized_crop_bbox', 'rescale_size', 'RandomResizedCrop', 'CenterCrop', 'Resize', 'Normalize', 'Seg2T',
 ]

@@ -1,17 +1,24 @@
-"""The crop helpers of the MoCo transforms.
+"""Per-sample crops, resizes and normalisation over the ``results`` dict.
 
-Port of the part of ``mscl_tpu/datasets/pipelines/augmentations.py`` that
-the flagship config's pipelines run: ``rescale_size``, the crop-quadruple
-and box helpers and ``get_random_resized_crop_bbox`` (reference mmaction
-augmentations.py:800-849), which draws its aspect ratios and areas from the
-global ``np.random`` and its offsets from the global Python ``random``, in
-the JAX package's order.
+Port of the parts of ``mscl_tpu/datasets/pipelines/augmentations.py`` that
+the flagship and fine-tune configs' pipelines run: ``rescale_size``, the
+crop-quadruple and box helpers, ``get_random_resized_crop_bbox`` (reference
+mmaction augmentations.py:800-849), which draws its aspect ratios and areas
+from the global ``np.random`` and its offsets from the global Python
+``random``, in the JAX package's order, and the transforms
+``RandomResizedCrop``, ``Resize``, ``Normalize`` and ``CenterCrop``.
+Resizing is ``utils.image_io.imresize`` (OpenCV's INTER_LINEAR without
+cv2). The lazy mode of the crops and ``Resize`` (geometry recorded for a
+later ``Fuse``) is not ported: ``lazy=True`` is refused.
 """
 from __future__ import annotations
 
 import random as _pyrandom
 
 import numpy as np
+
+from ..builder import PIPELINES
+from ...utils.image_io import imresize
 
 
 def rescale_size(old_size_wh, scale):
@@ -27,7 +34,6 @@ def rescale_size(old_size_wh, scale):
     else:
         raise TypeError(f'Scale must be a number or tuple, got {type(scale)}')
     return int(w * scale_factor + 0.5), int(h * scale_factor + 0.5)
-
 
 
 def _update_crop_quadruple(results, x_offset, y_offset, new_w, new_h,
@@ -99,4 +105,181 @@ def get_random_resized_crop_bbox(img_shape, area_range, aspect_ratio_range,
     x_offset = (img_w - crop_size) // 2
     y_offset = (img_h - crop_size) // 2
     return x_offset, y_offset, x_offset + crop_size, y_offset + crop_size
+
+
+def _refuse_lazy(results, lazy):
+    """The non-lazy half of the JAX package's ``_init_lazy_if_proper``."""
+    if lazy:
+        raise NotImplementedError('lazy=True (geometry kept for Fuse) is not '
+                                  'ported; use lazy=False')
+    if 'img_shape' not in results:
+        results['img_shape'] = results['imgs'][0].shape[:2]
+    assert 'lazy' not in results, 'Use Fuse after lazy operations'
+
+
+def _finish_crop(results, crop_bbox, new_h, new_w):
+    results['crop_bbox'] = crop_bbox
+    results['img_shape'] = (new_h, new_w)
+    if 'imgs' in results:
+        results['imgs'] = _crop_imgs(results['imgs'], crop_bbox)
+    if 'gt_bboxes' in results:
+        results = _all_box_crop(results, crop_bbox)
+    return results
+
+
+@PIPELINES.register_module()
+class RandomResizedCrop:
+    """Area + aspect-ratio ranged random crop (augmentations.py:769-927)."""
+
+    def __init__(self, area_range=(0.08, 1.0),
+                 aspect_ratio_range=(3 / 4, 4 / 3), lazy=False):
+        self.area_range = tuple(area_range)
+        self.aspect_ratio_range = tuple(aspect_ratio_range)
+        self.lazy = lazy
+
+    def __call__(self, results):
+        _refuse_lazy(results, self.lazy)
+        img_h, img_w = results['img_shape']
+        left, top, right, bottom = get_random_resized_crop_bbox(
+            (img_h, img_w), self.area_range, self.aspect_ratio_range)
+        new_h, new_w = bottom - top, right - left
+        _update_crop_quadruple(results, left, top, new_w, new_h, img_w, img_h)
+        crop_bbox = np.array([left, top, right, bottom])
+        return _finish_crop(results, crop_bbox, new_h, new_w)
+
+    def __repr__(self):
+        return (f'{self.__class__.__name__}(area_range={self.area_range}, '
+                f'aspect_ratio_range={self.aspect_ratio_range})')
+
+
+@PIPELINES.register_module()
+class CenterCrop:
+    """Center crop (augmentations.py:1621-1718)."""
+
+    def __init__(self, crop_size, lazy=False):
+        if isinstance(crop_size, int):
+            crop_size = (crop_size, crop_size)
+        self.crop_size = tuple(crop_size)
+        self.lazy = lazy
+
+    def __call__(self, results):
+        _refuse_lazy(results, self.lazy)
+        img_h, img_w = results['img_shape']
+        crop_w, crop_h = self.crop_size
+        left = (img_w - crop_w) // 2
+        top = (img_h - crop_h) // 2
+        right, bottom = left + crop_w, top + crop_h
+        new_h, new_w = bottom - top, right - left
+        _update_crop_quadruple(results, left, top, new_w, new_h, img_w, img_h)
+        crop_bbox = np.array([left, top, right, bottom])
+        return _finish_crop(results, crop_bbox, new_h, new_w)
+
+    def __repr__(self):
+        return f'{self.__class__.__name__}(crop_size={self.crop_size})'
+
+
+@PIPELINES.register_module()
+class Resize:
+    """Resize to a fixed size or rescale keeping ratio
+    (augmentations.py:1108-1236)."""
+
+    def __init__(self, scale, keep_ratio=True, interpolation='bilinear',
+                 lazy=False):
+        if isinstance(scale, float):
+            if scale <= 0:
+                raise ValueError(f'Invalid scale {scale}')
+        elif isinstance(scale, (tuple, list)):
+            scale = tuple(scale)
+            max_long_edge = max(scale)
+            max_short_edge = min(scale)
+            if max_short_edge == -1:
+                scale = (np.inf, max_long_edge)
+        else:
+            raise TypeError(f'Scale must be float or tuple, got {type(scale)}')
+        self.scale = scale
+        self.keep_ratio = keep_ratio
+        self.interpolation = interpolation
+        self.lazy = lazy
+
+    def __call__(self, results):
+        _refuse_lazy(results, self.lazy)
+        if 'scale_factor' not in results:
+            results['scale_factor'] = np.array([1, 1], dtype=np.float32)
+        img_h, img_w = results['img_shape']
+        if self.keep_ratio:
+            new_w, new_h = rescale_size((img_w, img_h), self.scale)
+        else:
+            new_w, new_h = self.scale
+        scale_factor = np.array([new_w / img_w, new_h / img_h],
+                                dtype=np.float32)
+        results['img_shape'] = (new_h, new_w)
+        results['keep_ratio'] = self.keep_ratio
+        results['scale_factor'] = results['scale_factor'] * scale_factor
+        if 'imgs' in results:
+            results['imgs'] = [
+                imresize(img, (new_w, new_h), self.interpolation)
+                for img in results['imgs']
+            ]
+        if 'gt_bboxes' in results:
+            results['gt_bboxes'] = _box_resize(results['gt_bboxes'],
+                                               scale_factor)
+            if 'proposals' in results and results['proposals'] is not None:
+                results['proposals'] = _box_resize(results['proposals'],
+                                                   scale_factor)
+        return results
+
+    def __repr__(self):
+        return (f'{self.__class__.__name__}(scale={self.scale}, '
+                f'keep_ratio={self.keep_ratio})')
+
+
+@PIPELINES.register_module()
+class Normalize:
+    """(img - mean) / std, stacking frames (augmentations.py:1438-1521)."""
+
+    def __init__(self, mean, std, to_bgr=False, adjust_magnitude=False):
+        self.mean = np.array(mean, dtype=np.float32)
+        self.std = np.array(std, dtype=np.float32)
+        self.to_bgr = to_bgr
+        self.adjust_magnitude = adjust_magnitude
+
+    def __call__(self, results):
+        modality = results.get('modality', 'RGB')
+        if modality == 'RGB':
+            n = len(results['imgs'])
+            h, w, c = results['imgs'][0].shape
+            imgs = np.empty((n, h, w, c), dtype=np.float32)
+            for i, img in enumerate(results['imgs']):
+                imgs[i] = img
+            if self.to_bgr:
+                imgs = imgs[..., ::-1]
+            imgs = (imgs - self.mean) / self.std
+            results['imgs'] = imgs
+            results['img_norm_cfg'] = dict(
+                mean=self.mean, std=self.std, to_bgr=self.to_bgr)
+            return results
+        if modality == 'Flow':
+            num_imgs = len(results['imgs'])
+            assert num_imgs % 2 == 0
+            assert self.mean.shape[0] == 2 and self.std.shape[0] == 2
+            n = num_imgs // 2
+            x_flow = np.stack([results['imgs'][2 * i] for i in range(n)]
+                              ).astype(np.float32)
+            y_flow = np.stack([results['imgs'][2 * i + 1] for i in range(n)]
+                              ).astype(np.float32)
+            x_flow = (x_flow - self.mean[0]) / self.std[0]
+            y_flow = (y_flow - self.mean[1]) / self.std[1]
+            if self.adjust_magnitude:
+                x_flow = x_flow * results['scale_factor'][0]
+                y_flow = y_flow * results['scale_factor'][1]
+            results['imgs'] = np.stack([x_flow, y_flow], axis=-1)
+            results['img_norm_cfg'] = dict(
+                mean=self.mean, std=self.std, to_bgr=self.to_bgr,
+                adjust_magnitude=self.adjust_magnitude)
+            return results
+        raise NotImplementedError(f'modality {modality}')
+
+    def __repr__(self):
+        return (f'{self.__class__.__name__}(mean={self.mean}, '
+                f'std={self.std}, to_bgr={self.to_bgr})')
 

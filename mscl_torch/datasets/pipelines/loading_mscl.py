@@ -1,9 +1,10 @@
-"""MSCL sampling transforms: MatchFlow and the MDS samplers.
+"""MSCL sampling transforms: MatchFlow, Seg2T and the MDS samplers.
 
 Port of ``mscl_tpu/datasets/pipelines/loading_mscl.py`` (reference
-loading_mscl.py:52-69 MatchFlow, :110-176 ChosenSampleFrames, :179-282
-TemporalShiftChosenSampleFrames). Draws come from the global ``np.random``
-in the JAX package's order, so the same seed gives the same clips.
+loading_mscl.py:52-69 MatchFlow, :72-107 Seg2T, :110-176
+ChosenSampleFrames, :179-282 TemporalShiftChosenSampleFrames). Draws come
+from the global ``np.random`` in the JAX package's order, so the same seed
+gives the same clips.
 """
 from __future__ import annotations
 
@@ -49,6 +50,34 @@ class MatchFlow:
 
 
 
+
+
+@PIPELINES.register_module()
+class Seg2T:
+    """Reshape N single-frame segments into one N-frame clip
+    (reference loading_mscl.py:72-107; used by the fine-tune configs
+    test_ssv2_r18.py:49,64,79)."""
+
+    def __call__(self, results):
+        if not isinstance(results['imgs'], np.ndarray):
+            results['imgs'] = np.array(results['imgs'])
+        imgs = results['imgs']
+        num_clips = results['num_clips']
+        clip_len = results['clip_len']
+        assert clip_len == 1, 'Seg2T requires one frame per clip'
+        # [M, H, W, C] with M = N_crops * num_clips * clip_len
+        imgs = imgs.reshape((-1, num_clips, clip_len) + imgs.shape[1:])
+        # -> N_crops x clip_len x C x num_clips(T) x H x W
+        imgs = np.transpose(imgs, (0, 2, 5, 1, 3, 4))
+        imgs = imgs.reshape((-1,) + imgs.shape[2:])
+        results['imgs'] = imgs
+        results['input_shape'] = imgs.shape
+        results['num_clips'] = clip_len
+        results['clip_len'] = num_clips
+        return results
+
+    def __repr__(self):
+        return self.__class__.__name__
 
 
 def _mds_offset(num_frames, clip_len, frame_interval, num_clips, chosen_idx,

@@ -1,3 +1,5 @@
-from .cross_entropy_loss import CrossEntropyLossTorch, cross_entropy
+from .cross_entropy_loss import (CrossEntropyLoss, CrossEntropyLossTorch,
+                                 cross_entropy, soft_cross_entropy)
 
-__all__ = ['CrossEntropyLossTorch', 'cross_entropy']
+__all__ = ['CrossEntropyLoss', 'CrossEntropyLossTorch', 'cross_entropy',
+           'soft_cross_entropy']

@@ -1,10 +1,15 @@
-"""Cross-entropy with ignore_index.
+"""Cross-entropy losses.
 
-Port of ``mscl_tpu/models/losses/cross_entropy_loss.py``
-``CrossEntropyLoss_torch``: the mean over non-ignored samples, and 0 (not
-NaN) when every sample is ignored, as the JAX function returns.
+Port of ``mscl_tpu/models/losses/cross_entropy_loss.py``:
+``CrossEntropyLoss_torch`` (hard labels with ignore_index: the mean over
+non-ignored samples, and 0, not NaN, when every sample is ignored, as the
+JAX function returns) and ``CrossEntropyLoss`` (hard or soft labels, by
+the label's shape, with an optional class weight; the classification
+heads' default).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -13,12 +18,47 @@ from ..builder import LOSSES
 
 
 def cross_entropy(cls_score: torch.Tensor, label: torch.Tensor,
-                  ignore_index: int = -100) -> torch.Tensor:
+                  ignore_index: int = -100,
+                  class_weight: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
     label = label.long()
     valid = label != ignore_index
-    nll = F.cross_entropy(cls_score, torch.where(valid, label, 0),
-                          reduction='none')
+    safe = torch.where(valid, label, 0)
+    nll = F.cross_entropy(cls_score, safe, reduction='none')
+    if class_weight is not None:
+        w = class_weight.to(nll)[safe] * valid
+        return (nll * w).sum() / w.sum().clamp(min=1e-12)
     return (nll * valid).sum() / valid.sum().clamp(min=1)
+
+
+def soft_cross_entropy(cls_score: torch.Tensor, label: torch.Tensor,
+                       class_weight: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """The batch mean of -sum(p * log_softmax(score)) (reference
+    cross_entropy_loss.py:43-60)."""
+    lsm = F.log_softmax(cls_score, dim=-1)
+    if class_weight is not None:
+        lsm = lsm * class_weight.to(lsm)
+    return -(label * lsm).sum(dim=-1).mean()
+
+
+@LOSSES.register_module()
+class CrossEntropyLoss:
+    """mmaction2's CrossEntropyLoss: soft labels when the label has the
+    score's shape, hard labels otherwise."""
+
+    def __init__(self, loss_weight=1.0, class_weight=None):
+        self.loss_weight = loss_weight
+        self.class_weight = None if class_weight is None else \
+            torch.as_tensor(class_weight, dtype=torch.float32)
+
+    def __call__(self, cls_score, label, **kwargs):
+        if label.dim() == cls_score.dim() and label.shape == cls_score.shape:
+            loss = soft_cross_entropy(cls_score, label, self.class_weight)
+        else:
+            loss = cross_entropy(cls_score, label,
+                                 class_weight=self.class_weight)
+        return self.loss_weight * loss
 
 
 @LOSSES.register_module()

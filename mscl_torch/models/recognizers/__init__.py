@@ -1,5 +1,9 @@
-from .base import parse_losses
+from .base import (get_ssl_state_dict, graft, init_from_ssl_pretrain,
+                   parse_losses)
 from .moco import MLP, MoCoV2, build_ema_fn
 from .mscl import MSCLWithAug
+from .recognizer3d import Recognizer3D
 
-__all__ = ['parse_losses', 'MLP', 'MoCoV2', 'build_ema_fn', 'MSCLWithAug']
+__all__ = ['parse_losses', 'get_ssl_state_dict', 'graft',
+           'init_from_ssl_pretrain', 'MLP', 'MoCoV2', 'build_ema_fn',
+           'MSCLWithAug', 'Recognizer3D']

@@ -1,0 +1,80 @@
+"""Evaluate a checkpoint on a config's test set, on one card.
+
+    python -m mscl_torch.tools.test CONFIG CHECKPOINT
+        [--metrics top_k_accuracy mean_class_accuracy ...] [--out JSON]
+        [--cfg-options key=value ...] [--device cuda|cpu]
+
+Port of ``tools/test.py`` (reference mmaction tools/test.py): build the
+test set (``data.test``, test mode) and its loader, the model from the
+config with the checkpoint's weights (the port's ``epoch_N.pth`` or a
+reference ``.pth``), each video's scores, then ``dataset.evaluate``. Prints
+the metrics as JSON (and writes them to ``--out``). The loader decodes on
+the config's ``workers_per_gpu`` threads: the test pipeline draws nothing,
+so the scores do not depend on them. ``--num-devices`` is refused: the
+port tests on one card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+from typing import Optional, Sequence
+
+from ..config import Config, DictAction
+
+
+def parse_args(argv: Optional[Sequence[str]] = None):
+    parser = argparse.ArgumentParser(description='Test a recognizer')
+    parser.add_argument('config')
+    parser.add_argument('checkpoint')
+    parser.add_argument('--metrics', nargs='+',
+                        default=['top_k_accuracy', 'mean_class_accuracy'])
+    parser.add_argument('--out', help='output result json')
+    parser.add_argument('--num-devices', type=int, default=None)
+    parser.add_argument('--cfg-options', nargs='+', action=DictAction,
+                        default={})
+    parser.add_argument('--device', default='cuda',
+                        help="'cuda' (the default) or 'cpu'")
+    args = parser.parse_args(argv)
+    if args.num_devices is not None:
+        parser.error('--num-devices is not supported: the port tests on one '
+                     'card')
+    return args
+
+
+def build_test_loader(cfg, split: str):
+    """The split's dataset in test mode and an in-order loader over it."""
+    from ..apis.train import _plain
+    from ..datasets import build_dataloader, build_dataset
+    ds_cfg = _plain(cfg.data[split])
+    ds_cfg['test_mode'] = True
+    dataset = build_dataset(ds_cfg)
+    loader = build_dataloader(
+        dataset, videos_per_gpu=cfg.data['videos_per_gpu'],
+        workers_per_gpu=cfg.data.get('workers_per_gpu', 0), shuffle=False)
+    return dataset, loader
+
+
+def main(argv: Optional[Sequence[str]] = None):
+    args = parse_args(argv)
+    cfg = Config.fromfile(args.config)
+    if args.cfg_options:
+        cfg.merge_from_dict(args.cfg_options)
+
+    from ..apis.inference import init_recognizer, run_test
+    model, cfg = init_recognizer(cfg, args.checkpoint, device=args.device)
+    dataset, loader = build_test_loader(cfg, 'test')
+    try:
+        results = run_test(model, loader)
+    finally:
+        loader.shutdown()
+    metrics = {k: float(v) for k, v in
+               dataset.evaluate(results, metrics=args.metrics).items()}
+    print(json.dumps(metrics, indent=2))
+    if args.out:
+        with open(args.out, 'w') as f:
+            json.dump(metrics, f)
+    return metrics
+
+
+if __name__ == '__main__':
+    main()

@@ -1,8 +1,10 @@
 """Guards on the PyTorch port: it imports neither JAX nor mscl_tpu (nor cv2
 or msgpack, which only the functions that read frames and pack blobs import),
 runs on the card unless told otherwise (its models, flow extraction,
-train_model and the training CLI), never falls back from a kernel to its
-plain version on a CUDA tensor, and its copy of the flagship recipe agrees
+train_model, the training, test and retrieval CLIs, the recognizer loader
+and retrieval's product), never falls back from a kernel to its plain
+version on a CUDA tensor, refuses what it cannot read (a JAX ``.ckpt``, a
+video file) with a way forward, and its copy of the flagship recipe agrees
 with the config file."""
 import os
 import subprocess
@@ -11,8 +13,10 @@ import sys
 import pytest
 import torch
 
-from mscl_torch.apis import (FLAGSHIP_CONFIG, build_model_from_cfg,
-                             flagship_model_cfg, load_flagship_config,
+from mscl_torch.apis import (FLAGSHIP_CONFIG, apply_ssl_pretrain,
+                             build_model_from_cfg, flagship_model_cfg,
+                             inference_recognizer, init_recognizer,
+                             load_flagship_config, retrieval_recall,
                              train_model)
 from mscl_torch.apis.flow_extraction import make_raft_fn
 from mscl_torch.ops import corr_lookup as cl
@@ -45,7 +49,12 @@ def test_port_imports_no_jax_and_no_mscl_tpu():
         ' "mscl_torch.datasets.pipelines.moco_augmentations",'
         ' "mscl_torch.datasets.pipelines.transforms_motion",'
         ' "mscl_torch.datasets.pipelines.formatting",'
-        ' "mscl_torch.core.checkpoint", "mscl_torch.tools.train"}'
+        ' "mscl_torch.core.checkpoint", "mscl_torch.tools.train",'
+        ' "mscl_torch.tools.test", "mscl_torch.tools.test_retrieval",'
+        ' "mscl_torch.apis.inference", "mscl_torch.core.evaluation.accuracy",'
+        ' "mscl_torch.core.evaluation.visualizer",'
+        ' "mscl_torch.models.heads.i3d_head",'
+        ' "mscl_torch.models.recognizers.recognizer3d"}'
         ' <= set(sys.modules)\n')
     out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
@@ -77,6 +86,49 @@ def test_train_cli_needs_the_card_unless_told(tmp_path):
     assert out.returncode != 0
     assert "pass device='cpu'" in out.stderr
     assert not (tmp_path / 'log.json').exists()
+
+
+@pytest.mark.parametrize('tool', ['test', 'test_retrieval'])
+def test_eval_clis_need_the_card_unless_told(tmp_path, tool):
+    if torch.cuda.is_available():
+        pytest.skip('this box has a CUDA device')
+    cfg = tmp_path / 'cfg.py'
+    cfg.write_text("model = dict(type='Recognizer3D', backbone=dict("
+                   "type='torchvision.r3d_18'))\n"
+                   "data = dict(videos_per_gpu=1, train={}, test={})\n")
+    args = [str(cfg)] + (['unused.pth'] if tool == 'test' else [])
+    out = subprocess.run(
+        [sys.executable, '-m', f'mscl_torch.tools.{tool}', *args,
+         '--out', str(tmp_path / 'out.json')], cwd=ROOT,
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert "pass device='cpu'" in out.stderr
+    assert not (tmp_path / 'out.json').exists()
+
+
+def test_inference_needs_the_card_unless_told():
+    if torch.cuda.is_available():
+        pytest.skip('this box has a CUDA device')
+    from mscl_torch.config import Config
+    cfg = Config.fromdict(dict(model=dict(
+        type='Recognizer3D', backbone=dict(type='torchvision.r3d_18'))))
+    with pytest.raises(RuntimeError, match='CUDA'):
+        init_recognizer(cfg)
+    feats = torch.randn(4, 8).numpy()
+    with pytest.raises(RuntimeError, match='CUDA'):
+        retrieval_recall(feats, [0, 1, 0, 1], feats, [0, 1, 0, 1])
+
+
+def test_unreadable_inputs_are_refused(tmp_path):
+    """A JAX msgpack checkpoint (msgpack is absent where the card is) and a
+    video file (cv2 would decode it) are refused with what to do instead."""
+    with pytest.raises(NotImplementedError, match='jax_to_state_dict'):
+        apply_ssl_pretrain(None, dict(pretrained=dict(
+            filename=str(tmp_path / 'epoch_400.ckpt'))))
+    video = tmp_path / 'clip.mp4'
+    video.write_bytes(b'')
+    with pytest.raises(NotImplementedError, match='extract its frames'):
+        inference_recognizer(None, None, str(video))
 
 
 def test_flow_extraction_needs_the_card_unless_told():
