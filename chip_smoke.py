@@ -83,6 +83,30 @@ the exit code is nonzero:
    decode process left after the run, the steady window beside thread
    mode's, and the bytes of one batch's pickle on the result queue and
    the time to unpickle it;
+10b. pretrain_dp: data parallelism (``mscl_torch/parallel``) on the one
+   card. (a) One global batch of 32 from pretrain_cli's set through the
+   config's pipeline; 2 flagship steps (full width, K=65536, V5, float32,
+   TF32 off) with no process group, then the same at world 2, two spawned
+   gloo ranks sharing the card with 16 rows each: after each step every
+   loss key, the queues (count, queue_ptr and iters exact) and the EMA key
+   towers within the CPU tests' tolerances of world 1's, the BN
+   statistics and the query side after SGD too after the first step; the
+   ranks' states equal bitwise. After the second step those two are
+   ill-conditioned at full width (world 1 with its images one ulp smaller
+   or larger moves them 3-12x the tolerances: the ulp controls,
+   no_group_ulp and no_group_ulp_up), so there each path's share of
+   their tolerance is held to DP_ULP_MULT times the controls' larger
+   share, and both steps are held in full at a narrow width (DP_NARROW)
+   at world 2; (c) the full-width steps at world 1 under NCCL, held as in
+   (a); (b) the training CLI at world 2 through its launcher
+   (``launch.run`` with ``--num-devices 2``: two ranks on the one card
+   talk over gloo), 16 rows a rank: 1 epoch of 8 global steps with
+   validation, then a resume to a second; one loss on both ranks every
+   step, files written by rank 0 only, the state loaded at resume equal
+   to the state saved, bitwise, on both ranks, queues and launches as the
+   steps imply. It logs each path's step times, the
+   collectives a step (BN calls, gradient buckets, key gathers, with their
+   bytes), peak memory and launches a rank, and the CLI's steady step;
 11. finetune_cli: README workload 2, the fine-tune config
    (configs/recognition/ssl_test/test_ssv2_r18.py: r3d_18 64 wide,
    I3DHead for 174 classes, dropout 0.5, batch 32, 16-frame 112x112
@@ -109,7 +133,8 @@ the exit code is nonzero:
    result. Each phase's seconds are logged (phase_seconds).
 
 Every kernel launch counter is set to 0 just before each of the paths 7
-(each dtype), 8, 9 (each of its two runs), 10-13 (each CLI run; the
+(each dtype), 8, 9 (each of its two runs), 10, 10b (in each rank, before
+its steps and before each CLI run), 11-13 (each CLI run; the
 fine-tune, test and retrieval paths must launch no decayed-InfoNCE
 kernel: r3d_18 goes to cuDNN) and the probe tool's run in 4, and read
 just after. The kernel table's decayed-InfoNCE launches are the pretrain
@@ -118,11 +143,14 @@ nonzero before printing any result.
 """
 from __future__ import annotations
 
+import builtins
+import hashlib
 import json
 import math
 import os
 import os.path as osp
 import pickle
+import random
 import re
 import shutil
 import struct
@@ -151,6 +179,7 @@ from mscl_torch.ops import corr_lookup as cl
 from mscl_torch.ops import cuda_build
 from mscl_torch.ops import decayed_infonce as di
 from mscl_torch.ops import mxu_fill as mf
+from mscl_torch.parallel import dist, launch
 from mscl_torch.tools import bench_mxu_fill as bm
 from mscl_torch.tools import test as test_cli
 from mscl_torch.tools import test_retrieval as retrieval_cli
@@ -228,6 +257,23 @@ FT_CONFIG = 'configs/recognition/ssl_test/test_ssv2_r18.py'
 FT_VIDEOS, FT_VAL_VIDEOS, FT_REPEAT, FT_FRAMES = 64, 32, 4, 24
 FT_FRAME_HW, FT_CLASSES = (240, 320), 174
 FT_FEATURES = 512                  # r3d_18's last stage, 64 wide
+# pretrain_dp: the flagship step on one global batch of DP_BATCH at world 2
+# (two gloo ranks sharing the card) and at world 1 under NCCL, against
+# world 1 with no process group, DP_STEPS steps; then the pretrain CLI at
+# world 2 with DP_CLI_ROWS rows a rank (a global batch of 32). The
+# tolerances are the port's CPU tests' (tests/test_mscl_torch_composite.py
+# :387,451): (rtol, atol), ints exact. At full width the BN statistics
+# and the query side after the second SGD step are ill-conditioned: one
+# ulp on the input images moves them 3-12x these tolerances (PERF.md §6,
+# the no_group_ulp lines), so there each path's share of the tolerance is
+# held to DP_ULP_MULT times the larger share of the two ulp controls; they
+# are held in full after the first step and at the narrow width
+# (DP_NARROW) for both steps
+DP_BATCH, DP_STEPS, DP_CLI_ROWS, DP_ULP_MULT = 32, 2, 16, 2.0
+DP_TOL = dict(losses=(2e-4, 2e-4), params=(5e-3, 1e-4), queues=(0, 2e-5),
+              ema=(1e-5, 1e-6), bn_stats=(1e-4, 1e-5))
+DP_ILL_CONDITIONED = ('bn_stats', 'params')
+DP_NARROW = dict(K=4096, dim=128, rgb_width=8, flow_width=2)
 
 
 def log(**kw):
@@ -1167,6 +1213,17 @@ def pretrain_run(train_pkl, val_pkl, work_dir, epochs, resume_from=None,
                  options=()):
     """The port's training CLI on the flagship config file, in this
     process; returns (runner, launches, seconds)."""
+    argv = pretrain_argv(train_pkl, val_pkl, work_dir, epochs, resume_from,
+                         options)
+    (runner, _), launches, seconds = cli_run(train_cli.main, argv)
+    return runner, launches, seconds
+
+
+def pretrain_argv(train_pkl, val_pkl, work_dir, epochs, resume_from=None,
+                  options=()):
+    """The training CLI's arguments for the flagship config file over the
+    phase's pickles: validation, a checkpoint and a log line every epoch
+    and step."""
     argv = [FLAGSHIP_CONFIG, '--validate', '--seed', '0', '--cfg-options',
             f'data.train.pkl_path={train_pkl}',
             f'data.val.pkl_path={val_pkl}', f'total_epochs={epochs}',
@@ -1174,8 +1231,7 @@ def pretrain_run(train_pkl, val_pkl, work_dir, epochs, resume_from=None,
             'log_config.interval=1', f'work_dir={work_dir}', *options]
     if resume_from:
         argv[1:1] = ['--resume-from', resume_from]
-    (runner, _), launches, seconds = cli_run(train_cli.main, argv)
-    return runner, launches, seconds
+    return argv
 
 
 def steady_window(train, per_epoch, tail):
@@ -1477,6 +1533,435 @@ def phase_pretrain_cli_process(root, pkls, thread_window):
         state=state, losses=[r['loss'] for r in train],
         phase_s=time.perf_counter() - t_phase)
     return launches
+
+
+def dp_global_batch(train_pkl, path):
+    """One global batch of DP_BATCH clips of pretrain_cli's set through the
+    flagship config's train pipeline (host draws from seed 0), pickled to
+    path for the ranks."""
+    from mscl_torch.datasets import build_dataset
+    from mscl_torch.datasets.loader import default_collate
+    cfg = load_flagship_config()
+    cfg.merge_from_dict({'data.train.pkl_path': train_pkl})
+    dataset = build_dataset(cfg.data['train'].to_dict())
+    random.seed(0)
+    np.random.seed(0)
+    batch = default_collate([dataset[i] for i in range(DP_BATCH)])
+    with open(path, 'wb') as f:
+        pickle.dump(batch, f)
+
+
+def dp_rows(tree):
+    """This rank's rows of a numpy global batch (the whole with no
+    group)."""
+    if isinstance(tree, dict):
+        return {k: dp_rows(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [dp_rows(v) for v in tree]
+    per = tree.shape[0] // dist.world_size()
+    return tree[dist.rank() * per:(dist.rank() + 1) * per]
+
+
+def state_digest(state):
+    """sha256 over a state dict's names and bytes, in order."""
+    h = hashlib.sha256()
+    for k, v in state.items():
+        h.update(k.encode())
+        h.update(v.reshape(-1).contiguous().view(torch.uint8).numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def dp_compare(state, logs, ref_state, ref_logs):
+    """A state and the logged values against world 1's, by what the
+    tolerances name: every loss key, the queues (count, queue_ptr and
+    iters exact), the EMA key towers, the BN statistics and the query side
+    after SGD. Returns the largest abs error of each group, its largest
+    share of the tolerance (a miss above 1, or NaN), and the misses as
+    (share, name) by group."""
+    groups = dict(
+        queues=lambda k: k.endswith('.queue'),
+        bn_stats=lambda k: 'running' in k,
+        ema=lambda k: any(f'.{p}.' in k for p in MOCO_FREEZE),
+        params=lambda k: '_q.' in k)
+    errs = {g: 0.0 for g in DP_TOL}
+    shares = {g: 0.0 for g in DP_TOL}
+    misses = {g: [] for g in list(DP_TOL) + ['exact']}
+
+    def check(group, name, got, want):
+        rtol, atol = DP_TOL[group]
+        got, want = torch.as_tensor(got).double(), \
+            torch.as_tensor(want).double()
+        diff = (got - want).abs()
+        share = float((diff / (atol + rtol * want.abs())).max())
+        errs[group] = max(errs[group], float(diff.max()))
+        shares[group] = max(shares[group], share)
+        if not share <= 1:            # NaN too
+            misses[group].append((share, name))
+
+    for k in (k for k in ref_logs if 'loss' in k):
+        check('losses', k, logs[k], ref_logs[k])
+    for k, want in ref_state.items():
+        got = state[k]
+        if not want.is_floating_point():
+            if not torch.equal(got, want):
+                misses['exact'].append((math.inf, k))
+            continue
+        group = next((g for g, sel in groups.items() if sel(k)), None)
+        if group is None:
+            misses['exact'].append((math.inf, f'no tolerance for {k}'))
+        else:
+            check(group, k, got, want)
+    return errs, shares, misses
+
+
+def dp_model_cfg(width):
+    """The flagship config's model ('full'), or its recipe narrowed
+    (DP_NARROW) with the config's aug."""
+    cfg = load_flagship_config()
+    if width == 'full':
+        return cfg.model.to_dict()
+    return narrow_flagship_cfg(**DP_NARROW, aug=cfg.model.aug.to_dict())
+
+
+def dp_bn_layer():
+    """One train-mode BatchNorm3d at r3d_18's stem shape for the global
+    batch (DP_BATCH, 64, 8, 56, 56), this rank's rows of seeded inputs
+    (all of them with no group), against float64 over the global batch:
+    the largest error of y, dx, dweight, dbias and the running statistics,
+    each relative to the largest entry of its float64 value."""
+    from mscl_torch.ops.batch_norm import BatchNorm3d
+    dev = torch.device('cuda', torch.cuda.current_device())
+    gen = torch.Generator(device=dev).manual_seed(0)
+    shape = (DP_BATCH, 64, 8, 56, 56)
+    x = torch.randn(shape, generator=gen, device=dev) * 0.7 + 0.3
+    dy = torch.randn(shape, generator=gen, device=dev)
+    bn = BatchNorm3d(64).to(dev).train()
+    xr = dist.rank_rows(x).clone().requires_grad_(True)
+    y = bn(xr)
+    (y * dist.rank_rows(dy)).sum().backward()
+    grads = [bn.weight.grad, bn.bias.grad]
+    dist.all_reduce_(grads, tag='check')
+    got = [dist.all_gather_rows(y.detach(), tag='check'),
+           dist.all_gather_rows(xr.grad, tag='check'), *grads,
+           bn.running_mean, bn.running_var]
+    x64 = x.double().requires_grad_(True)
+    y64 = F.batch_norm(x64, None, None, None, None, True, 0.0, 1e-5)
+    (y64 * dy.double()).sum().backward()
+    axes = (0, 2, 3, 4)
+    want = [y64.detach(), x64.grad, (dy.double() * y64.detach()).sum(axes),
+            dy.double().sum(axes), 0.1 * x.double().mean(axes),
+            0.9 + 0.1 * x.double().var(axes, unbiased=False)]
+    names = ('y', 'dx', 'dweight', 'dbias', 'running_mean', 'running_var')
+    return {n: float((a.double() - b).abs().max() / b.abs().max())
+            for n, a, b in zip(names, got, want)}
+
+
+def dp_steps(batch_path, ref_path=None, width='full', img_scale=None):
+    """DP_STEPS train steps of the flagship config (its model at full
+    width, K=65536, V5, float32, TF32 off; or narrowed) on this rank's
+    rows of the global batch, or the whole with no process group (the
+    images times img_scale, if given). Returns the steps' seconds, logged
+    values, launches, collectives, peak memory, a digest of the final
+    state; with ref_path (world 1's run) each step's errors against it,
+    else each step's state (on the host)."""
+    dev = torch.device('cuda', torch.cuda.current_device())
+    bn_layer = dp_bn_layer() if width == 'full' else None
+    torch.cuda.empty_cache()
+    cfg = load_flagship_config()
+    model = build_model_from_cfg(dp_model_cfg(width), device=dev, seed=0)
+    lr = build_lr_schedule(cfg.lr_config.to_dict(), cfg.optimizer['lr'],
+                           cfg.total_epochs, cfg.dataset_size // DP_BATCH)
+    opt = build_optimizer(model, cfg.optimizer.to_dict(), lr,
+                          grad_clip=cfg.optimizer_config['grad_clip'],
+                          freeze_patterns=MOCO_FREEZE)
+    step = make_train_step(model, opt, build_ema_fn(model))
+    with open(batch_path, 'rb') as f:
+        batch = dp_rows(pickle.load(f))
+    if img_scale is not None:
+        batch['imgs'] = [x * np.float32(img_scale) for x in batch['imgs']]
+    batch = to_torch(batch, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    dist.reset_counts()
+    step_s, logs, states, collectives = [], [], [], []
+    for _ in range(DP_STEPS):
+        dist.reset_counts()
+        t0 = time.perf_counter()
+        log_vars = step(batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        collectives.append(dist.counts())
+        logs.append({k: v.item() for k, v in log_vars.items()})
+        states.append({k: v.detach().to('cpu', copy=True)
+                       for k, v in model.state_dict().items()})
+    out = dict(rank=dist.rank(), world=dist.world_size(),
+               backend=dist.backend(), rows=batch['imgs'][0].shape[0],
+               width=width, step_s=step_s, logs=logs,
+               launches=dict(l_neg=di.l_neg.launches, dq=di.dq.launches),
+               collectives=collectives,
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               digest=state_digest(states[-1]), bn_layer=bn_layer)
+    if ref_path is None:
+        out['states'] = states
+    else:
+        ref = torch.load(ref_path, weights_only=True)
+        out['compare'] = [dp_compare(st, lv, rs, rl) for st, lv, rs, rl in
+                          zip(states, logs, ref['states'], ref['logs'])]
+    return out
+
+
+def dp_cli_rank(argv):
+    """The training CLI's work on this rank (``tools.train._train``, what
+    its launcher runs on each rank), instrumented: the records it logs,
+    the files it opens for writing (torch.save included), whether the
+    state a resume loaded equals the file's bitwise, the launches, the
+    final queue pointers, iters and steps, peak memory: every rank's, in
+    rank order."""
+    import mscl_torch.core.train_loop as tl
+    real_open, real_save = builtins.open, torch.save
+    real_log, real_resume, real_run = tl.Runner.log, tl.Runner.resume, \
+        tl.Runner.run
+    records, writes, resumed, runners = [], [], [], []
+
+    def tracing_open(file, mode='r', *args, **kwargs):
+        if any(c in mode for c in 'wax+'):
+            writes.append(osp.basename(str(file)))
+        return real_open(file, mode, *args, **kwargs)
+
+    def tracing_save(obj, f, *args, **kwargs):
+        writes.append(osp.basename(str(f)))
+        return real_save(obj, f, *args, **kwargs)
+
+    def log_(self, record):
+        records.append(dict(record))
+        real_log(self, record)
+
+    def resume(self, path=None):
+        real_resume(self, path)
+        want, got = load_checkpoint(path), self.state()
+        resumed.append(states_equal(want, got))
+
+    def run_(self):
+        runners.append(self)
+        real_run(self)
+
+    tl.Runner.log, tl.Runner.resume, tl.Runner.run = log_, resume, run_
+    builtins.open, torch.save = tracing_open, tracing_save
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    try:
+        train_cli._train(train_cli.parse_args(argv))
+    finally:
+        builtins.open, torch.save = real_open, real_save
+        tl.Runner.log, tl.Runner.resume, tl.Runner.run = real_log, \
+            real_resume, real_run
+    runner = runners[0]
+    model = runner.model
+    out = dict(
+        rank=dist.rank(), backend=dist.backend(), records=records,
+        writes=writes, resumed=resumed,
+        launches=dict(l_neg=di.l_neg.launches, dq=di.dq.launches),
+        state={f'{t}.{n}': int(getattr(getattr(model, t), n))
+               for t in ('recognizer', 'recognizer_flow')
+               for n in ('queue_ptr', 'iters')},
+        steps=runner.optimizer.steps, batch=runner.train_loader.batch_size,
+        per_epoch=len(runner.train_loader),
+        peak_bytes=torch.cuda.max_memory_allocated())
+    every = [None] * dist.world_size()
+    torch.distributed.all_gather_object(every, out)
+    return every
+
+
+def dp_step_line(path, runs, ref_s, floor=None, gate=True):
+    """Log a path's numbers: step times, the last step's collectives
+    (calls, bytes, host seconds inside them; rank 0's), launches and peak
+    memory a rank, and each step's errors against world 1's by group
+    with their share of the tolerance. Fails (with gate) on a miss of any
+    rank, on ranks whose states differ, or on launches other than 7 + 7 a
+    step. In the groups that are ill-conditioned after the second step at
+    full width a miss is a share of the tolerance above 1 and above
+    DP_ULP_MULT times floor's (the ulp controls' larger share, by step
+    and group)."""
+    per_step = runs[0]['collectives'][-1]
+    held, logged = [], []
+    for r in runs:
+        for i, (_, _, misses) in enumerate(r['compare']):
+            loose = r['width'] == 'full' and i > 0
+            for group, found in misses.items():
+                limit = max(1.0, DP_ULP_MULT * floor[i][group]) \
+                    if loose and floor and group in DP_ILL_CONDITIONED \
+                    else 1.0
+                for share, name in found:
+                    out = held if not share <= limit else logged
+                    out.append(f'rank {r["rank"]} step {i + 1} {name} '
+                               f'({share:.3g}x, limit {limit:.3g}x)')
+    log(phase='pretrain_dp_step', path=path, width=runs[0]['width'],
+        world=runs[0]['world'], backend=runs[0]['backend'],
+        rows_a_rank=runs[0]['rows'], step_s=[r['step_s'] for r in runs],
+        step_ratio_to_no_group=[r['step_s'][-1] / ref_s for r in runs],
+        collectives_a_step=per_step,
+        launches_a_rank=[r['launches'] for r in runs],
+        peak_bytes=[r['peak_bytes'] for r in runs],
+        max_abs_err=[{g: max(r['compare'][i][0][g] for r in runs)
+                      for g in DP_TOL} for i in range(DP_STEPS)],
+        tolerance_share=[{g: max(r['compare'][i][1][g] for r in runs)
+                          for g in DP_TOL} for i in range(DP_STEPS)],
+        share_limit=[{g: DP_ULP_MULT * floor[i][g] for g in
+                      DP_ILL_CONDITIONED} if floor and i > 0 else None
+                     for i in range(DP_STEPS)],
+        bn_layer_vs_float64=[r['bn_layer'] for r in runs],
+        misses_held=held[:10], misses_within_limit=len(logged),
+        losses=[{k: v for k, v in lv.items() if 'loss' in k}
+                for lv in runs[0]['logs']])
+    held += [f'rank {r["rank"]} BN layer {k} {v:.3g} of float64'
+             for r in runs if r['bn_layer']
+             for k, v in r['bn_layer'].items() if not v <= F64_REL]
+    digests = {r['digest'] for r in runs}
+    want = dict(l_neg=7 * DP_STEPS, dq=7 * DP_STEPS)
+    bad = [r['launches'] for r in runs if r['launches'] != want]
+    if gate and (held or len(digests) != 1 or bad):
+        raise AssertionError(f'{path}: {len(held)} misses ({held[:5]}), '
+                             f'{len(digests)} states over the ranks, '
+                             f'launches {bad} (want {want} a rank)')
+    return per_step
+
+
+def dp_reference(batch_path, path, width):
+    """World 1 with no process group: its steps saved to path for the
+    ranks; returns its run."""
+    ref = dp_steps(batch_path, width=width)
+    torch.save(dict(states=ref.pop('states'), logs=ref['logs']), path)
+    torch.cuda.empty_cache()
+    bad_bn = {k: v for k, v in (ref['bn_layer'] or {}).items()
+              if v > F64_REL}
+    if ref['launches'] != dict(l_neg=7 * DP_STEPS, dq=7 * DP_STEPS) or \
+            any(ref['collectives']) or bad_bn:
+        raise AssertionError(f'world 1: launches {ref["launches"]}, '
+                             f'collectives {ref["collectives"]}, BN layer '
+                             f'{bad_bn} of float64')
+    log(phase='pretrain_dp_step', path='no_group', width=width, world=1,
+        backend=None, rows_a_rank=ref['rows'], step_s=[ref['step_s']],
+        launches_a_rank=[ref['launches']], peak_bytes=[ref['peak_bytes']],
+        bn_layer_vs_float64=[ref['bn_layer']],
+        losses=[{k: v for k, v in lv.items() if 'loss' in k}
+                for lv in ref['logs']])
+    return ref
+
+
+def phase_pretrain_dp(root, pkls):
+    """Data parallelism on the card: (a) DP_STEPS flagship steps on one
+    global batch at world 2 (two gloo ranks sharing the card, each its 16
+    rows) against world 1 with no process group, within DP_TOL, and where
+    the second step is ill-conditioned within DP_ULP_MULT times the ulp
+    controls (world 1 with its images one ulp smaller and larger;
+    ``dp_step_line``), and at the narrow width within DP_TOL for both
+    steps; every rank's state the same bitwise; (c) the full-width steps
+    at world 1 under NCCL, the launcher's path; (b) the training CLI
+    through its launcher with ``--num-devices 2`` (two gloo ranks on the
+    card, a global batch of 32) for 1 epoch of 8 steps, then a resume to a
+    second: one loss on both ranks every step, files from rank 0 only, the
+    state loaded at resume equal to the state saved, bitwise, on both
+    ranks."""
+    t_phase = time.perf_counter()
+    train_pkl, val_pkl = pkls
+    batch_path = osp.join(root, 'dp_batch.pkl')
+    ref_path = osp.join(root, 'dp_world1.pth')
+    dp_global_batch(train_pkl, batch_path)
+    ref_s = dp_reference(batch_path, ref_path, 'full')['step_s'][-1]
+    # the step's own conditioning: world 1 again, the images one ulp
+    # smaller (times 1 - 2^-24) and one ulp larger (times 1 + 2^-23)
+    controls = []
+    for name, scale in (('no_group_ulp', 1 - 2 ** -24),
+                        ('no_group_ulp_up', 1 + 2 ** -23)):
+        controls.append(dp_steps(batch_path, ref_path, img_scale=scale))
+        dp_step_line(name, controls[-1:], ref_s, gate=False)
+        torch.cuda.empty_cache()
+    floor = [{g: max(c['compare'][i][1][g] for c in controls)
+              for g in DP_TOL} for i in range(DP_STEPS)]
+    t0 = time.perf_counter()
+    nccl = dist.spawn(dp_steps, 1, (batch_path, ref_path), backend='nccl',
+                      device='cuda', join_timeout_s=600)
+    nccl_s = time.perf_counter() - t0
+    dp_step_line('nccl_world1', nccl, ref_s, floor)
+    t0 = time.perf_counter()
+    gloo = dist.spawn(dp_steps, 2, (batch_path, ref_path), backend='gloo',
+                      device='cuda', join_timeout_s=600)
+    gloo_s = time.perf_counter() - t0
+    collectives = dp_step_line('gloo_world2', gloo, ref_s, floor)
+    narrow_path = osp.join(root, 'dp_world1_narrow.pth')
+    narrow_s = dp_reference(batch_path, narrow_path, 'narrow')['step_s'][-1]
+    dp_step_line('gloo_world2', dist.spawn(
+        dp_steps, 2, (batch_path, narrow_path, 'narrow'), backend='gloo',
+        device='cuda', join_timeout_s=600), narrow_s)
+
+    t0 = time.perf_counter()
+    work = osp.join(root, 'work_dp')
+    opts = [f'data.videos_per_gpu={DP_CLI_ROWS}']
+    cli_runs = []
+    for epochs, resume in ((1, None), (2, osp.join(work, 'epoch_1.pth'))):
+        argv = pretrain_argv(train_pkl, val_pkl, work, epochs, resume,
+                             options=opts) + ['--num-devices', '2']
+        # local rank 0's value: every rank's, gathered in rank order
+        cli_runs.append(launch.run(dp_cli_rank, train_cli.parse_args(argv),
+                                   argv))
+    first, second = cli_runs
+    cli_s = time.perf_counter() - t0
+    per_epoch, bs = first[0]['per_epoch'], first[0]['batch']
+    if (per_epoch, bs) != (CLI_VIDEOS * CLI_REPEAT // DP_BATCH, DP_BATCH):
+        raise AssertionError(f'{per_epoch} steps an epoch of {bs}')
+    problems = []
+    for run, epochs, runs in ((1, 1, first), (2, 2, second)):
+        losses = [[(r['mode'], r['epoch'], r.get('iter'), r['loss'])
+                   for r in res['records']] for res in runs]
+        if losses[0] != losses[1]:
+            problems.append(f'run {run}: the ranks logged other losses')
+        if not all(math.isfinite(x[-1]) for x in losses[0]):
+            problems.append(f'run {run}: a non-finite loss')
+        if runs[1]['writes'] or not runs[0]['writes']:
+            problems.append(f'run {run}: writes {runs[0]["writes"]}, '
+                            f'{runs[1]["writes"]}')
+        steps = epochs * per_epoch
+        want_state = moco_state(epochs, per_epoch, bs)
+        # an epoch's train steps and its one val step, 7 l_neg each
+        want_launches = dict(l_neg=7 * per_epoch + 7, dq=7 * per_epoch)
+        for res in runs:
+            if res['state'] != want_state or res['steps'] != steps or \
+                    res['launches'] != want_launches or \
+                    res['backend'] != 'gloo':
+                problems.append(f'run {run} rank {res["rank"]}: state '
+                                f'{res["state"]}, steps {res["steps"]}, '
+                                f'launches {res["launches"]}, backend '
+                                f'{res["backend"]}')
+    if any(res['resumed'] != [[]] for res in second):
+        problems.append(f'resume: {[res["resumed"] for res in second]}')
+    with open(osp.join(work, 'log.json')) as f:
+        lines = f.read().splitlines()
+    want_lines = len(first[0]['records']) + len(second[0]['records'])
+    if len(lines) != want_lines:
+        problems.append(f'log.json has {len(lines)} lines, rank 0 logged '
+                        f'{want_lines}')
+    if problems:
+        raise AssertionError(f'pretrain_dp CLI: {problems[:10]}')
+    train = [r for r in first[0]['records'] + second[0]['records']
+             if r['mode'] == 'train']
+    window = steady_window(train, per_epoch, CLI_TAIL)
+    log(phase='pretrain_dp_cli', world=2, backend='gloo',
+        rows_a_rank=DP_CLI_ROWS, batch=bs, steps_per_epoch=per_epoch,
+        train_steps=len(train), steady_step_s=window['steady_step_s'],
+        steady_data_wait_s=window['steady_data_wait_s'],
+        tail_step_s=window['tail_step_s'],
+        launches_a_rank=[[r['launches'] for r in runs]
+                         for runs in (first, second)],
+        peak_bytes=[[r['peak_bytes'] for r in runs]
+                    for runs in (first, second)],
+        rank0_writes=sorted(set(first[0]['writes'] + second[0]['writes'])),
+        resumed_bitwise=True, losses=[r['loss'] for r in train])
+    log(phase='pretrain_dp', seconds=dict(
+        gloo_world2=gloo_s, nccl_world1=nccl_s, cli=cli_s,
+        phase=time.perf_counter() - t_phase),
+        collectives_a_step=collectives)
 
 
 def write_ssv2_frames(root):
@@ -1815,6 +2300,7 @@ def main():
             'pretrain_cli', phase_pretrain_cli, root)
         run('pretrain_cli_process', phase_pretrain_cli_process, root, pkls,
             thread_window)
+        run('pretrain_dp', phase_pretrain_dp, root, pkls)
         ft_pkls, ft_work = run('finetune_cli', phase_finetune_cli, root,
                                pretrain_ckpt)
         run('test_cli', phase_test_cli, ft_pkls, ft_work)

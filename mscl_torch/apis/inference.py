@@ -5,6 +5,13 @@ A batch runs as the loader gives it: the JAX package pads the last partial
 batch only to keep jit's shapes static, and in eval mode (BN's running
 statistics, no dropout) a video's scores do not depend on its batch. The
 model runs where its parameters are.
+
+In a process group (``parallel/dist.py``) each rank's loader gives its rows
+of each global batch, the short last one tiled to the full batch as the JAX
+package pads it (``NumpyLoader(pad_last=True)``); each rank forwards its
+rows, and the outputs are gathered in rank order and trimmed to the
+dataset's videos, so every rank gets every video's output in dataset
+order. ``retrieval_recall`` runs where it is called (rank 0 in the CLI).
 """
 from __future__ import annotations
 
@@ -15,21 +22,30 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..parallel import dist
+
 
 def _forward_each_batch(model, method: str, loader) -> List[np.ndarray]:
     """``model.<method>(imgs)`` on every batch, in eval mode without
-    gradients; the rows as float32 numpy arrays."""
+    gradients; the rows as float32 numpy arrays (in a process group every
+    rank's, in dataset order: see above)."""
     device = next(model.parameters()).device
     fn = getattr(model, method)
     was_training = model.training
     model.eval()
     out: List[np.ndarray] = []
+    left = len(loader.dataset)
     try:
         with torch.no_grad():
             for batch in loader:
                 imgs = torch.from_numpy(
                     np.ascontiguousarray(batch['imgs'])).to(device)
-                out.extend(fn(imgs).float().cpu().numpy())
+                rows = fn(imgs).float()
+                if dist.is_distributed():
+                    rows = dist.all_gather_rows(rows, tag='eval_rows')
+                    rows = rows[:min(left, loader.batch_size)]
+                    left -= rows.shape[0]
+                out.extend(rows.cpu().numpy())
     finally:
         model.train(was_training)
     return out

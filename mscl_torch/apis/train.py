@@ -2,7 +2,10 @@
 (port of ``mscl_tpu/apis/train.py``): config -> datasets, loaders, model
 (and, for a fine-tune config, its backbone from a pretrained encoder), SGD
 and its lr schedule, the Runner -> resume -> run, on one card (or the CPU
-when asked for). The global batch is ``videos_per_gpu`` x 1 card.
+when asked for). The global batch is ``videos_per_gpu`` x the world size:
+in a process group (``parallel/dist.py``) every rank builds the same model
+from the same seed, takes rank 0's parameters and buffers, and trains on
+its rows of each global batch.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ from ..datasets import build_dataloader, build_dataset
 from ..models import RECOGNIZERS
 from ..models.recognizers import build_ema_fn, init_from_ssl_pretrain
 from ..models.recognizers.moco import KEY_PATTERNS
+from ..parallel import dist
 
 # key towers follow the query towers by EMA, not by the optimizer
 MOCO_FREEZE = KEY_PATTERNS
@@ -112,15 +116,19 @@ def train_model(cfg, validate: bool = True, resume_from: Optional[str] = None,
     None), which also seeds the epoch order and the device aug's and the
     head's dropout generators; then ``model.train_cfg.ssl_pretrain``, if
     set, loads its backbone. The loaders' decode processes are stopped
-    when the run ends.
+    when the run ends. In a process group the world is the group's, and
+    'cuda' is the rank's card (the current device ``init_distributed``
+    set).
     """
     device = resolve_device(device)
+    world, rank = dist.world_size(), dist.rank()
     data = cfg.data
+    simple_eval = (cfg.get('evaluation') or {}).get('simple', False)
     train_dataset = build_dataset(_plain(data['train']))
     train_loader = build_dataloader(
         train_dataset, videos_per_gpu=data['videos_per_gpu'],
-        workers_per_gpu=data.get('workers_per_gpu', 0), num_gpus=1,
-        shuffle=True, seed=seed,
+        workers_per_gpu=data.get('workers_per_gpu', 0), num_gpus=world,
+        rank=rank, shuffle=True, seed=seed,
         drop_last=data.get('train_dataloader', {}).get('drop_last', True),
         workers_mode=data.get('workers_mode', 'thread'),
         sampler=data.get('sampler'))
@@ -130,8 +138,8 @@ def train_model(cfg, validate: bool = True, resume_from: Optional[str] = None,
         val_dataset = build_dataset(_plain(data['val']))
         val_loader = build_dataloader(
             val_dataset, videos_per_gpu=data['videos_per_gpu'],
-            workers_per_gpu=data.get('workers_per_gpu', 0), num_gpus=1,
-            shuffle=False,
+            workers_per_gpu=data.get('workers_per_gpu', 0), num_gpus=world,
+            rank=rank, shuffle=False, pad_last=not simple_eval,
             drop_last=data.get('val_dataloader', {}).get('drop_last', False))
 
     model_cfg = _plain(cfg.model)
@@ -140,6 +148,9 @@ def train_model(cfg, validate: bool = True, resume_from: Optional[str] = None,
     ssl_cfg = (model_cfg.get('train_cfg') or {}).get('ssl_pretrain')
     if ssl_cfg:
         apply_ssl_pretrain(model, dict(ssl_cfg))
+    # the ranks built the same model from one seed; rank 0's makes sure
+    with torch.no_grad():
+        dist.broadcast_(list(model.state_dict().values()), tag='model_init')
 
     total_epochs = max_epochs or cfg.get('total_epochs', 1)
     steps_per_epoch = max(len(train_loader), 1)
@@ -152,8 +163,7 @@ def train_model(cfg, validate: bool = True, resume_from: Optional[str] = None,
         freeze_patterns=MOCO_FREEZE if is_moco else ())
 
     eval_fn = None
-    if val_loader is not None and not (cfg.get('evaluation') or {}).get(
-            'simple', False):
+    if val_loader is not None and not simple_eval:
         from .inference import make_eval_fn
         eval_fn = make_eval_fn(model)
 

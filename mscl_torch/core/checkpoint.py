@@ -17,6 +17,10 @@ step reads, as the JAX package's TrainState does:
 only tensors, numbers, strings and containers of them, so it loads with
 ``weights_only=True``. ``epoch_N.pth.meta.json`` repeats ``meta``; a file
 ``latest`` names the newest unprefixed checkpoint.
+
+In a process group (``parallel/dist.py``) the state is replicated, so rank
+0 alone writes, and every rank waits at a barrier until the write is done:
+a rank may then read what was written.
 """
 from __future__ import annotations
 
@@ -28,6 +32,8 @@ import os.path as osp
 from typing import Any, Dict, Optional
 
 import torch
+
+from ..parallel import dist
 
 FORMAT = 'mscl_torch.checkpoint.v1'
 
@@ -55,21 +61,26 @@ def train_state(model, optimizer=None) -> Dict[str, Any]:
     })
 
 
-def save_checkpoint(state: Dict[str, Any], work_dir: str, epoch: int,
-                    meta: Optional[Dict] = None, prefix: str = '') -> str:
+def save_checkpoint(state: Optional[Dict[str, Any]], work_dir: str,
+                    epoch: int, meta: Optional[Dict] = None,
+                    prefix: str = '') -> str:
     """prefix != '' writes an auxiliary checkpoint (the eval hook's
     ``best_<metric>_``, the preemption's ``preempt_``) that does not move
-    the 'latest' resume pointer."""
-    os.makedirs(work_dir, exist_ok=True)
+    the 'latest' resume pointer. In a process group only rank 0 writes
+    (the others may pass None for ``state``) and all return after the
+    write."""
     name = f'{prefix}epoch_{epoch}.pth'
     path = osp.join(work_dir, name)
-    meta = dict(meta or {}, epoch=epoch)
-    torch.save(dict(state, meta=meta), path)
-    with open(path + '.meta.json', 'w') as f:
-        json.dump(meta, f)
-    if not prefix:
-        with open(osp.join(work_dir, 'latest'), 'w') as f:
-            f.write(name)
+    if dist.is_main():
+        os.makedirs(work_dir, exist_ok=True)
+        meta = dict(meta or {}, epoch=epoch)
+        torch.save(dict(state, meta=meta), path)
+        with open(path + '.meta.json', 'w') as f:
+            json.dump(meta, f)
+        if not prefix:
+            with open(osp.join(work_dir, 'latest'), 'w') as f:
+                f.write(name)
+    dist.barrier()
     return path
 
 

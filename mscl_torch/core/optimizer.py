@@ -4,7 +4,10 @@ Port of ``mscl_tpu/core/optimizer.py`` ``build_optimizer``, SGD only:
 clip all gradients by their global L2 norm, add weight_decay * param, the
 momentum trace, then scale by the scheduled learning rate (torch SGD's
 order, which the optax chain reproduces). Parameters whose name contains a
-freeze pattern (the MoCo key towers) are left out.
+freeze pattern (the MoCo key towers) are left out. In a process group
+(``parallel/dist.py``) the gradients are first mean-all-reduced in flat
+float32 buckets, so the clip acts on the global batch's gradient, as in the
+JAX step.
 """
 from __future__ import annotations
 
@@ -12,6 +15,8 @@ from typing import Callable, Dict, Optional, Sequence
 
 import torch
 from torch import nn
+
+from ..parallel import dist
 
 
 class SGD:
@@ -62,6 +67,8 @@ class SGD:
         self.opt.load_state_dict(dict(saved, param_groups=groups))
 
     def step(self):
+        dist.all_reduce_grads_([p.grad for p in self.params
+                                if p.grad is not None])
         self.clip_grads()
         for group in self.opt.param_groups:
             group['lr'] = self.lr_schedule(self.steps)

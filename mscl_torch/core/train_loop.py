@@ -9,6 +9,15 @@ device aug's and dropout's generators, as it was, as the JAX step's caller
 discards its new state (validation by loss). Validation by metrics runs an
 ``eval_fn`` (``apis.inference.make_eval_fn``) and the val dataset's
 ``evaluate``.
+
+In a process group (``parallel/dist.py``) each rank steps on its rows of the
+global batch and the logged values are mean-all-reduced, so every rank logs
+the global batch's. Rank 0 alone writes ``log.json`` and the checkpoints
+(the others wait for each write); every rank prints its log lines with its
+``rank``; validation by metrics is evaluated on rank 0 and its metrics sent
+to every rank, so all decide ``save_best`` alike; a SIGTERM seen by any
+rank stops every rank after the same step, rank 0 writing the ``preempt_``
+checkpoint.
 """
 from __future__ import annotations
 
@@ -24,6 +33,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..parallel import dist
 from .checkpoint import (latest_checkpoint, load_checkpoint, load_meta,
                          restore_train_state, save_checkpoint, train_state)
 
@@ -58,9 +68,20 @@ def make_train_step(model: nn.Module, optimizer=None,
             model.load_state_dict(saved)
             for put_back, state in rngs:
                 put_back(state)
-        return {k: v.detach() for k, v in log_vars.items()}
+        return _mean_over_ranks({k: v.detach() for k, v in log_vars.items()})
 
     return train_step
+
+
+def _mean_over_ranks(log_vars: Dict[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+    """The ranks' mean of each logged value (float32), one collective; the
+    values as they are with no process group."""
+    if not dist.is_distributed():
+        return log_vars
+    vals = torch.stack([v.float() for v in log_vars.values()])
+    dist.all_reduce_([vals], 'mean', tag='log_vars')
+    return dict(zip(log_vars, vals.unbind()))
 
 
 def to_torch(batch: Dict, device) -> Dict:
@@ -137,11 +158,21 @@ class Runner:
                       isinstance(v, (int, float, np.generic)) else v)
                   for k, v in record.items()}
         line = json.dumps(record)
-        print(line, flush=True)
-        with open(self.log_file, 'a') as f:
-            f.write(line + '\n')
+        if dist.is_distributed():
+            print(json.dumps(dict(record, rank=dist.rank())), flush=True)
+        else:
+            print(line, flush=True)
+        if dist.is_main():
+            with open(self.log_file, 'a') as f:
+                f.write(line + '\n')
+
+    def _save(self, epoch: int, **kwargs) -> str:
+        """A checkpoint of the state, written by rank 0 only."""
+        return save_checkpoint(self.state() if dist.is_main() else None,
+                               self.work_dir, epoch, **kwargs)
 
     def resume(self, path: Optional[str] = None) -> None:
+        dist.barrier()              # rank 0's last write is on disk
         path = path or latest_checkpoint(self.work_dir)
         if path is None:
             return
@@ -163,13 +194,13 @@ class Runner:
                 self.epoch += 1
                 if self.ckpt_interval and \
                         self.epoch % self.ckpt_interval == 0:
-                    save_checkpoint(self.state(), self.work_dir, self.epoch)
+                    self._save(self.epoch)
                 if self.eval_interval and \
                         self.epoch % self.eval_interval == 0:
                     self.validate()
             # final checkpoint if not on an interval boundary
             if not self.ckpt_interval or self.epoch % self.ckpt_interval:
-                save_checkpoint(self.state(), self.work_dir, self.epoch)
+                self._save(self.epoch)
         finally:
             if previous is not None:
                 signal.signal(signal.SIGTERM, previous)
@@ -198,18 +229,24 @@ class Runner:
                                   iter=i + 1, total_iters=n_batches, lr=lr,
                                   time=time.time() - t_end,
                                   data_time=data_time, **log_vars))
-                if self._preempt_signum is not None:
+                signum = self._preempt_signum
+                if dist.is_distributed():   # every rank stops together
+                    signum = dist.all_reduce_max(signum or 0,
+                                                 tag='preempt') or None
+                if signum is not None:
                     # meta epoch = completed epochs, so resume re-runs the
                     # interrupted epoch; steps, queues and EMA are exact
-                    path = save_checkpoint(
-                        self.state(), self.work_dir, self.epoch,
-                        meta=dict(preempted=True, iter=i + 1),
-                        prefix='preempt_')
-                    with open(osp.join(self.work_dir, 'latest'), 'w') as f:
-                        f.write(osp.basename(path))
+                    path = self._save(self.epoch,
+                                      meta=dict(preempted=True, iter=i + 1),
+                                      prefix='preempt_')
+                    if dist.is_main():
+                        with open(osp.join(self.work_dir, 'latest'),
+                                  'w') as f:
+                            f.write(osp.basename(path))
                     self.log(dict(mode='preempt', epoch=self.epoch + 1,
                                   iter=i + 1, checkpoint=path))
-                    raise SystemExit(128 + int(self._preempt_signum))
+                    dist.barrier()      # no rank exits before rank 0's files
+                    raise SystemExit(128 + int(signum))
                 t_end = time.time()
         finally:
             it.close()  # stop the prefetch producer on an early exit
@@ -236,8 +273,9 @@ class Runner:
             self.log(dict(mode='val', epoch=self.epoch, **metrics))
         elif self.eval_fn is not None:
             results = self.eval_fn(self.val_loader)
-            metrics = self.val_dataset.evaluate(results,
-                                                metrics=self.eval_metrics)
+            metrics = dist.broadcast_object(
+                self.val_dataset.evaluate(results, metrics=self.eval_metrics)
+                if dist.is_main() else None)
             self.log(dict(mode='val', epoch=self.epoch, **metrics))
         if self.save_best and metrics and self.save_best in metrics:
             score = float(metrics[self.save_best])
@@ -246,12 +284,13 @@ class Runner:
                        else score < self.best_score))
             if better:
                 self.best_score = score
-                if self.best_ckpt_path and osp.exists(self.best_ckpt_path):
+                if dist.is_main() and self.best_ckpt_path and \
+                        osp.exists(self.best_ckpt_path):
                     os.remove(self.best_ckpt_path)
                     if osp.exists(self.best_ckpt_path + '.meta.json'):
                         os.remove(self.best_ckpt_path + '.meta.json')
-                self.best_ckpt_path = save_checkpoint(
-                    self.state(), self.work_dir, self.epoch,
+                self.best_ckpt_path = self._save(
+                    self.epoch,
                     prefix=f'best_{self.save_best}_'.replace('/', '_'))
                 self.log(dict(mode='val', epoch=self.epoch, best_score=score,
                               best_ckpt=self.best_ckpt_path))

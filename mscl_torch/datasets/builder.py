@@ -2,7 +2,8 @@
 
 Port of ``mscl_tpu/datasets/builder.py`` (reference mmaction
 datasets/builder.py): one loader assembles the global batch of
-``videos_per_gpu`` x the number of cards, here one card.
+``videos_per_gpu`` x the number of cards; in data-parallel training each
+rank's loader decodes its own rows of it (``datasets/loader.py``).
 """
 from __future__ import annotations
 
@@ -20,13 +21,16 @@ def build_dataset(cfg, default_args=None):
 
 def build_dataloader(dataset, videos_per_gpu, workers_per_gpu=0,
                      num_gpus=1, shuffle=True, seed=None, drop_last=False,
-                     prefetch=2, sampler=None, workers_mode='thread'):
+                     prefetch=2, sampler=None, workers_mode='thread',
+                     rank=0, pad_last=False):
     """A NumpyLoader over global batches of ``videos_per_gpu * num_gpus``
-    (the reference's lr-per-batch-size semantics)."""
+    (the reference's lr-per-batch-size semantics), rank ``rank``'s rows of
+    each when ``num_gpus`` > 1; ``pad_last`` tiles a short last batch."""
     from .loader import NumpyLoader
     if sampler:
         raise NotImplementedError(f'sampler {dict(sampler)} is not ported')
     return NumpyLoader(dataset, batch_size=videos_per_gpu * num_gpus,
                        shuffle=shuffle, seed=seed, drop_last=drop_last,
                        num_workers=workers_per_gpu, prefetch=prefetch,
-                       workers_mode=workers_mode)
+                       workers_mode=workers_mode, world=num_gpus, rank=rank,
+                       pad_last=pad_last)

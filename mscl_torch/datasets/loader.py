@@ -8,6 +8,22 @@ worker it decodes the samples of a batch on a thread each; with
 ``workers_mode='process'`` a pool of decode processes makes whole batches,
 ``workers + prefetch`` of them in flight. The order of an epoch is
 ``np.random.default_rng(seed + epoch)``'s permutation.
+
+Data parallel (``world`` > 1, one loader a rank): ``batch_size`` is the
+global batch and ``len`` counts global batches. Every rank draws the same
+order and decodes only its own rows of each global batch, rows
+``[rank * L, (rank + 1) * L)`` of ``L = batch_size / world``. A short last
+batch must divide over the ranks, unless ``pad_last``: then it is tiled to
+the full global batch (the JAX package's eval padding, at the index level),
+and the caller trims the gathered rows. Process workers take seeds
+``seed + rank * workers + worker_id``, distinct over the ranks.
+
+The JAX package's host decodes the whole global batch and the mesh shards
+it, so its host crop draws are one stream; here each rank's host draws its
+own rows' crops (thread workers from the rank's global numpy generator,
+process workers from their seeds), so they differ from one device's. The
+host data path is already what bounds an iteration, and decoding the whole
+global batch on every rank would multiply it by the world size.
 """
 from __future__ import annotations
 
@@ -117,6 +133,7 @@ class _ProcessPool:
 
     def __init__(self, dataset, num_workers: int, seed: int,
                  mp_context: str = 'fork'):
+        """Worker w reseeds with ``seed + w``."""
         from ..utils import image_io
         image_io._unfilter_lib()
         ctx = multiprocessing.get_context(mp_context)
@@ -196,8 +213,9 @@ class _EpochIterator:
             while next_emit < self.num_batches:
                 while (next_submit < self.num_batches and
                        next_submit - next_emit < max_out):
-                    inds = self.order[next_submit * self.batch_size:
-                                      (next_submit + 1) * self.batch_size]
+                    inds = self.loader.rank_indices(
+                        self.order[next_submit * self.batch_size:
+                                   (next_submit + 1) * self.batch_size])
                     pool.task_q.put((gen, next_submit,
                                      list(map(int, inds))))
                     next_submit += 1
@@ -219,8 +237,9 @@ class _EpochIterator:
             for b in range(self.num_batches):
                 if self._stop.is_set():
                     return
-                inds = self.order[b * self.batch_size:
-                                  (b + 1) * self.batch_size]
+                inds = self.loader.rank_indices(
+                    self.order[b * self.batch_size:
+                               (b + 1) * self.batch_size])
                 if self.loader.num_workers > 1:
                     samples = [None] * len(inds)
 
@@ -269,8 +288,12 @@ class NumpyLoader:
     def __init__(self, dataset, batch_size, shuffle=True, seed=None,
                  drop_last=False, num_workers=0, prefetch=2,
                  collate_fn=default_collate, workers_mode='thread',
-                 mp_context='fork'):
+                 mp_context='fork', world=1, rank=0, pad_last=False):
         assert workers_mode in ('thread', 'process'), workers_mode
+        if batch_size % world:
+            raise ValueError(f'a global batch of {batch_size} does not '
+                             f'divide over {world} ranks')
+        self.world, self.rank, self.pad_last = world, rank, pad_last
         self.workers_mode = workers_mode
         self.mp_context = mp_context
         self._pool: Optional[_ProcessPool] = None
@@ -286,9 +309,24 @@ class NumpyLoader:
 
     def _get_pool(self) -> _ProcessPool:
         if self._pool is None or not self._pool.workers:
-            self._pool = _ProcessPool(self.dataset, self.num_workers,
-                                      self.seed, self.mp_context)
+            self._pool = _ProcessPool(
+                self.dataset, self.num_workers,
+                self.seed + self.rank * self.num_workers, self.mp_context)
         return self._pool
+
+    def rank_indices(self, inds: np.ndarray) -> np.ndarray:
+        """This rank's rows of a global batch's dataset indices."""
+        if self.world == 1:
+            return inds
+        n = len(inds)
+        if n < self.batch_size and self.pad_last:
+            inds = np.tile(inds, -(-self.batch_size // n))[:self.batch_size]
+        elif n % self.world:
+            raise ValueError(f'a global batch of {n} does not divide over '
+                             f'{self.world} ranks (drop the last batch or '
+                             f'choose a dataset size the world divides)')
+        per = len(inds) // self.world
+        return inds[self.rank * per:(self.rank + 1) * per]
 
     def shutdown(self):
         """Stop the decode processes (a later epoch starts new ones)."""

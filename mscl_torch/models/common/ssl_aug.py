@@ -15,6 +15,13 @@ params)``; calling it does both. Draws are float32 and stay on the clip's
 device, and nothing here reads a value back to the host, so an augmentation
 never synchronises the host with the card.
 
+In a process group (``parallel/dist.py``) a rank holds its rows of the
+global batch. Calling an augmentation there draws the global batch's
+parameters (every rank's generator is seeded alike, so all draw the same
+values) and applies the rank's rows of them (``rank_rows_tree``: sample-major,
+so a per-frame draw of ``b*t`` entries gives the rank its samples' frames),
+which reproduces one device's draws exactly.
+
 dtype follows the JAX code: the jitter factors, the blur kernel and the
 normalize constants are cast to the clip's dtype before use, the contrast
 mean accumulates in float32, and the colour wheel computes in float32 and
@@ -24,12 +31,14 @@ from __future__ import annotations
 
 import functools
 import math
+from types import SimpleNamespace
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...parallel import dist
 from ..builder import SSL_AUGS
 from ...utils.flow_viz import make_colorwheel
 from .motion_map import MotionMapCalculator
@@ -309,14 +318,29 @@ def strong_aug(clips: torch.Tensor, params: Dict, crop_size) -> torch.Tensor:
 
 
 # ---------------------------------------------------------- aug classes
+def _global_clips(clips: Optional[torch.Tensor]):
+    """What a draw reads of a clip batch (its shape and device), with the
+    process group's global batch as the leading axis."""
+    if clips is None:
+        return None
+    return SimpleNamespace(
+        shape=torch.Size((clips.shape[0] * dist.world_size(),) +
+                         tuple(clips.shape[1:])), device=clips.device)
+
+
 class _DrawApply:
     """Calling an augmentation draws its params from ``gen`` and applies
-    them. Tests hand ``apply`` params drawn elsewhere (JAX's)."""
+    them (in a process group: the global batch's draws, the rank's rows).
+    Tests hand ``apply`` params drawn elsewhere (JAX's)."""
     visualize = False
 
     def __call__(self, gen, im_q, im_k=None, aux_info=None):
-        return self.apply(im_q, im_k, aux_info,
-                          self.draw(gen, im_q, im_k, aux_info))
+        if dist.is_distributed():
+            params = dist.rank_rows_tree(self.draw(
+                gen, _global_clips(im_q), _global_clips(im_k), aux_info))
+        else:
+            params = self.draw(gen, im_q, im_k, aux_info)
+        return self.apply(im_q, im_k, aux_info, params)
 
 
 @SSL_AUGS.register_module()

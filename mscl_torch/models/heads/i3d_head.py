@@ -8,7 +8,9 @@ initialised normal(0, ``init_std``) with a zero bias.
 
 Dropout draws its mask from the head's own ``torch.Generator``, made on the
 batch's device from ``dropout_seed`` at first use, not from the global
-generator: its state is saved in checkpoints (``dropout_state``) so a
+generator (in a process group: the global batch's mask, seeded alike on
+every rank, and the rank's rows of it, so n ranks drop what one device
+drops): its state is saved in checkpoints (``dropout_state``) so a
 resumed run draws the masks the uninterrupted run would. The mask keeps an
 element with probability 1 - p and scales it by 1 / (1 - p), as flax's
 Dropout does; its bits are not JAX's.
@@ -20,6 +22,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ...parallel import dist
 from .. import compute_dtype
 from ..builder import HEADS
 from .base import BaseHead
@@ -73,8 +76,10 @@ class I3DHead(BaseHead):
         p = self.dropout_ratio
         if not self.training or p == 0:
             return x
-        u = torch.rand(x.shape, generator=self.dropout_generator(x.device),
-                       device=x.device, dtype=torch.float32)
+        shape = (x.shape[0] * dist.world_size(),) + tuple(x.shape[1:])
+        u = dist.rank_rows(torch.rand(
+            shape, generator=self.dropout_generator(x.device),
+            device=x.device, dtype=torch.float32))
         return torch.where(u >= p, x / (1 - p), torch.zeros_like(x))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -6,6 +6,12 @@ non-ignored samples, and 0, not NaN, when every sample is ignored, as the
 JAX function returns) and ``CrossEntropyLoss`` (hard or soft labels, by
 the label's shape, with an optional class weight; the classification
 heads' default).
+
+In a process group (``parallel/dist.py``) a hard-label loss is the global
+batch's: its denominator (the non-ignored count, or the class weights'
+sum) can differ across ranks, so it is all-reduced, and a rank's loss is
+world x (its numerator) / (the global denominator). The mean of the ranks'
+losses, and of their gradients, is then the global batch's.
 """
 from __future__ import annotations
 
@@ -14,7 +20,19 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ...parallel import dist
 from ..builder import LOSSES
+
+
+def _ratio(num: torch.Tensor, den: torch.Tensor, least: float
+           ) -> torch.Tensor:
+    """num / max(den, least) on one device; in a process group the
+    global batch's share of this rank's numerator (see above)."""
+    if not dist.is_distributed():
+        return num / den.clamp(min=least)
+    den = den.detach().float().clone()
+    dist.all_reduce_([den], tag='loss_denominator')
+    return num * dist.world_size() / den.clamp(min=least).to(num.dtype)
 
 
 def cross_entropy(cls_score: torch.Tensor, label: torch.Tensor,
@@ -27,8 +45,8 @@ def cross_entropy(cls_score: torch.Tensor, label: torch.Tensor,
     nll = F.cross_entropy(cls_score, safe, reduction='none')
     if class_weight is not None:
         w = class_weight.to(nll)[safe] * valid
-        return (nll * w).sum() / w.sum().clamp(min=1e-12)
-    return (nll * valid).sum() / valid.sum().clamp(min=1)
+        return _ratio((nll * w).sum(), w.sum(), 1e-12)
+    return _ratio((nll * valid).sum(), valid.sum(), 1)
 
 
 def soft_cross_entropy(cls_score: torch.Tensor, label: torch.Tensor,

@@ -20,6 +20,12 @@ Port of ``mscl_tpu/models/recognizers/moco.py``:
     (under jit, XLA drops it from the reference too). ``neck_k`` keeps its
     parameters for the EMA and the weight converter.
 
+In a process group (``parallel/dist.py``) each rank holds its rows of the
+global batch: its q against the replicated queue, the keys of every rank
+gathered in rank order for the enqueue (as the JAX step's global batch holds
+them), and ``iters`` advanced by the global batch, so the queue state stays
+the same on every rank.
+
 The enqueue is out of place: each one makes a new queue tensor. The
 negative products of this pass, and the cross-modal head later in the step,
 hold the pre-enqueue queue through autograd and through the returned
@@ -36,6 +42,7 @@ from torch import nn
 from .. import compute_dtype
 from ..builder import RECOGNIZERS, build_backbone, build_head, build_neck
 from ...ops.decayed_infonce import decay_weights, decayed_neg
+from ...parallel import dist
 
 Q2K_PAIRS = (('encoder_q', 'encoder_k'), ('neck_q', 'neck_k'),
              ('mlp_q', 'mlp_k'))
@@ -147,6 +154,8 @@ class MoCoV2(nn.Module):
 
     @torch.no_grad()
     def _enqueue(self, k: torch.Tensor):
+        """k: this rank's keys; every rank's are enqueued, in rank order."""
+        k = dist.all_gather_rows(k, tag='moco_keys')
         b = k.shape[0]
         if self.K % b:
             raise ValueError(f'K={self.K} % global batch={b} != 0')
@@ -179,7 +188,7 @@ class MoCoV2(nn.Module):
         if update_queue:
             self._enqueue(k)
         if self.training:
-            self.iters = self.iters + k.shape[0]
+            self.iters = self.iters + k.shape[0] * dist.world_size()
         losses = self.moco_head.loss(logits, labels)
         return losses, dict(q=q, q_mlvl=q_mlvl, k=k, q_neg=l_neg,
                             bank=bank)

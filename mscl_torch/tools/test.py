@@ -1,8 +1,10 @@
-"""Evaluate a checkpoint on a config's test set, on one card.
+"""Evaluate a checkpoint on a config's test set, data-parallel over the
+cards.
 
     python -m mscl_torch.tools.test CONFIG CHECKPOINT
         [--metrics top_k_accuracy mean_class_accuracy ...] [--out JSON]
         [--cfg-options key=value ...] [--device cuda|cpu]
+        [--num-devices N] [--coordinator ...]
 
 Port of ``tools/test.py`` (reference mmaction tools/test.py): build the
 test set (``data.test``, test mode) and its loader, the model from the
@@ -10,8 +12,10 @@ config with the checkpoint's weights (the port's ``epoch_N.pth`` or a
 reference ``.pth``), each video's scores, then ``dataset.evaluate``. Prints
 the metrics as JSON (and writes them to ``--out``). The loader decodes on
 the config's ``workers_per_gpu`` threads: the test pipeline draws nothing,
-so the scores do not depend on them. ``--num-devices`` is refused: the
-port tests on one card.
+so the scores do not depend on them. The multi-device flags are the JAX
+tool's (``parallel/launch.py``): each rank scores its rows of each global
+batch, the scores come back in dataset order on every rank, and rank 0
+evaluates, prints and writes them.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import json
 from typing import Optional, Sequence
 
 from ..config import Config, DictAction
+from ..parallel import dist, launch
 
 
 def parse_args(argv: Optional[Sequence[str]] = None):
@@ -29,20 +34,19 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     parser.add_argument('--metrics', nargs='+',
                         default=['top_k_accuracy', 'mean_class_accuracy'])
     parser.add_argument('--out', help='output result json')
-    parser.add_argument('--num-devices', type=int, default=None)
+    launch.add_arguments(parser)
     parser.add_argument('--cfg-options', nargs='+', action=DictAction,
                         default={})
     parser.add_argument('--device', default='cuda',
                         help="'cuda' (the default) or 'cpu'")
     args = parser.parse_args(argv)
-    if args.num_devices is not None:
-        parser.error('--num-devices is not supported: the port tests on one '
-                     'card')
+    launch.check(parser, args)
     return args
 
 
 def build_test_loader(cfg, split: str):
-    """The split's dataset in test mode and an in-order loader over it."""
+    """The split's dataset in test mode and an in-order loader over it (the
+    rank's rows of each global batch, the last one padded)."""
     from ..apis.train import _plain
     from ..datasets import build_dataloader, build_dataset
     ds_cfg = _plain(cfg.data[split])
@@ -50,12 +54,18 @@ def build_test_loader(cfg, split: str):
     dataset = build_dataset(ds_cfg)
     loader = build_dataloader(
         dataset, videos_per_gpu=cfg.data['videos_per_gpu'],
-        workers_per_gpu=cfg.data.get('workers_per_gpu', 0), shuffle=False)
+        workers_per_gpu=cfg.data.get('workers_per_gpu', 0), shuffle=False,
+        num_gpus=dist.world_size(), rank=dist.rank(), pad_last=True)
     return dataset, loader
 
 
 def main(argv: Optional[Sequence[str]] = None):
+    """Returns the metrics."""
     args = parse_args(argv)
+    return launch.run(_test, args, args)
+
+
+def _test(args):
     cfg = Config.fromfile(args.config)
     if args.cfg_options:
         cfg.merge_from_dict(args.cfg_options)
@@ -67,13 +77,15 @@ def main(argv: Optional[Sequence[str]] = None):
         results = run_test(model, loader)
     finally:
         loader.shutdown()
-    metrics = {k: float(v) for k, v in
-               dataset.evaluate(results, metrics=args.metrics).items()}
-    print(json.dumps(metrics, indent=2))
-    if args.out:
-        with open(args.out, 'w') as f:
-            json.dump(metrics, f)
-    return metrics
+    metrics = None
+    if dist.is_main():
+        metrics = {k: float(v) for k, v in
+                   dataset.evaluate(results, metrics=args.metrics).items()}
+        print(json.dumps(metrics, indent=2))
+        if args.out:
+            with open(args.out, 'w') as f:
+                json.dump(metrics, f)
+    return dist.broadcast_object(metrics)
 
 
 if __name__ == '__main__':

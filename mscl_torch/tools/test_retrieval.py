@@ -1,8 +1,9 @@
 """Video retrieval: kNN Recall@{1,5,10,20,50} over pooled encoder
-features, on one card.
+features, data-parallel over the cards.
 
     python -m mscl_torch.tools.test_retrieval CONFIG [CHECKPOINT] [--ssl]
         [--out JSON] [--cfg-options key=value ...] [--device cuda|cpu]
+        [--num-devices N] [--coordinator ...]
 
 Port of ``tools/test_retrieval.py`` (reference tools/test_retrival.py):
 the train and test sets (``data.train`` and ``data.test``, or ``data.val``)
@@ -10,7 +11,10 @@ in test mode, each video's pooled feature (``extract_features_pooled``),
 then ``retrieval_recall``. ``--ssl`` takes the weights from the config's
 ``model.train_cfg.ssl_pretrain`` surgery instead of CHECKPOINT (reference
 :147-148). Prints the recalls as JSON (and writes them to ``--out``).
-``--num-devices`` is refused: the port runs on one card.
+The multi-device flags are the JAX tool's (``parallel/launch.py``): each
+rank extracts its rows of each global batch, the features come back in
+dataset order on every rank, and rank 0 computes the recalls, prints and
+writes them.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import json
 from typing import Optional, Sequence
 
 from ..config import Config, DictAction
+from ..parallel import dist, launch
 
 
 def parse_args(argv: Optional[Sequence[str]] = None):
@@ -29,20 +34,23 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                         help='init from the config ssl_pretrain surgery '
                              'instead of --checkpoint')
     parser.add_argument('--out', help='output result json')
-    parser.add_argument('--num-devices', type=int, default=None)
+    launch.add_arguments(parser)
     parser.add_argument('--cfg-options', nargs='+', action=DictAction,
                         default={})
     parser.add_argument('--device', default='cuda',
                         help="'cuda' (the default) or 'cpu'")
     args = parser.parse_args(argv)
-    if args.num_devices is not None:
-        parser.error('--num-devices is not supported: the port runs on one '
-                     'card')
+    launch.check(parser, args)
     return args
 
 
 def main(argv: Optional[Sequence[str]] = None):
+    """Returns the recalls."""
     args = parse_args(argv)
+    return launch.run(_retrieval, args, args)
+
+
+def _retrieval(args):
     cfg = Config.fromfile(args.config)
     if args.cfg_options:
         cfg.merge_from_dict(args.cfg_options)
@@ -67,13 +75,16 @@ def main(argv: Optional[Sequence[str]] = None):
         finally:
             loader.shutdown()
     (train_feats, train_labels), (test_feats, test_labels) = feats.values()
-    metrics = retrieval_recall(train_feats, train_labels, test_feats,
-                               test_labels, device=args.device)
-    print(json.dumps(metrics, indent=2))
-    if args.out:
-        with open(args.out, 'w') as f:
-            json.dump(metrics, f)
-    return metrics
+    metrics = None
+    if dist.is_main():
+        metrics = retrieval_recall(train_feats, train_labels, test_feats,
+                                   test_labels,
+                                   device=next(model.parameters()).device)
+        print(json.dumps(metrics, indent=2))
+        if args.out:
+            with open(args.out, 'w') as f:
+                json.dump(metrics, f)
+    return dist.broadcast_object(metrics)
 
 
 if __name__ == '__main__':

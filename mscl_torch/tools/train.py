@@ -1,15 +1,19 @@
-"""Train a recognizer from a config file on one card.
+"""Train a recognizer from a config file, data-parallel over the cards.
 
     python -m mscl_torch.tools.train CONFIG [--work-dir DIR]
         [--resume-from CKPT] [--validate] [--seed N] [--max-epochs N]
         [--cfg-options key=value ...] [--device cuda|cpu]
+        [--num-devices N] [--coordinator HOST:PORT --num-hosts H
+         --host-id I]
+    torchrun --nproc-per-node N -m mscl_torch.tools.train CONFIG ...
 
 Port of ``tools/train.py`` (reference mmaction tools/train.py:79-196): load
 the config, merge ``--cfg-options``, dump the merged config into the work
-dir, then ``train_model``. It runs on the card; ``--device cpu`` runs it on
-the CPU. The flags of the JAX tool's multi-device and multi-host runs
-(``--num-devices``, ``--coordinator``, ``--num-hosts``, ``--host-id``) are
-refused: data-parallel training is not ported.
+dir (rank 0), then ``train_model`` on every rank. It runs on the card;
+``--device cpu`` runs it on the CPU. The multi-device flags are the JAX
+tool's (``parallel/launch.py``): by default one rank a visible card, the
+global batch ``videos_per_gpu`` x the ranks; one card runs with no process
+group.
 """
 from __future__ import annotations
 
@@ -19,8 +23,7 @@ import os.path as osp
 from typing import Optional, Sequence
 
 from ..config import Config, DictAction
-
-_NOT_PORTED = ('num_devices', 'coordinator', 'num_hosts', 'host_id')
+from ..parallel import dist, launch
 
 
 def parse_args(argv: Optional[Sequence[str]] = None):
@@ -36,26 +39,25 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                         help='accepted for CLI parity')
     parser.add_argument('--max-epochs', type=int, default=None,
                         help='override total_epochs (smoke runs)')
-    parser.add_argument('--num-devices', type=int, default=None)
-    parser.add_argument('--coordinator', default=None)
-    parser.add_argument('--num-hosts', type=int, default=None)
-    parser.add_argument('--host-id', type=int, default=None)
+    launch.add_arguments(parser)
     parser.add_argument('--cfg-options', nargs='+', action=DictAction,
                         default={},
                         help='override config entries key=value')
     parser.add_argument('--device', default='cuda',
                         help="'cuda' (the default) or 'cpu'")
     args = parser.parse_args(argv)
-    for name in _NOT_PORTED:
-        if getattr(args, name) is not None:
-            parser.error(f'--{name.replace("_", "-")} is not supported: the '
-                         f'port trains on one card (data-parallel training '
-                         f'is not ported)')
+    launch.check(parser, args)
     return args
 
 
 def main(argv: Optional[Sequence[str]] = None):
+    """Returns train_model's (runner, model) with one rank and no process
+    group, else None."""
     args = parse_args(argv)
+    return launch.run(_train, args, args)
+
+
+def _train(args):
     cfg = Config.fromfile(args.config)
     if args.cfg_options:
         cfg.merge_from_dict(args.cfg_options)
@@ -64,13 +66,15 @@ def main(argv: Optional[Sequence[str]] = None):
     elif cfg.get('work_dir') is None:
         cfg.work_dir = osp.join(
             './work_dirs', osp.splitext(osp.basename(args.config))[0])
-    os.makedirs(cfg.work_dir, exist_ok=True)
-    cfg.dump(osp.join(cfg.work_dir, osp.basename(args.config)))
+    if dist.is_main():
+        os.makedirs(cfg.work_dir, exist_ok=True)
+        cfg.dump(osp.join(cfg.work_dir, osp.basename(args.config)))
 
     from ..apis.train import train_model
-    return train_model(cfg, validate=args.validate,
-                       resume_from=args.resume_from, seed=args.seed,
-                       max_epochs=args.max_epochs, device=args.device)
+    out = train_model(cfg, validate=args.validate,
+                      resume_from=args.resume_from, seed=args.seed,
+                      max_epochs=args.max_epochs, device=args.device)
+    return None if dist.is_distributed() else out
 
 
 if __name__ == '__main__':

@@ -317,3 +317,51 @@ def test_retrieval_cli_matches_jax(data, tmp_path, xla3d_conv):
     got = retrieval_cli.main([cfg_py, '--ssl', '--device', 'cpu'])
     assert got == json.load(open(tmp_path / 'jax.json'))
     assert got['recall@1'] == 1.0
+
+
+def _dp_cli_config(data, path):
+    """_cli_config's data with a narrow r3d_18 (a registered backbone, so a
+    spawned rank builds it) and 3 videos a card: at 2 ranks the last
+    global batch (2 of 6) is padded and trimmed."""
+    cfg = ft_cfg(data, 'unused')
+    ds = dict(type='FileRawframeDataset', pkl_path=data['pkl'],
+              pipeline=cfg['data']['test']['pipeline'])
+    model = dict(type='Recognizer3D',
+                 backbone=dict(type='torchvision.r3d_18',
+                               layers=(1, 1, 1, 1), base_width=4),
+                 cls_head=dict(type='I3DHead', num_classes=2, in_channels=32,
+                               dropout_ratio=0.0))
+    with open(path, 'w') as f:
+        f.write(f'model = {model!r}\n'
+                f'data = dict(videos_per_gpu=3, workers_per_gpu=0, '
+                f'train={ds!r}, test={ds!r})\n')
+    ckpt = str(path) + '.pth'
+    torch.save({'state_dict': build_model_from_cfg(
+        model, device='cpu', seed=7).state_dict()}, ckpt)
+    return str(path), ckpt
+
+
+def test_test_cli_on_two_ranks(data, tmp_path):
+    """--num-devices 2 with --device cpu: two gloo ranks, each scoring its
+    rows; the metrics rank 0 writes are one device's."""
+    cfg_py, ckpt = _dp_cli_config(data, tmp_path / 'cfg.py')
+    metrics = ['--metrics', 'top_k_accuracy', 'mean_class_accuracy']
+    want = test_cli.main([cfg_py, ckpt, *metrics, '--device', 'cpu'])
+    got = test_cli.main([cfg_py, ckpt, *metrics, '--device', 'cpu',
+                         '--num-devices', '2', '--out',
+                         str(tmp_path / 'two.json')])
+    assert got == want == json.load(open(tmp_path / 'two.json'))
+    with pytest.raises(SystemExit) as e:
+        test_cli.parse_args([cfg_py, ckpt, '--num-devices', '0'])
+    assert e.value.code == 2
+
+
+def test_retrieval_cli_on_two_ranks(data, tmp_path):
+    cfg_py, ckpt = _dp_cli_config(data, tmp_path / 'cfg.py')
+    want = retrieval_cli.main([cfg_py, ckpt, '--device', 'cpu'])
+    got = retrieval_cli.main([cfg_py, ckpt, '--device', 'cpu',
+                              '--num-devices', '2'])
+    assert got == want and want['recall@1'] == 1.0
+    with pytest.raises(SystemExit) as e:
+        retrieval_cli.parse_args([cfg_py, '--num-devices', '0'])
+    assert e.value.code == 2

@@ -54,7 +54,9 @@ def test_port_imports_no_jax_and_no_mscl_tpu():
         ' "mscl_torch.apis.inference", "mscl_torch.core.evaluation.accuracy",'
         ' "mscl_torch.core.evaluation.visualizer",'
         ' "mscl_torch.models.heads.i3d_head",'
-        ' "mscl_torch.models.recognizers.recognizer3d"}'
+        ' "mscl_torch.models.recognizers.recognizer3d",'
+        ' "mscl_torch.parallel", "mscl_torch.parallel.dist",'
+        ' "mscl_torch.parallel.launch"}'
         ' <= set(sys.modules)\n')
     out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
@@ -86,6 +88,23 @@ def test_train_cli_needs_the_card_unless_told(tmp_path):
     assert out.returncode != 0
     assert "pass device='cpu'" in out.stderr
     assert not (tmp_path / 'log.json').exists()
+
+
+def test_ranks_need_the_card_unless_told(tmp_path):
+    """A rank takes a card unless told otherwise, and the CLI's ranks
+    (NCCL's one a card) need cards: none falls back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip('this box has a CUDA device')
+    from mscl_torch.parallel import dist
+    from mscl_torch.tools import train as train_cli
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dist.init_distributed(init_method='tcp://127.0.0.1:1', world=1,
+                              rank_=0)
+    assert not dist.is_distributed()
+    with pytest.raises(SystemExit, match='visible cards'):
+        train_cli.main([FLAGSHIP_CONFIG, '--num-devices', '2',
+                        '--work-dir', str(tmp_path)])
+    assert not list(tmp_path.iterdir())
 
 
 @pytest.mark.parametrize('tool', ['test', 'test_retrieval'])

@@ -236,7 +236,22 @@ def test_cli_trains_on_the_cpu(pkl, tmp_path):
     assert all(np.isfinite(r['loss']) for r in log)
     assert osp.exists(osp.join(work, 'epoch_1.pth'))
     assert osp.exists(osp.join(work, 'tiny.py'))
-    bad = subprocess.run(cmd + ['--num-devices', '2'], cwd=ROOT,
+    # two gloo ranks on the CPU: a global batch of 8, so one train step
+    work2 = str(tmp_path / 'work2')
+    two = subprocess.run(cmd + ['--num-devices', '2', '--work-dir', work2],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=600, env=env)
+    assert two.returncode == 0, two.stderr[-3000:]
+    lines = [json.loads(x) for x in two.stdout.splitlines()
+             if x.startswith('{"mode"')]
+    by_rank = [[(r['mode'], r['loss']) for r in lines if r['rank'] == k]
+               for k in (0, 1)]
+    assert [m for m, _ in by_rank[0]] == ['train', 'val']
+    assert by_rank[0] == by_rank[1]
+    log2 = [json.loads(x) for x in open(osp.join(work2, 'log.json'))]
+    assert [(r['mode'], r['loss']) for r in log2] == by_rank[0]
+    assert osp.exists(osp.join(work2, 'epoch_1.pth'))
+    bad = subprocess.run(cmd + ['--num-devices', '0'], cwd=ROOT,
                          capture_output=True, text=True, timeout=300,
                          env=env)
-    assert bad.returncode == 2 and 'data-parallel' in bad.stderr
+    assert bad.returncode == 2 and 'at least 1' in bad.stderr
