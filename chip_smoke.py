@@ -5,7 +5,9 @@
 Run from the root of a checkout. Phases, in order; any failure raises and
 the exit code is nonzero:
 
-1. build every kernel under mscl_torch/csrc with nvcc (sm_90a), in parallel;
+1. build every kernel under mscl_torch/csrc with nvcc (sm_90a), in parallel,
+   and every host source there (png_unfilter.c, jpeg_decode.c,
+   lz4codec.cpp) with the host C or C++ compiler;
 2. hold the decayed-InfoNCE kernels against their plain PyTorch versions and
    float64 at the flagship shapes (B=32, C=128, K=65536, float32) and time
    them in turns with the one PyTorch call that computes the same product
@@ -129,12 +131,30 @@ the exit code is nonzero:
    mscl_torch.tools.test_retrieval --ssl`` on the pretrain checkpoint's
    encoder, as configured and with the train split set to the test split,
    where recall@1 must be 1; features/s;
-14. print the kernel table, the card's name and power limit, and the
+14. readme_jpeg: the README's chain from JPEG frames, with neither cv2 nor
+   msgpack on the machine: the C JPEG decoder on every committed fixture
+   (tests/fixtures_torch/jpeg) at reduce 1 and 2 against the digests of
+   cv2's decode, the native LZ4 codec and the C decoder loaded (no
+   fallback), one frame's decode ms and the np4 codec's MB/s; then 8
+   videos of 250 img_{:05}.jpg entries over the committed frames through
+   ``python -m mscl_torch.apis.flow_extraction`` (RAFT from seeded random
+   weights, 128x171, gap 2, adjacent 8: 121 flows a video), ``python -m
+   mscl_torch.tools.generate_mcl_samples`` (motion_map), the training CLI
+   on the flagship config (1 epoch of 8 steps from the JPEGs at the
+   decode plan's reduce, the .np4 flows and chosen_idx) and on the
+   fine-tune config from its checkpoint (1 epoch of 8 steps). It fails
+   unless the digests match, the lookup launches 12 times a RAFT forward
+   and decayed InfoNCE 7 + 7 times a train step (none in fine-tuning),
+   every chosen_idx is non-empty and inside its flow timeline, MDS read
+   the bytes extraction wrote, some frames took the half-scale decode and
+   every loss is finite. It logs extraction pairs/s, MDS videos/s and
+   each training run's steady window;
+15. print the kernel table, the card's name and power limit, and the
    result. Each phase's seconds are logged (phase_seconds).
 
 Every kernel launch counter is set to 0 just before each of the paths 7
 (each dtype), 8, 9 (each of its two runs), 10, 10b (in each rank, before
-its steps and before each CLI run), 11-13 (each CLI run; the
+its steps and before each CLI run), 11-14 (each CLI run; the
 fine-tune, test and retrieval paths must launch no decayed-InfoNCE
 kernel: r3d_18 goes to cuDNN) and the probe tool's run in 4, and read
 just after. The kernel table's decayed-InfoNCE launches are the pretrain
@@ -167,6 +187,7 @@ import torch.nn.functional as F
 from mscl_torch.apis import (FLAGSHIP_AUG, MOCO_FREEZE, build_model_from_cfg,
                              flagship_batch, load_flagship_config,
                              narrow_flagship_cfg, to_torch)
+from mscl_torch.apis import flow_extraction as extraction_cli
 from mscl_torch.apis.flow_extraction import make_raft_fn
 from mscl_torch.config import Config
 from mscl_torch.apis import FLAGSHIP_CONFIG
@@ -184,7 +205,8 @@ from mscl_torch.tools import bench_mxu_fill as bm
 from mscl_torch.tools import test as test_cli
 from mscl_torch.tools import test_retrieval as retrieval_cli
 from mscl_torch.tools import train as train_cli
-from mscl_torch.utils import image_io
+from mscl_torch.tools import generate_mcl_samples as mds_cli
+from mscl_torch.utils import image_io, jpeg, np4
 
 B, C, K = 32, 128, 65536
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
@@ -257,6 +279,17 @@ FT_CONFIG = 'configs/recognition/ssl_test/test_ssv2_r18.py'
 FT_VIDEOS, FT_VAL_VIDEOS, FT_REPEAT, FT_FRAMES = 64, 32, 4, 24
 FT_FRAME_HW, FT_CLASSES = (240, 320), 174
 FT_FEATURES = 512                  # r3d_18's last stage, 64 wide
+# readme_jpeg: the README's chain from JPEG frames on the card's machine
+# (no cv2, no msgpack there): RJ_VIDEOS videos of CLI_LIST img_{:05}.jpg
+# entries cycling over the committed 256x340 frames, extraction at the
+# README's 128x171 (gap 2, adjacent 8: 121 flows a video), MDS, then the
+# flagship config and the fine-tune config each for 1 epoch of RJ_STEPS
+# steps at their batch of 32 (the videos listed RJ_REPEAT times), so each
+# has pretrain_cli's steady window (steps 3..5)
+JPEG_FIXTURES = osp.join(osp.dirname(osp.abspath(__file__)), 'tests',
+                         'fixtures_torch', 'jpeg')
+RJ_VIDEOS, RJ_REPEAT, RJ_STEPS = 8, 32, 8
+RJ_DECODE_ITERS = 50
 # pretrain_dp: the flagship step on one global batch of DP_BATCH at world 2
 # (two gloo ranks sharing the card) and at world 1 under NCCL, against
 # world 1 with no process group, DP_STEPS steps; then the pretrain CLI at
@@ -2174,6 +2207,252 @@ def phase_retrieval_cli(root, pkls, pretrain_ckpt):
     log(phase='retrieval_cli', **out)
 
 
+def jpeg_decoder_check(root):
+    """Every committed JPEG fixture through the C decoder at reduce 1 and
+    2, held bitwise against the digests of cv2's decode (written by
+    tests/_torch_jpeg_util.py; this machine has no cv2); then the host ms
+    to decode one 256x340 frame at each reduce, and the same image as PNG
+    (the C row unfilter, libpng's adaptive filters)."""
+    with open(osp.join(JPEG_FIXTURES, 'digests.json')) as f:
+        digests = json.load(f)
+    bad = []
+    for name, want in sorted(digests.items()):
+        buf = np.fromfile(osp.join(JPEG_FIXTURES, name), np.uint8)
+        for reduce in (1, 2):
+            img = jpeg.decode_jpeg(buf, reduce, name)
+            got = dict(shape=list(img.shape),
+                       sha256=hashlib.sha256(img).hexdigest())
+            if got != want[str(reduce)]:
+                bad.append((name, reduce))
+    if bad:
+        raise AssertionError(f'the C JPEG decoder differs from cv2 on {bad}')
+    buf = np.fromfile(osp.join(JPEG_FIXTURES, 'frame_00.jpg'), np.uint8)
+    ms = {}
+    for reduce in (1, 2):
+        jpeg.decode_jpeg(buf, reduce)
+        t0 = time.perf_counter()
+        for _ in range(RJ_DECODE_ITERS):
+            jpeg.decode_jpeg(buf, reduce)
+        ms[f'reduce{reduce}_ms'] = (time.perf_counter() - t0) / \
+            RJ_DECODE_ITERS * 1e3
+    png_path = osp.join(root, 'frame_00.png')
+    write_png(png_path, jpeg.decode_jpeg(buf))
+    with open(png_path, 'rb') as f:
+        png = f.read()
+    image_io.decode_png(png)
+    t0 = time.perf_counter()
+    for _ in range(RJ_DECODE_ITERS):
+        image_io.decode_png(png)
+    ms['png_same_image_ms'] = (time.perf_counter() - t0) / \
+        RJ_DECODE_ITERS * 1e3
+    return dict(fixtures=len(digests), frame_hw=list(CLI_FRAME_HW),
+                jpeg_bytes=int(buf.size), png_bytes=len(png), **ms)
+
+
+def write_jpeg_videos(root):
+    """RJ_VIDEOS directories of CLI_LIST img_{:05}.jpg entries, video v's
+    entry i a copy of committed frame (i + 3 v) % 16; a labels file."""
+    frames = sorted(n for n in os.listdir(JPEG_FIXTURES)
+                    if n.startswith('frame_'))
+    for v in range(RJ_VIDEOS):
+        vdir = osp.join(root, 'frames', f'video_{v:03d}')
+        os.makedirs(vdir)
+        for i in range(CLI_LIST):
+            shutil.copyfile(osp.join(JPEG_FIXTURES,
+                                     frames[(i + 3 * v) % len(frames)]),
+                            osp.join(vdir, f'img_{i:05d}.jpg'))
+    labels = osp.join(root, 'labels.txt')
+    with open(labels, 'w') as f:
+        f.writelines(f'video_{v:03d} {v}\n' for v in range(RJ_VIDEOS))
+    return osp.join(root, 'frames'), labels
+
+
+class _Counted:
+    """Patch ``module.name`` with a wrapper that hands each call's
+    arguments and result to ``seen`` (thread-safe); ``restore`` undoes
+    it."""
+
+    def __init__(self, module, name, seen):
+        import threading
+        self.module, self.name = module, name
+        self.real, lock = getattr(module, name), threading.Lock()
+
+        def wrapper(*args, **kwargs):
+            out = self.real(*args, **kwargs)
+            with lock:
+                seen(args, kwargs, out)
+            return out
+        setattr(module, name, wrapper)
+
+    def restore(self):
+        setattr(self.module, self.name, self.real)
+
+
+def phase_readme_jpeg(root):
+    """The README's chain from JPEG frames to a fine-tuned model, through
+    the CLIs, on the card, with neither cv2 nor msgpack: the fixtures'
+    digests through the C decoder and the native LZ4 codec loaded; a
+    Kinetics-shaped set of JPEG frames; ``flow_extraction`` (RAFT from
+    seeded random weights, 128x171, gap 2, adjacent 8); the MDS tool
+    (motion_map); the flagship config for 1 epoch of RJ_STEPS steps from
+    the JPEG frames (at MoCoDecodePlan's reduce), the .np4 flows and the
+    MDS chosen_idx; the fine-tune config from its checkpoint for 1 epoch
+    on the same frames. Fails unless the digests match, the codecs are
+    native, the lookup launches 12 times a RAFT forward and decayed
+    InfoNCE 7 + 7 times a train step, every chosen_idx is non-empty and
+    inside its flow timeline, MDS read the bytes extraction wrote, and
+    every loss is finite."""
+    t_phase = time.perf_counter()
+    root = osp.join(root, 'readme_jpeg')
+    os.makedirs(root)
+    decode = jpeg_decoder_check(root)
+    if np4._native() is None or jpeg._lib() is None:
+        raise AssertionError('the native LZ4 codec or the C JPEG decoder '
+                             'is not loaded')
+    t0 = time.perf_counter()
+    frames_root, labels = write_jpeg_videos(root)
+    write_s = time.perf_counter() - t0
+
+    # extraction: RAFT forwards counted and timed, the blobs' digests kept
+    forwards, written = [], []
+    real_make = extraction_cli.make_raft_fn
+
+    def make_counted(*args, **kwargs):
+        raft_fn = real_make(*args, **kwargs)
+
+        def counted(img1, img2):
+            t0 = time.perf_counter()
+            out = raft_fn(img1, img2)
+            forwards.append(time.perf_counter() - t0)
+            return out
+        return counted
+    extraction_cli.make_raft_fn = make_counted
+    encode = _Counted(extraction_cli, 'np4_encode', lambda a, k, out:
+                      written.append(hashlib.sha256(out).hexdigest()))
+    annos_pkl = osp.join(root, 'annos.pkl')
+    try:
+        _, _, extract_s = cli_run(extraction_cli.main, [
+            frames_root, osp.join(root, 'flows'), '--anno-out', annos_pkl,
+            '--labels', labels, '--scale-hw', *map(str, CLI_FLOW_HW),
+            '--gap', '2', '--adjacent', '8'])
+        corr_launches = cl.corr_lookup.launches
+    finally:
+        extraction_cli.make_raft_fn = real_make
+        encode.restore()
+    with open(annos_pkl, 'rb') as f:
+        annos = pickle.load(f)
+    n_flows = len(extraction_cli.window_indices(CLI_LIST, 2, 8))
+    pairs = RJ_VIDEOS * n_flows
+    if [len(a['enc_flows']) for a in annos] != [n_flows] * RJ_VIDEOS or \
+            len(written) != pairs or \
+            corr_launches != RAFT_ITERS * len(forwards) or \
+            len(forwards) != RJ_VIDEOS * -(-n_flows // EXTRACT_PAIRS):
+        raise AssertionError(f'{len(annos)} videos, {len(written)} blobs, '
+                             f'{len(forwards)} RAFT forwards, '
+                             f'{corr_launches} lookup launches')
+    paths = [p for a in annos for p in a['enc_flows']]
+    flow = np4.np4_decode(open(paths[0], 'rb').read())
+    if flow.shape != CLI_FLOW_HW + (2,) or flow.dtype != np.float32 or \
+            not all(np.isfinite(np4.np4_decode(open(p, 'rb').read())).all()
+                    for p in paths[::40]):
+        raise AssertionError(f'flow blob {flow.shape} {flow.dtype}')
+    blob = np4.np4_encode(flow)
+    codec_s = {}
+    for name, fn, arg in (('encode', np4.np4_encode, flow),
+                          ('decode', np4.np4_decode, blob)):
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fn(arg)
+        codec_s[name] = (time.perf_counter() - t0) / 20
+
+    # MDS: the bytes each flow read had
+    read = {}
+
+    def seen_read(args, kwargs, out):
+        with open(args[0], 'rb') as f:
+            read[args[0]] = hashlib.sha256(f.read()).hexdigest()
+    load = _Counted(mds_cli, 'load_flow', seen_read)
+    mds_pkl = osp.join(root, 'mds.pkl')
+    try:
+        t0 = time.perf_counter()
+        mds = mds_cli.main([annos_pkl, mds_pkl, '--weight-type',
+                            'motion_map'])
+        mds_s = time.perf_counter() - t0
+    finally:
+        load.restore()
+    if read != dict(zip(paths, written)):
+        raise AssertionError('MDS read other bytes than extraction wrote')
+    bad = [m['video_name'] for m in mds if not m['chosen_idx'] or not all(
+        0 <= i < len(m['enc_flows']) for i in m['chosen_idx'])]
+    if bad:
+        raise AssertionError(f'chosen_idx empty or off the flow timeline '
+                             f'in {bad}')
+
+    # pretraining on the flagship config, then fine-tuning from it
+    decodes = {1: 0, 2: 0}
+    count = _Counted(image_io, 'decode_jpeg', lambda a, k, out:
+                     decodes.__setitem__(a[1], decodes[a[1]] + 1))
+    runs = {}
+    try:
+        for name, config, entries, extra in (
+                ('pretrain', FLAGSHIP_CONFIG, mds, []),
+                ('finetune', FT_CONFIG,
+                 [dict(frames=a['frames'], label=a['label']) for a in annos],
+                 [f'model.train_cfg.ssl_pretrain.pretrained.filename='
+                  f'{osp.join(root, "pretrain", "epoch_1.pth")}'])):
+            pkl = osp.join(root, f'{name}.pkl')
+            with open(pkl, 'wb') as f:
+                pickle.dump(entries * RJ_REPEAT, f)
+            work = osp.join(root, name)
+            _, launches, run_s = cli_run(train_cli.main, [
+                config, '--seed', '0', '--cfg-options',
+                f'data.train.pkl_path={pkl}', 'total_epochs=1',
+                'checkpoint_config.interval=1', 'log_config.interval=1',
+                f'work_dir={work}', *extra])
+            records = [r for r in read_log(work) if r['mode'] == 'train']
+            runs[name] = dict(
+                steps=len(records), run_s=run_s, launches=launches,
+                step_s=[r['time'] for r in records],
+                data_time_s=[r['data_time'] for r in records],
+                losses=[r['loss'] for r in records],
+                checkpoint=osp.exists(osp.join(work, 'epoch_1.pth')))
+            if len(records) == RJ_STEPS:
+                runs[name].update(steady_window(records, RJ_STEPS, CLI_TAIL))
+            if name == 'pretrain':
+                runs[name]['jpeg_decodes_by_reduce'] = dict(decodes)
+            torch.cuda.empty_cache()
+    finally:
+        count.restore()
+    for name, run in runs.items():
+        want = dict(l_neg=7 * RJ_STEPS, dq=7 * RJ_STEPS) \
+            if name == 'pretrain' else dict(l_neg=0, dq=0)
+        if run['steps'] != RJ_STEPS or run['launches'] != want or \
+                not run['checkpoint'] or \
+                not all(math.isfinite(v) for v in run['losses']):
+            raise AssertionError(f'{name}: {run}; want {RJ_STEPS} steps, '
+                                 f'launches {want}')
+    if not runs['pretrain']['jpeg_decodes_by_reduce'][2]:
+        raise AssertionError('no frame took the half-scale decode')
+    steady = forwards[1:]
+    log(phase='jpeg_decode', **decode)
+    log(phase='np4_codec', flow_shape=list(flow.shape),
+        raw_bytes=flow.nbytes, blob_bytes=len(blob),
+        encode_mb_per_s=flow.nbytes / codec_s['encode'] / 1e6,
+        decode_mb_per_s=flow.nbytes / codec_s['decode'] / 1e6,
+        native=True)
+    log(phase='readme_jpeg', videos=RJ_VIDEOS, frame_entries=CLI_LIST,
+        frame_hw=list(CLI_FRAME_HW), flow_hw=list(CLI_FLOW_HW),
+        data_write_s=write_s, extraction=dict(
+            pairs=pairs, run_s=extract_s, pairs_per_s=pairs / extract_s,
+            raft_forwards=len(forwards), corr_lookup_launches=corr_launches,
+            forward_s_steady=sum(steady) / len(steady),
+            blob_bytes=sum(osp.getsize(p) for p in paths)),
+        mds=dict(videos=len(mds), run_s=mds_s, videos_per_s=len(mds) / mds_s,
+                 flows_read=len(read),
+                 chosen=[len(m['chosen_idx']) for m in mds]),
+        **runs, phase_s=time.perf_counter() - t_phase)
+
+
 def phase_recognizer3d_card_vs_cpu():
     """Two train steps of a narrow Recognizer3D (r3d_18 8 wide, I3DHead 10
     classes, dropout 0) on the card and on the CPU from the same weights
@@ -2277,10 +2556,12 @@ def main():
 
     t0 = time.perf_counter()
     cuda_build.build(cuda_build.all_sources())
-    if cuda_build.load_host('png_unfilter') is None:
-        raise RuntimeError('no host C compiler for csrc/png_unfilter.c')
+    for name in cuda_build.host_sources():
+        if cuda_build.load_host(name.rsplit('.', 1)[0]) is None:
+            raise RuntimeError(f'no host compiler for csrc/{name}')
     log(phase='build', sources=cuda_build.all_sources(),
-        host_sources=['png_unfilter'], seconds=time.perf_counter() - t0)
+        host_sources=cuda_build.host_sources(),
+        seconds=time.perf_counter() - t0)
 
     rows = run('kernels', phase_kernels, dev)
     corr = run('corr_lookup', phase_corr_lookup, dev)
@@ -2306,6 +2587,7 @@ def main():
         run('test_cli', phase_test_cli, ft_pkls, ft_work)
         run('retrieval_cli', phase_retrieval_cli, root, ft_pkls,
             pretrain_ckpt)
+        run('readme_jpeg', phase_readme_jpeg, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(phase='phase_seconds', total=sum(seconds.values()), **seconds)

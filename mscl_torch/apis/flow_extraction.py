@@ -9,6 +9,9 @@ Port of ``tools/misc/flow_extraction.py`` for ``--method raft``:
 Same flags, plus ``--device`` (default: the card). Each video directory of
 FRAMES_ROOT gives flow pairs (i, i + adjacent) every ``gap`` frames, run in
 batches through RAFT and written as ``FLOW_OUT/<video>/flow_XXXXX.np4``.
+Frames (JPEG or PNG) are read and resized without cv2 and the blobs
+written without msgpack (``utils/image_io``, ``utils/np4``), so the CLI
+runs where neither is installed.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 from ..flow.raft import build_raft
+from ..utils.image_io import imread_rgb, imresize
 from ..utils.np4 import np4_encode
 from .train import resolve_device
 
@@ -116,11 +120,11 @@ def main(argv=None):
     flow_fn = make_raft_fn(args.raft_weights, args.iters, args.device)
 
     def load(path):
-        import cv2
-        img = cv2.cvtColor(cv2.imread(path, cv2.IMREAD_COLOR),
-                           cv2.COLOR_BGR2RGB)
+        # cv2.imread + cv2.resize (INTER_LINEAR) of the JAX CLI, bit for bit
+        img = imread_rgb(path)
         if args.scale_hw:
-            img = cv2.resize(img, (args.scale_hw[1], args.scale_hw[0]))
+            img = imresize(img, (args.scale_hw[1], args.scale_hw[0]),
+                           'bilinear')
         return img
 
     videos = list_videos(args.frames_root)

@@ -5,8 +5,8 @@ config's pipelines run: the clip-offset samplers and ``SampleFrames``
 (reference mmaction loading.py:83-270), ``LocalDecode`` (the reference's
 NoriDecode, loading.py:1812-1914, re-targeted at the local filesystem;
 ``NoriDecode`` is an alias) and ``ArrayDecode``. Frames are decoded by
-``mscl_torch.utils.image_io`` (PNG without cv2; JPEG through cv2, imported
-at the call); flows are ``.npy`` or ``.np4`` (msgpack imported at the call).
+``mscl_torch.utils.image_io`` (PNG and JPEG without cv2); flows are ``.npy``
+or ``.np4`` (``mscl_torch.utils.np4``, without msgpack).
 """
 from __future__ import annotations
 

@@ -5,8 +5,9 @@ Each ``csrc/<name>.cu`` exposes a plain C interface. It is compiled by
 checkout (the hash is of the source, so an edited source rebuilds) and
 loaded with ``ctypes``; ptxas's report of each kernel's registers, shared
 memory and spills goes to ``build/<name>-<hash>.log``. Host helpers,
-``csrc/<name>.c``, are compiled the same way by the host C compiler
-(``load_host``). Nothing is compiled or loaded at import time.
+``csrc/<name>.c`` and ``csrc/<name>.cpp``, are compiled the same way by the
+host C or C++ compiler (``load_host``). Nothing is compiled or loaded at
+import time.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / 'build'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 CC_FLAGS = ('-std=c99', '-O3', '-shared', '-fPIC')
+CXX_FLAGS = ('-std=c++17', '-O3', '-shared', '-fPIC')
 _HOST_LOCK = threading.Lock()
 
 
@@ -105,7 +107,14 @@ def ptxas_report(name: str) -> Dict[str, dict]:
 
 
 def all_sources() -> list:
+    """The CUDA sources, by name (``build`` compiles them with nvcc)."""
     return sorted(p.stem for p in CSRC.glob('*.cu'))
+
+
+def host_sources() -> list:
+    """The host sources, ``csrc/<name>.c`` and ``.cpp``, by file name."""
+    return sorted(p.name for p in CSRC.iterdir()
+                  if p.suffix in ('.c', '.cpp'))
 
 
 @functools.lru_cache(maxsize=None)
@@ -114,39 +123,58 @@ def load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(build([name])[name]))
 
 
-def host_cc() -> Optional[str]:
-    """The host C compiler: ``$CC``, else ``cc``, ``gcc`` or ``clang`` on
-    the PATH; None if there is none."""
-    for name in (os.environ.get('CC'), 'cc', 'gcc', 'clang'):
+def _first_on_path(*names) -> Optional[str]:
+    for name in names:
         path = name and shutil.which(name)
         if path:
             return path
     return None
 
 
+def host_cc() -> Optional[str]:
+    """The host C compiler: ``$CC``, else ``cc``, ``gcc`` or ``clang`` on
+    the PATH; None if there is none."""
+    return _first_on_path(os.environ.get('CC'), 'cc', 'gcc', 'clang')
+
+
+def host_cxx() -> Optional[str]:
+    """The host C++ compiler: ``$CXX``, else ``c++``, ``g++`` or ``clang++``
+    on the PATH; None if there is none."""
+    return _first_on_path(os.environ.get('CXX'), 'c++', 'g++', 'clang++')
+
+
+def host_source(name: str) -> Path:
+    """``csrc/<name>.c`` or, failing that, ``csrc/<name>.cpp``."""
+    src = CSRC / f'{name}.c'
+    return src if src.exists() else CSRC / f'{name}.cpp'
+
+
 @functools.lru_cache(maxsize=None)
 def _load_host(name: str) -> Optional[ctypes.CDLL]:
-    cc = host_cc()
-    if cc is None:
+    src = host_source(name)
+    cpp = src.suffix == '.cpp'
+    compiler = host_cxx() if cpp else host_cc()
+    if compiler is None:
         return None
-    src = CSRC / f'{name}.c'
     digest = hashlib.sha1(src.read_bytes()).hexdigest()
     out = BUILD_DIR / f'{name}-{digest[:12]}.so'
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f'.{os.getpid()}.tmp')
-        proc = subprocess.run([cc, *CC_FLAGS, '-o', str(tmp), str(src)],
+        flags = CXX_FLAGS if cpp else CC_FLAGS
+        proc = subprocess.run([compiler, *flags, '-o', str(tmp), str(src)],
                               capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f'{cc} failed for {src.name}:\n'
+            raise RuntimeError(f'{compiler} failed for {src.name}:\n'
                                f'{proc.stdout}{proc.stderr}')
         os.replace(tmp, out)
     return ctypes.CDLL(str(out))
 
 
 def load_host(name: str) -> Optional[ctypes.CDLL]:
-    """Build ``csrc/<name>.c`` with the host C compiler if needed and load
-    it (once per process, whichever thread asks first); None when the
-    machine has no C compiler."""
+    """Build ``csrc/<name>.c`` with the host C compiler, or
+    ``csrc/<name>.cpp`` with the host C++ compiler, if needed and load it
+    (once per process, whichever thread asks first); None when the machine
+    has no such compiler."""
     with _HOST_LOCK:
         return _load_host(name)

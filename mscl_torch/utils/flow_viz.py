@@ -1,7 +1,8 @@
 """Optical-flow colour-wheel visualisation (numpy, host side).
 
-A copy of ``mscl_tpu/utils/flow_viz.py`` ``make_colorwheel`` and
-``flow_uv_to_colors``: the Middlebury / Baker et al. flow colour coding of
+A copy of ``mscl_tpu/utils/flow_viz.py`` ``make_colorwheel``,
+``flow_uv_to_colors`` and ``flow_to_image`` (the MDS tool's ``rgb_map``
+weight reads it): the Middlebury / Baker et al. flow colour coding of
 RAFT's ``flow_viz``. The device version is
 ``mscl_torch.models.common.ssl_aug.flow_uv_to_colors``; both read this wheel.
 """
@@ -67,3 +68,25 @@ def flow_uv_to_colors(u: np.ndarray, v: np.ndarray,
         ch_idx = 2 - i if convert_to_bgr else i
         flow_image[:, :, ch_idx] = np.floor(255 * col)
     return flow_image
+
+
+def flow_to_image(flow_uv: np.ndarray, clip_flow=None,
+                  convert_to_bgr: bool = False) -> np.ndarray:
+    """Full flow->image: normalize by max radius, then colorize.
+
+    Args:
+        flow_uv: (H, W, 2) float flow.
+    Returns:
+        (H, W, 3) uint8 image.
+    """
+    assert flow_uv.ndim == 3 and flow_uv.shape[2] == 2
+    if clip_flow is not None:
+        flow_uv = np.clip(flow_uv, 0, clip_flow)
+    u = flow_uv[:, :, 0]
+    v = flow_uv[:, :, 1]
+    rad = np.sqrt(np.square(u) + np.square(v))
+    rad_max = np.max(rad)
+    epsilon = 1e-5
+    u = u / (rad_max + epsilon)
+    v = v / (rad_max + epsilon)
+    return flow_uv_to_colors(u, v, convert_to_bgr)

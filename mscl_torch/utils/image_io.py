@@ -12,15 +12,19 @@ the standard library and numpy:
   where there is no C compiler: Sub and Up rows fast, Avg and Paeth one
   anti-diagonal of pixels at a time). At ``reduce=2`` it halves it as
   ``IMREAD_REDUCED_COLOR_2`` does for a file that is not JPEG: a full decode,
-  then OpenCV's bit-exact linear resize to ``(w // 2, h // 2)``. JPEG and
-  every other file go through cv2, imported at the call: its half-scale
-  JPEG decode works in the DCT domain.
+  then OpenCV's bit-exact linear resize to ``(w // 2, h // 2)``. JPEG goes to
+  ``utils/jpeg.py`` (``csrc/jpeg_decode.c``, libjpeg-turbo's arithmetic; at
+  ``reduce=2`` in the DCT domain, to ``ceil(w / 2) x ceil(h / 2)``). Every
+  other file goes through cv2, imported at the call.
 - ``imresize`` with 'bilinear' is ``cv2.resize(..., INTER_LINEAR)``: for
   uint8 the 11-bit fixed-point taps of OpenCV's row pass and the rounding of
   its vectorised column pass (``(((S0 >> 4) * b0) >> 16) + (((S1 >> 4) * b1)
   >> 16) + 2 >> 2``), bit for bit; for float32 the same taps in float32.
   An exact 2x reduction, which OpenCV hands to its area resize, gives the
-  same uint8 values by this formula.
+  same uint8 values by this formula; in float32 it is the area resize's
+  mean of 4. OpenCV hands a one-channel float32
+  image whose sides are both at least 2 to Intel IPP (ippicv), which
+  interpolates otherwise (``_resize_linear_ipp``); so does the port.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 from ..ops import cuda_build
+from .jpeg import decode_jpeg
 
 _PNG_SIGNATURE = b'\x89PNG\r\n\x1a\n'
 _PNG_CHANNELS = {0: 1, 2: 3, 6: 4}          # colour type -> samples a pixel
@@ -241,6 +246,8 @@ def imread_rgb(path, reduce: int = 1) -> np.ndarray:
     buf = np.fromfile(path, np.uint8)
     if buf.size == 0:
         raise FileNotFoundError(f'failed to read image: {path}')
+    if buf[:2].tobytes() == b'\xff\xd8':
+        return decode_jpeg(buf, reduce, path)
     img = decode_png(buf.tobytes()) if buf[:8].tobytes() == \
         _PNG_SIGNATURE else None
     if img is None:
@@ -259,6 +266,11 @@ def _linear_taps(ssize: int, dsize: int):
 
 def _resize_linear(img: np.ndarray, new_w: int, new_h: int) -> np.ndarray:
     h, w = img.shape[:2]
+    if img.dtype != np.uint8 and (h, w) == (2 * new_h, 2 * new_w):
+        # OpenCV's fast area resize, which takes an exact 2x reduction
+        s = img.reshape((new_h, 2, new_w, 2) + img.shape[2:])
+        return (s[:, 0, :, 0] + s[:, 0, :, 1] + s[:, 1, :, 0] +
+                s[:, 1, :, 1]) * np.float32(0.25)
     ch = int(np.prod(img.shape[2:], dtype=np.int64))
     xi, fx = _linear_taps(w, new_w)
     edge = (xi < 0) | (xi >= w - 1)                 # the row pass clamps x
@@ -289,11 +301,40 @@ def _resize_linear(img: np.ndarray, new_w: int, new_h: int) -> np.ndarray:
     return out.reshape((new_h, new_w) + img.shape[2:])
 
 
+def _resize_linear_ipp(img: np.ndarray, new_w: int, new_h: int
+                       ) -> np.ndarray:
+    """``cv2.resize(INTER_LINEAR)`` of a one-channel float32 image as
+    OpenCV runs it through IPP: the source positions in float64, their
+    fractions rounded to float32, rows then columns, each ``a + (b - a) *
+    t`` with one rounding (a fused multiply-add; exact in float64, then
+    rounded to float32)."""
+    def taps(ssize, dsize):
+        f = (np.arange(dsize) + 0.5) * (ssize / dsize) - 0.5
+        i = np.floor(f).astype(np.int64)
+        t = np.where((i < 0) | (i >= ssize - 1), 0.0,
+                     (f - i).astype(np.float32).astype(np.float64))
+        i = np.clip(i, 0, ssize - 1)
+        return i, np.minimum(i + 1, ssize - 1), t
+
+    def lerp(a, b, t):
+        return (a + (b - a).astype(np.float32) * t).astype(np.float32)
+
+    x0, x1, fx = taps(img.shape[1], new_w)
+    y0, y1, fy = taps(img.shape[0], new_h)
+    src = img.reshape(img.shape[:2])
+    rows = lerp(src[:, x0], src[:, x1], fx)
+    out = lerp(rows[y0], rows[y1], fy[:, None])
+    return out.reshape((new_h, new_w) + img.shape[2:])
+
+
 def imresize(img: np.ndarray, size_wh, interpolation: str = 'bilinear'
              ) -> np.ndarray:
     """``cv2.resize`` to (w, h) (mmcv.imresize semantics). 'bilinear' on
     uint8 or float32 is the port's own; anything else goes through cv2."""
     new_w, new_h = int(size_wh[0]), int(size_wh[1])
+    if interpolation == 'bilinear' and img.dtype == np.float32 and \
+            img.shape[2:] in ((), (1,)) and min(img.shape[:2]) >= 2:
+        return _resize_linear_ipp(img, new_w, new_h)
     if interpolation == 'bilinear' and img.dtype in (np.uint8, np.float32):
         return _resize_linear(img, new_w, new_h)
     cv2 = _cv2(f'imresize({img.dtype}, {interpolation!r})')

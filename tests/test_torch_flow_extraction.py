@@ -121,3 +121,53 @@ def test_main_writes_what_the_jax_cli_writes(jfe, tmp_path, monkeypatch,
                 flow = jnp4.np4_decode(f.read())
             assert flow.shape == (36, 52, 2) and flow.dtype == np.float32
             assert np.isfinite(flow).all()
+
+
+def _pixel_flow_fn(weights_path, iters=12, device=None):
+    """A stand-in for RAFT that both CLIs can run: a float32 flow made from
+    the pixels of each pair, so the blobs match only where the frames were
+    read and resized alike."""
+    def flow_fn(a, b):
+        a, b = a.astype(np.float32), b.astype(np.float32)
+        return np.stack([a[..., 0] - b[..., 1] * 0.5,
+                         (a[..., 2] + b[..., 0]) / 7], -1)
+    return flow_fn
+
+
+@pytest.mark.parametrize('scale_hw', [None, ('36', '52'), ('57', '83')])
+def test_main_writes_the_jax_clis_blob_bytes(jfe, tmp_path, monkeypatch,
+                                             capsys, scale_hw):
+    """On JPEG frames the port's CLI (its own JPEG decoder and resize, no
+    cv2) writes the annotations and the very blob bytes the JAX CLI (cv2's
+    imread and resize) writes, given the same flow function."""
+    frames = tmp_path / 'frames'
+    labels = _frames(frames)
+    common = ['--labels', str(labels), '--gap', '3', '--adjacent', '2',
+              '--batch-size', '4']
+    if scale_hw:
+        common += ['--scale-hw', *scale_hw]
+    monkeypatch.setattr(tfe, 'make_raft_fn', _pixel_flow_fn)
+    monkeypatch.setattr(jfe, 'make_raft_fn', _pixel_flow_fn)
+    tfe.main([str(frames), str(tmp_path / 'out_t'), '--anno-out',
+              str(tmp_path / 't.pkl'), *common])
+    monkeypatch.setattr(sys, 'argv', [
+        'flow_extraction.py', str(frames), str(tmp_path / 'out_j'),
+        '--anno-out', str(tmp_path / 'j.pkl'), *common])
+    jfe.main()
+    capsys.readouterr()
+    with open(tmp_path / 't.pkl', 'rb') as f:
+        ours = pickle.load(f)
+    with open(tmp_path / 'j.pkl', 'rb') as f:
+        theirs = pickle.load(f)
+    assert len(ours) == len(theirs) == 3
+    blobs = 0
+    for a, b in zip(ours, theirs):
+        assert sorted(a) == sorted(b)
+        assert (a['frames'], a['label'], a['video_name']) == \
+            (b['frames'], b['label'], b['video_name'])
+        assert len(a['enc_flows']) == len(b['enc_flows'])
+        for pa, pb in zip(a['enc_flows'], b['enc_flows']):
+            with open(pa, 'rb') as fa, open(pb, 'rb') as fb:
+                assert fa.read() == fb.read(), pa
+            blobs += 1
+    assert blobs == 2 * 3 + 1                  # 11, 11 and 4 frames

@@ -150,13 +150,19 @@ def test_png_not_taken_goes_to_cv2(tmp_path):
 
 
 def test_jpeg_through_cv2_and_its_error_without_it(tmp_path, monkeypatch):
+    """JPEG equals cv2's decode and, since the port's own decoder took it
+    over (``tests/test_torch_jpeg.py``), needs no cv2; a file that is
+    neither PNG nor JPEG still goes to cv2 and says so without it."""
     img = np.random.default_rng(1).integers(0, 256, (40, 54, 3)).astype(
         np.uint8)
     path = str(tmp_path / 'f.jpg')
     cv2.imwrite(path, img)
+    bmp = str(tmp_path / 'f.bmp')
+    cv2.imwrite(bmp, img)
     assert read_image_shape(path) == (40, 54)
     np.testing.assert_array_equal(imread_rgb(path), _cv2_rgb(path))
     np.testing.assert_array_equal(imread_rgb(path, 2), _cv2_rgb(path, 2))
+    want = imread_rgb(path), imread_rgb(path, 2)
     import builtins
     real_import = builtins.__import__
 
@@ -165,8 +171,10 @@ def test_jpeg_through_cv2_and_its_error_without_it(tmp_path, monkeypatch):
             raise ImportError('no cv2')
         return real_import(name, *args, **kwargs)
     monkeypatch.setattr(builtins, '__import__', no_cv2)
-    with pytest.raises(ImportError, match='f.jpg needs OpenCV'):
-        imread_rgb(path)
+    np.testing.assert_array_equal(imread_rgb(path), want[0])
+    np.testing.assert_array_equal(imread_rgb(path, 2), want[1])
+    with pytest.raises(ImportError, match='f.bmp needs OpenCV'):
+        imread_rgb(bmp)
     png = str(tmp_path / 'f.png')
     (tmp_path / 'f.png').write_bytes(_png(img, 4))
     assert read_image_shape(png) == (40, 54)
@@ -254,6 +262,24 @@ def test_imresize_float32_every_flow_crop():
         differ += int(got.tobytes() != want.tobytes())
     assert worst <= 1e-6, worst
     assert differ == 0, differ
+
+
+@pytest.mark.parametrize('shape', [(4, 6), (4, 6, 1), (1, 9), (9, 1),
+                                   (2, 2), (60, 87), (60, 87, 2)])
+def test_imresize_float32_as_cv2s_default(shape):
+    """cv2.resize's float32 INTER_LINEAR as it runs by default: a
+    one-channel image with both sides of 2 or more through Intel IPP (the
+    MDS attention map's upsampling), the rest through OpenCV's own code,
+    an exact 2x reduction through its area resize; bitwise."""
+    rng = np.random.default_rng(len(shape) * 100 + shape[0])
+    src = (rng.normal(size=shape) * 3).astype(np.float32)
+    h, w = shape[:2]
+    for size in [(87, 60), (171, 128), (5, 3), (1, 1), (w, h), (w * 2, h),
+                 (max(w // 2, 1), max(h // 2, 1)), (17, 1), (1, 13)]:
+        want = cv2.resize(src, size, interpolation=cv2.INTER_LINEAR)
+        got = imresize(src, size)
+        assert got.dtype == np.float32
+        assert got.tobytes() == want.tobytes(), (shape, size)
 
 
 def test_reduce_half_is_opencvs_exact_linear():

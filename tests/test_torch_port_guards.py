@@ -1,6 +1,6 @@
 """Guards on the PyTorch port: it imports neither JAX nor mscl_tpu (nor cv2
-or msgpack, which only the functions that read frames and pack blobs import),
-runs on the card unless told otherwise (its models, flow extraction,
+or msgpack; the README's data prep and training path needs neither), runs
+on the card unless told otherwise (its models, flow extraction,
 train_model, the training, test and retrieval CLIs, the recognizer loader
 and retrieval's product), never falls back from a kernel to its plain
 version on a CUDA tensor, refuses what it cannot read (a JAX ``.ckpt``, a
@@ -56,12 +56,69 @@ def test_port_imports_no_jax_and_no_mscl_tpu():
         ' "mscl_torch.models.heads.i3d_head",'
         ' "mscl_torch.models.recognizers.recognizer3d",'
         ' "mscl_torch.parallel", "mscl_torch.parallel.dist",'
-        ' "mscl_torch.parallel.launch"}'
+        ' "mscl_torch.parallel.launch", "mscl_torch.utils.jpeg",'
+        ' "mscl_torch.utils.np4", "mscl_torch.tools.generate_mcl_samples"}'
         ' <= set(sys.modules)\n')
     out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[-1]) >= 20
+
+
+def test_readme_data_prep_needs_neither_cv2_nor_msgpack(tmp_path):
+    """The README's chain as the card's machine runs it, where cv2 and
+    msgpack are not installed (both blocked in a subprocess), at tiny
+    sizes on the CPU: JPEG frames -> the extraction CLI -> the MDS CLI ->
+    the flagship's train pipeline reading one batch from JPEG frames,
+    .np4 flows and the MDS chosen_idx."""
+    import cv2
+    import numpy as np
+    rng = np.random.default_rng(0)
+    base = rng.integers(0, 256, (64, 84, 3), dtype=np.uint8)
+    for v in range(2):
+        os.makedirs(tmp_path / 'frames' / f'video_{v}')
+        for i in range(24):
+            cv2.imwrite(str(tmp_path / 'frames' / f'video_{v}' /
+                            f'img_{i:05d}.jpg'),
+                        base[i % 16:i % 16 + 48, (i + v) % 20:
+                             (i + v) % 20 + 64])
+    code = f"""
+import copy, pickle, sys
+sys.modules['cv2'] = sys.modules['msgpack'] = None
+import numpy as np, torch
+torch.set_num_threads(1)
+from mscl_torch.apis import flow_extraction
+from mscl_torch.tools import generate_mcl_samples
+from mscl_torch.config import Config
+from mscl_torch.apis import FLAGSHIP_CONFIG
+from mscl_torch.datasets import build_dataset, loader
+root = {str(tmp_path)!r}
+flow_extraction.main([root + '/frames', root + '/flows', '--anno-out',
+                      root + '/annos.pkl', '--scale-hw', '24', '32',
+                      '--iters', '1', '--batch-size', '8', '--device',
+                      'cpu'])
+out = generate_mcl_samples.main([root + '/annos.pkl', root + '/mds.pkl',
+                                 '--weight-type', 'motion_map'])
+assert [len(m['enc_flows']) for m in out] == [8, 8], out
+assert all(0 < len(m['chosen_idx']) < 8 for m in out), out
+pipeline = Config.fromfile(FLAGSHIP_CONFIG).to_dict()['train_pipeline']
+for t in pipeline:
+    if t['type'] in ('MoCoDecodePlan', 'MoCoResize'):
+        t['target' if t['type'] == 'MoCoDecodePlan' else 'scale'] = (16, 16)
+ds = build_dataset(dict(type='FileRawframeDataset', pkl_path=root +
+                        '/mds.pkl', pipeline=pipeline,
+                        extra_keys=['nids_flow', 'chosen_idx']))
+batch = next(iter(loader.NumpyLoader(ds, 2, seed=0)))
+assert [x.shape for x in batch['imgs']] == [(2, 3, 8, 16, 16)] * 2
+assert [x.shape for x in batch['flow_imgs']] == [(2, 2, 16, 16, 16)] * 2
+assert all(np.isfinite(x).all() for x in batch['flow_imgs'])
+assert sys.modules['cv2'] is None and sys.modules['msgpack'] is None
+print('ok')
+"""
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.split()[-1] == 'ok'
 
 
 def test_build_model_needs_the_card_unless_told():
