@@ -14,6 +14,8 @@ the exit code is nonzero:
    (kernel, library, library, kernel), then their plain versions, and one
    plain read of the queue as the floor of their bytes; log each kernel's
    device time in one profiled call, their ptxas report and launch shape;
+   the same checks and times at the other pretrain configs' batches, B=8
+   and 16 (kernel_batch lines);
 3. hold the correlation-lookup kernel against its plain version and float64
    at the flow-extraction shape (N=8, 16x22: 128x171 frames padded to
    128x176, at 1/8) and at RAFT's 440x1024 (N=1, 55x128), C=256, L=4, r=4,
@@ -149,12 +151,28 @@ the exit code is nonzero:
    the bytes extraction wrote, some frames took the half-scale decode and
    every loss is finite. It logs extraction pairs/s, MDS videos/s and
    each training run's steady window;
-15. print the kernel table, the card's name and power limit, and the
+15. pretrain_configs: every config of configs/recognition/moco (MSCL r18,
+   the flagship, as a control; MSCL r50; MoCo r18 with MoCoAugmentV2, with
+   SyncMoCoAugmentV2 at 'params' and at 'batch'; MoCo r50): its own model
+   from the file at full width, float32, K=65536, 3 train steps on a
+   synthetic batch of its shapes (its batch of 32, 16 or 8, 112 or 224
+   crops, 8 frames, the flows for MSCL, its aug), then one profiled; it
+   fails unless every loss is finite, the queues and iters advance as the
+   model implies and the decayed-InfoNCE launches are 7 + 7 (MSCL) or 1 + 1
+   (MoCo) a step. Then card against CPU (as 6) for MoCo with each of its
+   three augs and for MSCL with r50 towers, narrowed; then the training CLI
+   in thread mode over pretrain_cli's set on mscl_r50 (1 epoch of 8 steps
+   and a resume for a second, whose loaded state must equal the saved one
+   and whose first step's logged values must equal, bitwise, those the
+   saving run's model gives on the same batch) and on moco_r18_lr3e-2 (1
+   epoch of 8 steps), with launches, queues and the steady window as in 9;
+16. print the kernel table, the card's name and power limit, and the
    result. Each phase's seconds are logged (phase_seconds).
 
 Every kernel launch counter is set to 0 just before each of the paths 7
 (each dtype), 8, 9 (each of its two runs), 10, 10b (in each rank, before
-its steps and before each CLI run), 11-14 (each CLI run; the
+its steps and before each CLI run), 15 (each config's steps and each CLI
+run), 11-14 (each CLI run; the
 fine-tune, test and retrieval paths must launch no decayed-InfoNCE
 kernel: r3d_18 goes to cuDNN) and the probe tool's run in 4, and read
 just after. The kernel table's decayed-InfoNCE launches are the pretrain
@@ -209,6 +227,9 @@ from mscl_torch.tools import generate_mcl_samples as mds_cli
 from mscl_torch.utils import image_io, jpeg, np4
 
 B, C, K = 32, 128, 65536
+# the decayed-InfoNCE batches of the other pretrain configs: 8 (mscl_r50,
+# moco_r50), 16 (moco_r18)
+KERNEL_BATCHES = (8, 16)
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12            # H100 SXM float32 outside tensor cores
 BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 tensor cores
@@ -224,6 +245,9 @@ STEP_TOL = dict(rtol=1e-3, atol=1e-3)
 LOSS_KEYS = ['loss_cls', 'loss_cls_flow', 'loss_cls_flow_aug', 'loss_cls_mx',
              'loss_cls_mx_r', 'loss_cls_mx_aug', 'loss_cls_mx_r_aug',
              'loss_pos']
+# the loss terms a train step must log, by recognizer
+STEP_LOSSES = {'MSCLWithAug': LOSS_KEYS + ['loss'],
+               'MoCo': ['loss_cls', 'loss'], 'MoCoV2': ['loss_cls', 'loss']}
 STEPS = 3
 # correlation lookup: (shape name, N, H, W) at C=256, 4 levels, radius 4
 CORR_SHAPES = (('extraction_16x22', 8, 16, 22), ('raft_55x128', 1, 55, 128))
@@ -307,6 +331,15 @@ DP_TOL = dict(losses=(2e-4, 2e-4), params=(5e-3, 1e-4), queues=(0, 2e-5),
               ema=(1e-5, 1e-6), bn_stats=(1e-4, 1e-5))
 DP_ILL_CONDITIONED = ('bn_stats', 'params')
 DP_NARROW = dict(K=4096, dim=128, rgb_width=8, flow_width=2)
+# pretrain_configs: every config of configs/recognition/moco (the flagship
+# as a control), PC_STEPS full-width steps each; the CLI runs PC_CLI_STEPS
+# steps an epoch at each config's batch
+PRETRAIN_CONFIGS = ('mscl_r18_cosm_lr2e-2', 'mscl_r50_cosm_lr3e-2',
+                    'moco_r18_lr3e-2',
+                    'moco_r18_consistent_augmentation_lr3e-2',
+                    'moco_r18_cosistent_video_lr3e-2',
+                    'moco_r50_consistent_augmentation_lr3e-2')
+PC_STEPS, PC_CLI_STEPS = 3, 8
 
 
 def log(**kw):
@@ -360,17 +393,61 @@ def bound(bytes_moved, flops, flop_per_s=FP32_FLOP_PER_S):
 
 
 def phase_kernels(dev):
-    """Each kernel against its plain version at the flagship shapes."""
+    """Each kernel against its plain version at the flagship shapes (the
+    rows of the kernel table), a K the kernels refuse, each kernel's
+    profiled device time, one plain read of the queue and the ptxas
+    report; then the same check and timing at the batches of the other
+    pretrain configs (KERNEL_BATCHES: logged as kernel_batch lines)."""
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    q, queue, g, decay = kernel_inputs(dev, B)
+    rows = kernel_rows(q, queue, g, decay, flush)
+    # K=1000 is not a multiple of the 128-column K-tile
+    ragged = queue[:, :1000].contiguous(), decay[:1000].contiguous()
+    for fn, lhs in ((di.l_neg, q), (di.dq, g[:, :1000].contiguous())):
+        try:
+            fn(lhs, *ragged)
+        except ValueError as e:
+            if 'K-tile' not in str(e):
+                raise
+        else:
+            raise AssertionError(f'{fn.__name__} took a ragged K')
+    for row, kernel in zip(rows, (lambda: di.l_neg(q, queue, decay),
+                                  lambda: di.dq(g, queue, decay))):
+        row['launches_per_step'] = 7
+        row['device_ms_by_kernel'] = device_ms_by_kernel(kernel, flush)
+        log(phase='kernel', **row)
+    # what one plain read of the queue takes under the same flush: the
+    # practical floor of both kernels' bytes on this card
+    log(phase='queue_read', bytes=4 * C * K,
+        ms=time_ms(lambda: queue.sum(), flush=flush))
+    log(phase='decayed_infonce_ptxas', launch=di.launch_info(C), kernels=[
+        dict(v, kernel=ptxas_short(k)) for k, v in
+        cuda_build.ptxas_report('decayed_infonce').items()])
+    for b in KERNEL_BATCHES:
+        for row in kernel_rows(*kernel_inputs(dev, b), flush):
+            log(phase='kernel_batch', **row)
+    return rows
+
+
+def kernel_inputs(dev, b):
+    """Unit-norm queries (b, C) and queue columns (C, K), a cotangent
+    (b, K) and the decay weights of random counts, from seed 0."""
     rng = np.random.default_rng(0)
-    q = rng.normal(size=(B, C)).astype(np.float32)
+    q = rng.normal(size=(b, C)).astype(np.float32)
     q /= np.linalg.norm(q, axis=1, keepdims=True)
     queue = rng.normal(size=(C, K)).astype(np.float32)
     queue /= np.linalg.norm(queue, axis=0, keepdims=True)
     count = rng.integers(0, 65536, size=K)
-    g = rng.normal(size=(B, K)).astype(np.float32)
+    g = rng.normal(size=(b, K)).astype(np.float32)
     q, queue, g = (torch.from_numpy(x).to(dev) for x in (q, queue, g))
-    decay = di.decay_weights(torch.from_numpy(count).to(dev), 0.99999)
+    return q, queue, g, di.decay_weights(torch.from_numpy(count).to(dev),
+                                         0.99999)
 
+
+def kernel_rows(q, queue, g, decay, flush):
+    """l_neg and dq at q's batch against their plain versions and float64,
+    each timed in turns with torch.matmul: one row a kernel."""
+    b = q.shape[0]
     qg = q.clone().requires_grad_(True)
     out = di.decayed_neg(qg, queue, decay)
     out.backward(g)
@@ -389,20 +466,10 @@ def phase_kernels(dev):
         limit = F64_REL * ref.abs().max().item()
         err64[name], err64[name + '_limit'] = err, limit
         if not err <= limit:
-            raise AssertionError(f'{name}: {err} from float64 > {limit}')
-    log(phase='kernel_vs_float64', **err64)
-    # K=1000 is not a multiple of the 128-column K-tile
-    ragged = queue[:, :1000].contiguous(), decay[:1000].contiguous()
-    for fn, lhs in ((di.l_neg, q), (di.dq, g[:, :1000].contiguous())):
-        try:
-            fn(lhs, *ragged)
-        except ValueError as e:
-            if 'K-tile' not in str(e):
-                raise
-        else:
-            raise AssertionError(f'{fn.__name__} took a ragged K')
+            raise AssertionError(f'{name} at B={b}: {err} from float64 > '
+                                 f'{limit}')
+    log(phase='kernel_vs_float64', batch=b, **err64)
 
-    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
     w = queue * decay
     f4 = 4
     rows = []
@@ -411,13 +478,13 @@ def phase_kernels(dev):
              lambda: di.l_neg_plain(q, queue, decay),
              lambda: torch.matmul(q, w),
              (out.detach() - want).abs().max().item(),
-             f4 * (B * C + C * K + K + B * K)),
+             f4 * (b * C + C * K + K + b * K)),
             ('decayed_infonce_dq', lambda: di.dq(g, queue, decay),
              lambda: di.dq_plain(g, queue, decay),
              lambda: torch.matmul(g, w.T),
              (qg.grad - want_dq).abs().max().item(),
-             f4 * (B * K + C * K + K + B * C))):
-        bound_ms, bound_by = bound(nbytes, 2 * B * C * K + C * K)
+             f4 * (b * K + C * K + K + b * C))):
+        bound_ms, bound_by = bound(nbytes, 2 * b * C * K + C * K)
         # kernel and library in turns on this card: kernel, library,
         # library, kernel, after one untimed round of each (the first
         # timed turn ran slow without it); each the mean of its two turns
@@ -425,23 +492,13 @@ def phase_kernels(dev):
             time_ms(fn, iters=5, flush=flush)
         turns = [time_ms(fn, flush=flush)
                  for fn in (kernel, library, library, kernel)]
-        row = dict(name=name, max_abs_err=err,
+        row = dict(name=name, batch=b, max_abs_err=err,
                    kernel_ms=(turns[0] + turns[3]) / 2,
                    library_ms=(turns[1] + turns[2]) / 2,
                    turns_ms=turns, plain_ms=time_ms(plain, flush=flush),
-                   bound_ms=bound_ms, bound_by=bound_by,
-                   launches_per_step=7)
+                   bound_ms=bound_ms, bound_by=bound_by)
         row['bound_share'] = bound_ms / row['kernel_ms']
-        row['device_ms_by_kernel'] = device_ms_by_kernel(kernel, flush)
-        log(phase='kernel', **row)
         rows.append(row)
-    # what one plain read of the queue takes under the same flush: the
-    # practical floor of both kernels' bytes on this card
-    log(phase='queue_read', bytes=f4 * C * K,
-        ms=time_ms(lambda: queue.sum(), flush=flush))
-    log(phase='decayed_infonce_ptxas', launch=di.launch_info(C), kernels=[
-        dict(v, kernel=ptxas_short(k)) for k, v in
-        cuda_build.ptxas_report('decayed_infonce').items()])
     return rows
 
 
@@ -967,7 +1024,11 @@ def phase_card_vs_cpu():
         card_vs_cpu(narrow_flagship_cfg(aug=aug_cfg), batches)
 
 
-def card_vs_cpu(cfg, batches):
+def card_vs_cpu(cfg, batches, name=None):
+    """Two train steps of cfg's model on the CPU and on the card from the
+    same weights and batches (a device aug fed the same draws on both):
+    every loss (STEP_LOSSES of its recognizer at least) and every queue
+    within STEP_TOL."""
     logs = {}
     draws = None
     for dev in ('cpu', 'cuda'):
@@ -987,17 +1048,25 @@ def card_vs_cpu(cfg, batches):
         step = make_train_step(model, opt, build_ema_fn(model))
         logs[dev] = [{k: v.item() for k, v in step(to_torch(
             batch, dev)).items()} for batch in batches]
-        logs[dev + '_queue'] = model.recognizer_flow.queue.cpu()
+        logs[dev + '_queue'] = {k: v.cpu() for k, v in
+                                model.state_dict().items()
+                                if k.endswith('queue')}
     worst = 0.0
+    required = STEP_LOSSES[cfg['type']]
     for cpu, card in zip(logs['cpu'], logs['cuda']):
-        for k in LOSS_KEYS + ['loss']:
+        if sorted(cpu) != sorted(card):
+            raise AssertionError(f'logged {sorted(card)} != {sorted(cpu)}')
+        missing = [k for k in required if k not in cpu]
+        if missing:
+            raise AssertionError(f'{cfg["type"]} logged no {missing}')
+        for k in (k for k in cpu if k.startswith('loss')):
             torch.testing.assert_close(torch.tensor(card[k]),
                                        torch.tensor(cpu[k]), **STEP_TOL)
             worst = max(worst, abs(card[k] - cpu[k]))
-    torch.testing.assert_close(logs['cuda_queue'], logs['cpu_queue'],
-                               **STEP_TOL)
-    log(phase='card_vs_cpu', aug=cfg['aug']['type'], steps=2,
-        max_abs_loss_diff=worst,
+    for k, v in logs['cpu_queue'].items():
+        torch.testing.assert_close(logs['cuda_queue'][k], v, **STEP_TOL)
+    log(phase='card_vs_cpu', model=name or cfg['type'],
+        aug=cfg['aug']['type'], steps=2, max_abs_loss_diff=worst,
         **{f'loss_step{i + 1}': v['loss'] for i, v in
            enumerate(logs['cuda'])})
 
@@ -2453,6 +2522,254 @@ def phase_readme_jpeg(root):
         **runs, phase_s=time.perf_counter() - t_phase)
 
 
+def config_path(name):
+    return osp.join(osp.dirname(FLAGSHIP_CONFIG), name + '.py')
+
+
+def config_batch(model_cfg, bs, crop, seed):
+    """A synthetic batch of a pretrain config's shapes: two 8-frame clips
+    (and for MSCL the flows, base and rotated halves along T)."""
+    if model_cfg['type'] == 'MSCLWithAug':
+        return flagship_batch(bs, hw=crop, seed=seed)
+    rng = np.random.default_rng(seed)
+    return {'imgs': [rng.uniform(size=(bs, 3, 8, crop, crop))
+                     .astype(np.float32) for _ in range(2)]}
+
+
+def towers(model):
+    """(prefix, tower) of each MoCo tower of a model."""
+    if hasattr(model, 'recognizer'):
+        return (('recognizer', model.recognizer),
+                ('recognizer_flow', model.recognizer_flow))
+    return (('', model),)
+
+
+def config_steps(dev, name):
+    """PC_STEPS train steps of a pretrain config's own model at full width
+    on a synthetic batch of its shapes, then one profiled; fails unless
+    every loss is finite, the queues and iters advance as the model
+    implies and the decayed-InfoNCE launches are 7 + 7 (MSCL) or 1 + 1
+    (MoCo) a step."""
+    cfg = Config.fromfile(config_path(name))
+    model_cfg = cfg.model.to_dict()
+    mscl = model_cfg['type'] == 'MSCLWithAug'
+    bs, crop = cfg.data['videos_per_gpu'], model_cfg['aug']['crop_size']
+    model = build_model_from_cfg(model_cfg, device=dev, seed=0)
+    lr = build_lr_schedule(cfg.lr_config.to_dict(), cfg.optimizer['lr'],
+                           cfg.total_epochs, 1000)
+    opt = build_optimizer(model, cfg.optimizer.to_dict(), lr,
+                          grad_clip=cfg.optimizer_config['grad_clip'],
+                          freeze_patterns=MOCO_FREEZE)
+    step = make_train_step(model, opt, build_ema_fn(model))
+    batch = to_torch(config_batch(model_cfg, bs, crop, seed=0), dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    step_ms, losses = [], []
+    for _ in range(PC_STEPS):
+        t0 = time.perf_counter()
+        log_vars = step(batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append({k: v.item() for k, v in log_vars.items()})
+    launches = dict(l_neg=di.l_neg.launches, dq=di.dq.launches)
+    per_step = 7 if mscl else 1
+    if launches != dict(l_neg=per_step * PC_STEPS, dq=per_step * PC_STEPS):
+        raise AssertionError(f'{name}: launches {launches}, want '
+                             f'{per_step * PC_STEPS} each')
+    bad = [(i, k) for i, lv in enumerate(losses) for k, v in lv.items()
+           if k.startswith('loss') and not math.isfinite(v)]
+    if bad or 'loss' not in losses[0]:
+        raise AssertionError(f'{name}: non-finite losses {bad}')
+    state, want = {}, {}
+    for prefix, tower in towers(model):
+        for n in ('queue_ptr', 'iters'):
+            state[f'{prefix}.{n}'] = int(getattr(tower, n))
+        # the flow tower runs twice a step and enqueues once
+        want[f'{prefix}.queue_ptr'] = PC_STEPS * bs % tower.K
+        want[f'{prefix}.iters'] = PC_STEPS * bs * (
+            2 if prefix == 'recognizer_flow' else 1)
+        if tower.K != K:
+            raise AssertionError(f'{name}: K={tower.K}')
+    if state != want:
+        raise AssertionError(f'{name}: moco state {state} != {want}')
+    peak = torch.cuda.max_memory_allocated()
+    prof = profile(f'{name}_step', lambda: step(batch))
+    row = dict(config=name, model=model_cfg['type'],
+               aug=type(model.aug).__name__, batch=bs, crop=crop,
+               params=sum(p.numel() for p in model.parameters()),
+               step_ms=step_ms, device_busy_ms=prof['device_busy_ms'],
+               device_idle_share=prof['device_idle_share'],
+               profiled_wall_ms=prof['wall_ms'], peak_bytes=peak,
+               launches=launches, state=state,
+               losses=[{k: v for k, v in lv.items() if k.startswith('loss')}
+                       for lv in losses])
+    log(phase='pretrain_config_step', **row)
+    del model, opt, step, batch
+    torch.cuda.empty_cache()
+    return row
+
+
+def narrow_moco_r18_cfg(name):
+    """A moco_r18 config's model, narrowed: r3d_18 8 wide, one block a
+    stage, K=32, dim 32, 32x32 crops."""
+    cfg = Config.fromfile(config_path(name)).model.to_dict()
+    cfg['backbone'] = dict(cfg['backbone'], layers=(1, 1, 1, 1),
+                           base_width=8)
+    cfg.update(dim_in=64, K=32, dim=32)
+    cfg['aug'] = dict(cfg['aug'], crop_size=32)
+    return cfg
+
+
+def narrow_mscl_r50_cfg():
+    """mscl_r50's model, narrowed: one block a stage, SlowOnly 4 wide, the
+    TPN at its 128, r2d_50 2 wide (bkb_channels (None, 64)), K=32, dim 32,
+    64x64 crops."""
+    cfg = Config.fromfile(config_path('mscl_r50_cosm_lr3e-2')).model.to_dict()
+    rgb, flow = cfg['recognizer'], cfg['recognizer_flow']
+    rgb['backbone'] = dict(rgb['backbone'], stage_blocks=(1, 1, 1, 1),
+                           base_channels=4)
+    rgb['neck'] = dict(rgb['neck'], in_channels=[32, 64, 128])
+    flow['backbone'] = dict(flow['backbone'], layers=(1, 1, 1, 1),
+                            base_width=2)
+    rgb.update(dim_in=128, K=32, dim=32)
+    flow.update(dim_in=64, K=32, dim=32)
+    cfg['sup_head'] = dict(cfg['sup_head'], bkb_channels=(None, 64))
+    cfg['aug'] = dict(cfg['aug'], crop_size=64)
+    return cfg
+
+
+def configs_cli(root, pkls):
+    """The training CLI on mscl_r50 (1 epoch of PC_CLI_STEPS steps, then a
+    resume for a second) and on moco_r18_lr3e-2 (1 epoch), thread workers,
+    over pretrain_cli's set (its videos listed to make PC_CLI_STEPS steps
+    at each config's batch). The resume must load the state saved bitwise
+    and its first step's logged values must equal those the run that saved
+    it gives on the same batch (that run's model, kept in memory)."""
+    with open(pkls[0], 'rb') as f:
+        annos = pickle.load(f)[:CLI_VIDEOS]
+    out = {}
+    real_init, real_resume = train_loop.Runner.__init__, \
+        train_loop.Runner.resume
+    first, resumed = [], []
+
+    def init(self, *args, **kwargs):
+        real_init(self, *args, **kwargs)
+        step = self._train_step
+
+        def recorded(batch):
+            log_vars = step(batch)
+            if not first:
+                first.append((batch, {k: v.item()
+                                      for k, v in log_vars.items()}))
+            return log_vars
+        self._train_step = recorded
+
+    def resume(self, path=None):
+        real_resume(self, path)
+        resumed.append(self.state())
+
+    for name, epochs in (('mscl_r50_cosm_lr3e-2', (1, 2)),
+                         ('moco_r18_lr3e-2', (1,))):
+        cfg = Config.fromfile(config_path(name))
+        bs = cfg.data['videos_per_gpu']
+        pkl = osp.join(root, f'{name}_train.pkl')
+        with open(pkl, 'wb') as f:
+            pickle.dump([annos[i % len(annos)]
+                         for i in range(PC_CLI_STEPS * bs)], f)
+        work = osp.join(root, f'work_{name}')
+        runs, launches, seconds = [], [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for epoch in epochs:
+            argv = [config_path(name), '--seed', '0', '--cfg-options',
+                    f'data.train.pkl_path={pkl}', f'total_epochs={epoch}',
+                    'checkpoint_config.interval=1', 'log_config.interval=1',
+                    f'work_dir={work}']
+            if epoch > 1:
+                argv[1:1] = ['--resume-from',
+                             osp.join(work, f'epoch_{epoch - 1}.pth')]
+                train_loop.Runner.__init__ = init
+                train_loop.Runner.resume = resume
+            try:
+                (runner, _), n, secs = cli_run(train_cli.main, argv)
+            finally:
+                train_loop.Runner.__init__ = real_init
+                train_loop.Runner.resume = real_resume
+            runs.append(runner)
+            launches.append(n)
+            seconds.append(secs)
+        peak = torch.cuda.max_memory_allocated()
+        per_epoch = len(runs[0].train_loader)
+        mscl = cfg.model['type'] == 'MSCLWithAug'
+        per_step = 7 if mscl else 1
+        if per_epoch != PC_CLI_STEPS or any(
+                n != dict(l_neg=per_step * per_epoch, dq=per_step * per_epoch)
+                for n in launches):
+            raise AssertionError(f'{name}: {per_epoch} steps an epoch, '
+                                 f'launches {launches}')
+        train = [r for r in read_log(work) if r['mode'] == 'train']
+        bad = [r for r in train if not all(
+            math.isfinite(v) for k, v in r.items() if k.startswith('loss'))]
+        if bad or len(train) != per_epoch * len(epochs):
+            raise AssertionError(f'{name}: {len(train)} train lines, '
+                                 f'non-finite losses in {bad}')
+        final = runs[-1].model
+        state = {f'{p}.{n}': int(getattr(t, n)) for p, t in towers(final)
+                 for n in ('queue_ptr', 'iters')}
+        n = len(epochs) * per_epoch * bs
+        want = {f'{p}.{k}': v for p, _ in towers(final) for k, v in (
+            ('queue_ptr', n % K),
+            ('iters', n * (2 if p == 'recognizer_flow' else 1)))}
+        if state != want:
+            raise AssertionError(f'{name}: moco state {state} != {want}')
+        row = dict(config=name, batch=bs, steps_per_epoch=per_epoch,
+                   epochs=len(epochs), launches=launches, run_s=seconds,
+                   peak_bytes=peak, state=state,
+                   losses=[r['loss'] for r in train],
+                   **steady_window(train, per_epoch, CLI_TAIL))
+        if len(epochs) > 1:
+            saved = runs[0].state()
+            diff = states_equal(saved, resumed[0])
+            if diff or len(resumed) != 1:
+                raise AssertionError(f'{name}: the state loaded at resume '
+                                     f'differs from the state saved: '
+                                     f'{diff[:10]}')
+            batch, got = first[0]
+            want_vars = {k: v.item() for k, v in
+                         runs[0]._train_step(batch).items()}
+            if got != want_vars:
+                raise AssertionError(f'{name}: the resumed first step '
+                                     f'{got} != the saving run\'s '
+                                     f'{want_vars}')
+            row['resumed_first_step'] = {k: v for k, v in got.items()
+                                         if k.startswith('loss')}
+        log(phase='pretrain_config_cli', **row)
+        out[name] = row
+        del runs, final
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_pretrain_configs(dev, root, pkls):
+    """Every pretrain config the repo ships: full-width steps of each
+    config's own model; card against CPU for MoCo with each of its augs
+    and for MSCL with r50 towers, narrowed; the CLI on mscl_r50 (with an
+    exact resume) and moco_r18."""
+    rows = [config_steps(dev, name) for name in PRETRAIN_CONFIGS]
+    rng = np.random.default_rng(12)
+    moco_batches = [{'imgs': [rng.uniform(size=(4, 3, 8, 32, 32))
+                              .astype(np.float32) for _ in range(2)]}
+                    for _ in range(2)]
+    for name in PRETRAIN_CONFIGS:
+        if name.startswith('moco_r18'):
+            card_vs_cpu(narrow_moco_r18_cfg(name), moco_batches, name)
+    card_vs_cpu(narrow_mscl_r50_cfg(),
+                [flagship_batch(4, hw=64, seed=s) for s in (13, 14)],
+                'mscl_r50_cosm_lr3e-2')
+    return rows, configs_cli(root, pkls)
+
+
 def phase_recognizer3d_card_vs_cpu():
     """Two train steps of a narrow Recognizer3D (r3d_18 8 wide, I3DHead 10
     classes, dropout 0) on the card and on the CPU from the same weights
@@ -2534,10 +2851,12 @@ def profile(path, fn):
         top.append((us / 1e3, e.count, e.key[:90]))
     busy = sum(by_class.values())
     top.sort(reverse=True)
-    log(phase='profile', path=path, wall_ms=wall_ms, device_busy_ms=busy,
-        device_idle_share=(1 - busy / wall_ms) if busy else None,
+    summary = dict(wall_ms=wall_ms, device_busy_ms=busy,
+                   device_idle_share=(1 - busy / wall_ms) if busy else None)
+    log(phase='profile', path=path, **summary,
         by_class_ms=dict(sorted(by_class.items(), key=lambda kv: -kv[1])),
         top_kernels=[dict(ms=ms, count=n, name=k) for ms, n, k in top[:12]])
+    return summary
 
 
 def main():
@@ -2588,6 +2907,7 @@ def main():
         run('retrieval_cli', phase_retrieval_cli, root, ft_pkls,
             pretrain_ckpt)
         run('readme_jpeg', phase_readme_jpeg, root)
+        run('pretrain_configs', phase_pretrain_configs, dev, root, pkls)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(phase='phase_seconds', total=sum(seconds.values()), **seconds)

@@ -6,7 +6,12 @@ time:
 
   module ``<name>_m``  -> ``<name>``      (recognizer_m -> recognizer)
   ``layer{i}_{j}``     -> ``layer{i}.{j}`` (torchvision stage / block)
-  ``conv`` / ``bn``    -> ``0`` / ``1``    (ConvBN is conv, BN, ReLU)
+  ``conv`` / ``bn``    -> ``0`` / ``1``    inside a VideoResNet (the subtree
+                          holding ``stem``), whose ConvBN is the Sequential
+                          conv, BN, ReLU; elsewhere (ResNet3d's ConvModule)
+                          they keep mmaction's names
+  ``conv2_conv`` / ``conv2_bn`` -> ``conv2.conv`` / ``conv2.bn`` (ResNet3d's
+                          Bottleneck3d names its conv2 pair bare)
   params ``kernel``    -> ``weight``: conv (T,H,W,Cin,Cout) ->
                           (Cout,Cin,T,H,W),
                           Dense (in,out) -> (out,in)
@@ -32,11 +37,11 @@ _LEAF = {'params': {'kernel': 'weight', 'scale': 'weight', 'bias': 'bias'},
          'batch_stats': {'mean': 'running_mean', 'var': 'running_var'}}
 
 
-def _segment(seg: str) -> str:
-    if seg == 'conv':
-        return '0'
-    if seg == 'bn':
-        return '1'
+def _segment(seg: str, convbn: bool = False) -> str:
+    if seg in ('conv2_conv', 'conv2_bn'):
+        return seg.replace('_', '.')
+    if convbn and seg in ('conv', 'bn'):
+        return '0' if seg == 'conv' else '1'
     m = re.fullmatch(r'(layer\d+)_(\d+)', seg)
     if m:
         return f'{m.group(1)}.{m.group(2)}'
@@ -67,6 +72,18 @@ def _leaves(node, path=()):
         yield path, np.asarray(node)
 
 
+def _module_leaves(node, segs=(), convbn=False):
+    """(the port's module path, leaf name, leaf as numpy) of a nested dict,
+    depth first; ``convbn`` from a VideoResNet's subtree down."""
+    convbn = convbn or 'stem' in node
+    for k, v in node.items():
+        if isinstance(v, dict):
+            yield from _module_leaves(v, segs + (_segment(k, convbn),),
+                                      convbn)
+        else:
+            yield segs, k, np.asarray(v)
+
+
 def jax_to_state_dict(variables: Dict) -> Dict[str, np.ndarray]:
     """{'params': ..., 'batch_stats': ..., 'moco_state': ...} (nested
     dicts, any subtree root) -> flat torch state_dict of numpy arrays."""
@@ -74,10 +91,9 @@ def jax_to_state_dict(variables: Dict) -> Dict[str, np.ndarray]:
     for collection, tree in variables.items():
         if collection not in ('params', 'batch_stats', 'moco_state'):
             raise KeyError(f'unknown collection {collection!r}')
-        for path, value in _leaves(tree):
-            name, value = _leaf(collection, path[-1], value)
-            key = '.'.join([_segment(s) for s in path[:-1]] + [name])
-            out[key] = np.array(value, order='C')
+        for segs, leaf, value in _module_leaves(tree):
+            name, value = _leaf(collection, leaf, value)
+            out['.'.join(segs + (name,))] = np.array(value, order='C')
     return out
 
 

@@ -25,6 +25,7 @@ import json
 import os
 import os.path as osp
 import signal
+import sys
 import threading
 import time
 from typing import Callable, Dict, Optional
@@ -158,10 +159,10 @@ class Runner:
                       isinstance(v, (int, float, np.generic)) else v)
                   for k, v in record.items()}
         line = json.dumps(record)
-        if dist.is_distributed():
-            print(json.dumps(dict(record, rank=dist.rank())), flush=True)
-        else:
-            print(line, flush=True)
+        # the line and its newline in one write: ranks share the stream
+        sys.stdout.write(json.dumps(dict(record, rank=dist.rank())) + '\n'
+                         if dist.is_distributed() else line + '\n')
+        sys.stdout.flush()
         if dist.is_main():
             with open(self.log_file, 'a') as f:
                 f.write(line + '\n')

@@ -1,6 +1,7 @@
 from .augmentations import (CenterCrop, Normalize, RandomResizedCrop,
                             Resize, get_random_resized_crop_bbox,
                             rescale_size)
+from .combined_augmentations import MoCoTransform
 from .compose import Compose
 from .formatting import Collect, ToTensor, batched_to_tensor, to_tensor
 from .loading import ArrayDecode, LocalDecode, SampleFrames
@@ -16,6 +17,7 @@ __all__ = [
     'SampleFrames', 'LocalDecode', 'ArrayDecode', 'MatchFlow',
     'ChosenSampleFrames', 'TemporalShiftChosenSampleFrames',
     'MoCoDecodePlan', 'MoCoRandomResizedCrop', 'MoCoResize', 'MoCoNormalize',
+    'MoCoTransform',
     'NormFlowWithAug', 'NormFlowWithStidedAug', 'norm_flow', 'rotate_flow',
     'get_random_resized_crop_bbox', 'rescale_size', 'RandomResizedCrop', 'CenterCrop', 'Resize', 'Normalize', 'Seg2T',
 ]

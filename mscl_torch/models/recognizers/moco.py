@@ -1,9 +1,16 @@
-"""MoCoV2 tower: two encoders, a decayed negative queue, InfoNCE.
+"""MoCo towers: two encoders, a decayed negative queue, InfoNCE.
 
-Port of ``mscl_tpu/models/recognizers/moco.py``:
+Port of ``mscl_tpu/models/recognizers/moco.py`` (``_MoCoBase`` as
+``MoCoBase``, ``MoCo``, ``MoCoV2``):
   - query and key encoder + neck + MLP; the key side takes no gradient and
     follows the query side by an EMA run before the forward, with the
-    cosine-annealed momentum of ``iters`` (samples seen);
+    fixed momentum ``m`` (MoCo) or the cosine-annealed momentum of
+    ``iters``, the samples seen (MoCoV2);
+  - a tower trained on its own (the plain-MoCo configs) runs its config's
+    device aug before the forward, drawn from its own generator
+    (``AugGenerator``, as MSCLWithAug's), and its ``train_step`` takes the
+    ``[q, k]`` pair of ``batch[im_key]``; inside MSCLWithAug the composite
+    runs the aug and a tower's own must be IdentityAug;
   - the queue (dim, K), its ``queue_ptr``, the per-column age ``count`` and
     ``iters`` are buffers;
   - InfoNCE logits [l_pos | q . (queue * t_decay**count)] / T, label 0, with
@@ -40,22 +47,50 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import compute_dtype
-from ..builder import RECOGNIZERS, build_backbone, build_head, build_neck
+from ..builder import (RECOGNIZERS, build_backbone, build_head, build_neck,
+                       build_ssl_aug)
 from ...ops.decayed_infonce import decay_weights, decayed_neg
 from ...parallel import dist
+from .base import parse_losses
 
 Q2K_PAIRS = (('encoder_q', 'encoder_k'), ('neck_q', 'neck_k'),
              ('mlp_q', 'mlp_k'))
 KEY_PATTERNS = tuple(k for _, k in Q2K_PAIRS)
 
 
-def check_identity_aug(aug):
-    """A MoCoV2 tower on its own (its own ``train_step``, not ported yet)
-    would run its aug; inside MSCLWithAug the composite runs it."""
-    if aug is not None and dict(aug).get('type') != 'IdentityAug':
-        raise NotImplementedError(
-            f"a MoCoV2 tower's own aug {dict(aug).get('type')} is not ported "
-            "yet; use dict(type='IdentityAug') (MSCLWithAug runs its aug)")
+class AugGenerator:
+    """A model's device aug (``self.aug``), drawn from the model's own
+    ``torch.Generator`` (the JAX step's 'moco' stream): made on the batch's
+    device from ``aug_seed`` at first use, saved in checkpoints by
+    ``aug_state`` and put back by ``set_aug_state``, so validation by loss
+    and resume leave the draws as they were."""
+    aug_seed, _aug_gen = 0, None
+
+    def seed_aug(self, seed: int):
+        """Restart the aug's draws from seed (on the device of the next
+        batch)."""
+        self.aug_seed, self._aug_gen = seed, None
+
+    def aug_generator(self, device: torch.device) -> torch.Generator:
+        """The aug's generator, made on device from aug_seed at first use
+        (and again if the batch moves to another device)."""
+        if self._aug_gen is None or self._aug_gen.device != device:
+            self._aug_gen = torch.Generator(device=device).manual_seed(
+                self.aug_seed)
+        return self._aug_gen
+
+    def aug_state(self):
+        """The aug generator's state (a CPU byte tensor), None before the
+        first batch made it."""
+        return None if self._aug_gen is None else self._aug_gen.get_state()
+
+    def set_aug_state(self, state) -> None:
+        """Put the aug generator back as ``aug_state`` gave it, on the
+        model's device (None: made from aug_seed at the next batch)."""
+        self._aug_gen = None
+        if state is not None:
+            device = next(self.parameters()).device
+            self.aug_generator(device).set_state(state)
 
 
 class MLP(nn.Module):
@@ -90,16 +125,21 @@ class MLP(nn.Module):
         return fc(self.fc1, x)
 
 
-@RECOGNIZERS.register_module()
-class MoCoV2(nn.Module):
+class MoCoBase(AugGenerator, nn.Module):
 
     def __init__(self, backbone, neck, moco_head, im_key='imgs', dim_in=512,
-                 dim=128, K=65536, m_base=0.994, t_decay=0.99999,
+                 dim=128, K=65536, m=0.999, m_base=0.994, t_decay=0.99999,
                  max_iters=1, T=0.07, mlp=False, aux_info=(), aug=None,
-                 train_cfg=None, test_cfg=None, dtype=None):
+                 train_cfg=None, test_cfg=None, shuffle_bn=0, dtype=None):
         super().__init__()
-        check_identity_aug(aug)
+        if shuffle_bn > 1:
+            raise NotImplementedError(
+                'shuffle_bn > 1 (per-group key BN) is not ported; the key '
+                'BN takes the global batch')
         self.dtype = compute_dtype.resolve_dtype(dtype)
+        self.aug = build_ssl_aug(dict(aug or dict(type='IdentityAug')))
+        self.im_key = im_key
+        self.aux_info = tuple(aux_info)
         bb_cfg = dict(backbone, dtype=self.dtype)
         bb_cfg.pop('pretrained', None)
         self.encoder_q = build_backbone(bb_cfg)
@@ -112,7 +152,7 @@ class MoCoV2(nn.Module):
         for kn in KEY_PATTERNS:
             getattr(self, kn).requires_grad_(False)
         self.K, self.T, self.t_decay = K, T, t_decay
-        self.m_base, self.max_iters = m_base, max_iters
+        self.m, self.m_base, self.max_iters = m, m_base, max_iters
         self.register_buffer('queue', torch.zeros(dim, K))
         self.register_buffer('count', torch.zeros(K, dtype=torch.long))
         self.register_buffer('queue_ptr', torch.zeros((), dtype=torch.long))
@@ -137,10 +177,8 @@ class MoCoV2(nn.Module):
             getattr(self, kn).load_state_dict(getattr(self, qn).state_dict())
 
     def momentum(self) -> torch.Tensor:
-        """m = 1 - (1 - m_base) (cos(pi min(iters / max_iters, 1)) + 1) / 2."""
-        factor = torch.clamp(self.iters.float() / self.max_iters, max=1.0)
-        return 1.0 - 0.5 * (1.0 - self.m_base) * (
-            torch.cos(math.pi * factor) + 1.0)
+        """The EMA momentum of this step."""
+        raise NotImplementedError
 
     @torch.no_grad()
     def ema_(self, m: torch.Tensor):
@@ -175,9 +213,11 @@ class MoCoV2(nn.Module):
             k = F.normalize(self.mlp_k(k_emb), dim=1, eps=1e-12)
         return q, q_mlvl, k
 
-    def forward_train(self, im_q, im_k, update_queue: bool = True):
-        """im_q/im_k: (B, C, T, H, W). Returns (losses, features); features
-        carry ``bank`` = (queue, decay) as they were before the enqueue."""
+    def forward_train(self, im_q, im_k, update_queue: bool = True,
+                      aux_info=None):
+        """im_q/im_k: (B, C, T, H, W), after the aug. Returns (losses,
+        features); features carry ``bank`` = (queue, decay) as they were
+        before the enqueue. ``aux_info`` goes on to the head's loss."""
         q, q_mlvl, k = self.extract_feat(im_q, im_k)
         l_pos = (q * k).sum(dim=1, keepdim=True)
         decay = decay_weights(self.count, self.t_decay)
@@ -189,18 +229,55 @@ class MoCoV2(nn.Module):
             self._enqueue(k)
         if self.training:
             self.iters = self.iters + k.shape[0] * dist.world_size()
-        losses = self.moco_head.loss(logits, labels)
+        losses = self.moco_head.loss(logits, labels, **(aux_info or {}))
         return losses, dict(q=q, q_mlvl=q_mlvl, k=k, q_neg=l_neg,
                             bank=bank)
 
+    def train_step(self, batch):
+        """A tower trained on its own: ``batch[im_key]`` is the [q, k] pair
+        of NCTHW tensors, cast to the compute dtype, then the aug; the
+        ``aux_info`` keys of the batch go on to the aug and the head.
+        Returns (total loss, log_vars)."""
+        im_q, im_k = (x.to(self.dtype) for x in batch[self.im_key])
+        aux_info = {item: batch[item] for item in self.aux_info}
+        im_q, im_k, aux_info = self.aug(self.aug_generator(im_q.device),
+                                        im_q, im_k, aux_info)
+        losses, _ = self.forward_train(im_q, im_k, aux_info=aux_info)
+        return parse_losses(losses)
+
+
+@RECOGNIZERS.register_module()
+class MoCo(MoCoBase):
+    """Fixed momentum ``m``."""
+
+    def momentum(self) -> torch.Tensor:
+        return torch.tensor(self.m, dtype=torch.float32,
+                            device=self.iters.device)
+
+
+@RECOGNIZERS.register_module()
+class MoCoV2(MoCoBase):
+    """Cosine-annealed momentum."""
+
+    def momentum(self) -> torch.Tensor:
+        """m = 1 - (1 - m_base) (cos(pi min(iters / max_iters, 1)) + 1) / 2."""
+        factor = torch.clamp(self.iters.float() / self.max_iters, max=1.0)
+        return 1.0 - 0.5 * (1.0 - self.m_base) * (
+            torch.cos(math.pi * factor) + 1.0)
+
 
 def build_ema_fn(model):
-    """A callable that EMA-updates both key towers of an MSCLWithAug in
-    place before the forward (the JAX ``build_ema_fn``).
+    """A callable that EMA-updates the key towers in place before the
+    forward (the JAX ``build_ema_fn``): a tower on its own with its step's
+    momentum; both towers of an MSCLWithAug.
 
     MSCLWithAug runs its flow tower twice a step and the reference updates
     the key encoder inside every forward, so the flow tower's step momentum
     is m**2."""
+    if isinstance(model, MoCoBase):
+        def tower_fn():
+            model.ema_(model.momentum())
+        return tower_fn
     rgb, flow = model.recognizer, model.recognizer_flow
 
     def fn():

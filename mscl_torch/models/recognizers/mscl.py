@@ -8,6 +8,8 @@ FRA-rotated halves, each through the flow tower (the rotated pass does not
 enqueue unless update_aug_flow, and its losses get the '_aug' suffix);
 the cross-modal InfoNCE of RGB against each flow pass with the other
 tower's pre-enqueue queue as negatives; LMCL over the query features.
+Either tower is a MoCo (fixed momentum) or a MoCoV2 (annealed), whose own
+aug must be IdentityAug: the composite runs the aug.
 
 The flow tower's stem takes 3 channels when the aug visualises the flow
 (the colour wheel: SyncMoCoAugmentV5 with visualize, V3, V4) and the raw 2
@@ -25,11 +27,21 @@ from torch import nn
 from .. import compute_dtype
 from ..builder import RECOGNIZERS, build_head, build_ssl_aug
 from .base import parse_losses
-from .moco import MoCoV2
+from .moco import AugGenerator, MoCoBase
+
+
+def check_identity_aug(aug):
+    """Inside MSCLWithAug the composite runs the aug, so a tower's own would
+    never run: it must be IdentityAug."""
+    if aug is not None and dict(aug).get('type') != 'IdentityAug':
+        raise NotImplementedError(
+            f"a tower inside MSCLWithAug has the aug {dict(aug).get('type')}, "
+            "which would not run; use dict(type='IdentityAug') (the "
+            "composite runs its own aug)")
 
 
 @RECOGNIZERS.register_module()
-class MSCLWithAug(nn.Module):
+class MSCLWithAug(AugGenerator, nn.Module):
 
     def __init__(self, recognizer, recognizer_flow, moco_mx_head, sup_head,
                  im_key='imgs', flow_key='flow_imgs', aux_info=(), aug=None,
@@ -39,7 +51,6 @@ class MSCLWithAug(nn.Module):
         super().__init__()
         self.dtype = compute_dtype.resolve_dtype(dtype)
         self.aug = build_ssl_aug(dict(aug or dict(type='IdentityAug')))
-        self.aug_seed, self._aug_gen = 0, None
         flow_cfg = dict(recognizer_flow)
         flow_cfg['backbone'] = dict(flow_cfg['backbone'])
         flow_cfg['backbone'].setdefault('in_channels',
@@ -58,38 +69,13 @@ class MSCLWithAug(nn.Module):
         self.weight_aug_flow = tuple(weight_aug_flow)
 
     @staticmethod
-    def _tower(cfg, dtype) -> MoCoV2:
+    def _tower(cfg, dtype) -> MoCoBase:
         cfg = dict(cfg)
         cfg.setdefault('dtype', dtype)
+        check_identity_aug(cfg.get('aug'))
         tower = RECOGNIZERS.get(cfg.pop('type'))
-        assert tower is not None and issubclass(tower, MoCoV2), tower
+        assert tower is not None and issubclass(tower, MoCoBase), tower
         return tower(**cfg)
-
-    def seed_aug(self, seed: int):
-        """Restart the aug's draws from seed (on the device of the next
-        batch)."""
-        self.aug_seed, self._aug_gen = seed, None
-
-    def aug_generator(self, device: torch.device) -> torch.Generator:
-        """The aug's generator, made on device from aug_seed at first use
-        (and again if the batch moves to another device)."""
-        if self._aug_gen is None or self._aug_gen.device != device:
-            self._aug_gen = torch.Generator(device=device).manual_seed(
-                self.aug_seed)
-        return self._aug_gen
-
-    def aug_state(self):
-        """The aug generator's state (a CPU byte tensor), None before the
-        first batch made it."""
-        return None if self._aug_gen is None else self._aug_gen.get_state()
-
-    def set_aug_state(self, state) -> None:
-        """Put the aug generator back as ``aug_state`` gave it, on the
-        model's device (None: made from aug_seed at the next batch)."""
-        self._aug_gen = None
-        if state is not None:
-            device = next(self.parameters()).device
-            self.aug_generator(device).set_state(state)
 
     def init_weights(self, gen: torch.Generator):
         self.recognizer.init_weights(gen)

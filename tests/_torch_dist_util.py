@@ -114,6 +114,51 @@ def mscl_steps():
                 collectives=dist.counts(), rows=B // dist.world_size())
 
 
+# ---------------------------------------------- MoCo on its own, its aug
+MOCO_CFG = dict(
+    type='MoCo',
+    backbone=dict(type='torchvision.r3d_18', layers=(1, 1, 1, 1),
+                  base_width=4),
+    neck=dict(type='BaseMoCo'),
+    moco_head=dict(type='MoCoHead', loss_cls=dict(
+        type='CrossEntropyLoss_torch', ignore_index=-1)),
+    im_key='imgs', dim_in=32, dim=DIM, K=K, m=0.99, T=0.07, mlp=True,
+    aux_info=[], aug=dict(type='SyncMoCoAugmentV2', crop_size=16,
+                          sync_level='params', t=4, flow_suffix=None))
+
+
+def moco_steps():
+    """Two train steps of a narrow MoCo tower on its own with
+    SyncMoCoAugmentV2 (the moco_r18 consistent-aug config's model, cut) on
+    this rank's rows of two global batches of 8 clips: the state, logged
+    values and gradients after each, and the aug's global draws."""
+    one_thread()
+    model = build_model_from_cfg(MOCO_CFG, device='cpu', seed=6)
+    opt = build_optimizer(
+        model, dict(type='SGD', lr=LR, momentum=0.9, weight_decay=1e-4),
+        build_lr_schedule(dict(policy='CosineAnnealing', min_lr=0), LR, 400,
+                          100),
+        grad_clip=dict(max_norm=MAX_NORM), freeze_patterns=MOCO_FREEZE)
+    step = make_train_step(model, opt, build_ema_fn(model))
+    drawn, real_draw = [], model.aug.draw
+
+    def draw(*args, **kwargs):
+        drawn.append(real_draw(*args, **kwargs))
+        return drawn[-1]
+    model.aug.draw = draw
+    rng = np.random.default_rng(10)
+    states, logs, grads = [], [], []
+    for _ in range(2):
+        batch = {'imgs': [rng.uniform(size=(B, 3, 4, 16, 16)).astype(
+            np.float32) for _ in range(2)]}
+        logs.append({k: v.item() for k, v in step(to_torch(
+            {k: rows(v) for k, v in batch.items()}, 'cpu')).items()})
+        states.append({k: v.clone() for k, v in model.state_dict().items()})
+        grads.append({k: p.grad.clone() for k, p in model.named_parameters()
+                      if p.grad is not None})
+    return dict(states=states, logs=logs, grads=grads, draws=drawn)
+
+
 # ----------------------------------------------- Recognizer3D, weighted CE
 def recognizer3d_cfg(class_weight=None):
     loss = dict(type='CrossEntropyLoss')
@@ -212,7 +257,8 @@ def eval_case():
 def bundle():
     """Everything the world of 2 checks, in one group."""
     return dict(bn={d: bn_case(d) for d in ('float32', 'bfloat16')},
-                mscl=mscl_steps(), r3d=recognizer3d_steps(),
+                mscl=mscl_steps(), moco=moco_steps(),
+                r3d=recognizer3d_steps(),
                 r3d_weighted=recognizer3d_steps([1, 2, 0.5, 3, 1.5]),
                 ce=ce_case(), eval=eval_case())
 

@@ -13,6 +13,10 @@ tests/test_distributed.py's ``test_n8_equals_n1`` at n = 2 and 4.
   ``queue_ptr``, ``iters`` exact), the EMA towers, the BN statistics, the
   parameters after SGD, 7 + 7 decayed-InfoNCE calls a step on each rank,
   and every rank's state the same;
+- two steps of a ``MoCo`` tower on its own with SyncMoCoAugmentV2 (its
+  own aug, n=2): the aug's global draws, every logged value, the queue of
+  keys gathered in rank order (``count``, ``queue_ptr``, ``iters``
+  advanced by the global batch, exact), the gradients and the state;
 - ``Recognizer3D`` with dropout 0.5, and with class weights whose
   denominators differ over the ranks; cross-entropy with ignored rows on
   one rank only;
@@ -182,6 +186,52 @@ def test_mscl_calls_and_collectives_per_rank(one, two, four, world):
         assert c['log_vars']['calls'] == 2
         assert c['grad_bucket']['calls'] == 2
         assert c['bn_backward']['calls'] * 2 == c['bn_forward']['calls']
+
+
+# ------------------------------------------------- MoCo on its own, aug
+def _leaves(tree, path=''):
+    if isinstance(tree, (list, tuple)):
+        tree = dict(enumerate(tree))
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f'{path}.{k}')
+    elif tree is not None:
+        yield path, tree
+
+
+def test_moco_aug_draws_are_global(one, two):
+    """Each rank draws the global batch's params from the same generator,
+    so every rank's draws are world 1's, bitwise."""
+    want = dict(_leaves(one['moco']['draws']))
+    assert want and len(one['moco']['draws']) == 2
+    for r, res in enumerate(two):
+        got = dict(_leaves(res['moco']['draws']))
+        assert sorted(got) == sorted(want)
+        for k, v in want.items():
+            assert torch.equal(got[k], v), (k, r)
+
+
+@pytest.mark.parametrize('step', [0, 1])
+def test_moco_steps_match(one, two, step):
+    """Logged values, the queue (every rank's keys in rank order), its
+    counters exact, the gradients and the parameters after SGD."""
+    want = one['moco']
+    for r, res in enumerate(two):
+        got = res['moco']
+        for k, v in want['logs'][step].items():
+            _close(got['logs'][step][k], v, 2e-4, 2e-4,
+                   f'{k} step {step} rank {r}')
+        ws, gs = want['states'][step], got['states'][step]
+        _close(gs['queue'], ws['queue'], 0, 2e-5, f'queue rank {r}')
+        for name in ('count', 'queue_ptr', 'iters'):
+            assert torch.equal(gs[name], ws[name]), (name, r)
+        assert int(gs['iters']) == int(gs['queue_ptr']) == du.B * (step + 1)
+        assert sorted(got['grads'][step]) == sorted(want['grads'][step])
+        for k, v in want['grads'][step].items():
+            _close(got['grads'][step][k], v, 5e-3, 1e-4, f'{k} grad rank {r}')
+        for k, v in ws.items():
+            tol = (1e-4, 1e-4) if 'running' in k else (5e-3, 1e-4)
+            _close(gs[k], v, *tol, f'{k} rank {r}')
 
 
 # ----------------------------------------------- Recognizer3D, weighted CE
