@@ -166,7 +166,25 @@ the exit code is nonzero:
    and whose first step's logged values must equal, bitwise, those the
    saving run's model gives on the same batch) and on moco_r18_lr3e-2 (1
    epoch of 8 steps), with launches, queues and the steady window as in 9;
-16. print the kernel table, the card's name and power limit, and the
+16. ablation_arms: the MSCL ablation family (the Round-5 ablation tool,
+   mscl_torch/tools/ablation_ordering.py). The decayed-InfoNCE pair at the
+   tool's shapes, B=32, C=128, K=2048 (full scale) and B=16, C=32, K=256
+   (tiny), against its plain version and float64 and timed beside
+   torch.matmul (kernel_ablation lines); card against CPU (as 6) for each
+   of the five arms at the tool's tiny scale on its own batches, for the
+   full arm with ShuffleBN (4 groups), with its flow passes as one forward
+   and under two flow keys, and for the narrow flagship whose RGB neck has
+   TemporalModulation, reverse_st and SEPC's iBN; then the tool's main()
+   at --scale full, 5 steps, for each arm (moco, modist, mscl_nofra, mscl,
+   mscl_nomds): it fails unless each kernel launches 1, 4, 4, 7, 7 times a
+   step, every loss is finite and the JSON has the JAX tool's keys; it
+   logs each arm's steady ms a step (steps 2, 3 and 5), the idle share of
+   step 4 profiled, peak memory and the downstream metrics (ablation_arm
+   lines); then shufflebn_ab through its main() (10 steps a run) and
+   ShuffleBN at world 2 (two gloo ranks sharing the card, the narrow
+   flagship model, a global batch of 8) against no group within the
+   pretrain_dp tolerances (shufflebn_ab line);
+17. print the kernel table, the card's name and power limit, and the
    result. Each phase's seconds are logged (phase_seconds).
 
 Every kernel launch counter is set to 0 just before each of the paths 7
@@ -174,9 +192,10 @@ Every kernel launch counter is set to 0 just before each of the paths 7
 its steps and before each CLI run), 15 (each config's steps and each CLI
 run), 11-14 (each CLI run; the
 fine-tune, test and retrieval paths must launch no decayed-InfoNCE
-kernel: r3d_18 goes to cuDNN) and the probe tool's run in 4, and read
-just after. The kernel table's decayed-InfoNCE launches are the pretrain
-CLI's (both runs of 9). It needs a CUDA device: without one it exits
+kernel: r3d_18 goes to cuDNN), the probe tool's run in 4 and 16 (each
+arm's run of the tool, the A/B's two runs), and read just after. The
+kernel table's decayed-InfoNCE launches are the pretrain CLI's (both runs
+of 9). It needs a CUDA device: without one it exits
 nonzero before printing any result.
 """
 from __future__ import annotations
@@ -224,6 +243,8 @@ from mscl_torch.tools import test as test_cli
 from mscl_torch.tools import test_retrieval as retrieval_cli
 from mscl_torch.tools import train as train_cli
 from mscl_torch.tools import generate_mcl_samples as mds_cli
+from mscl_torch.tools import ablation_ordering as abl_tool
+from mscl_torch.tools import shufflebn_ab as sbn_tool
 from mscl_torch.utils import image_io, jpeg, np4
 
 B, C, K = 32, 128, 65536
@@ -247,6 +268,10 @@ LOSS_KEYS = ['loss_cls', 'loss_cls_flow', 'loss_cls_flow_aug', 'loss_cls_mx',
              'loss_pos']
 # the loss terms a train step must log, by recognizer
 STEP_LOSSES = {'MSCLWithAug': LOSS_KEYS + ['loss'],
+               'MSCL': ['loss_cls', 'loss_cls_flow', 'loss_cls_mx',
+                        'loss_cls_mx_r', 'loss_pos', 'loss'],
+               'MoDist': ['loss_cls', 'loss_cls_flow', 'loss_cls_mx',
+                          'loss_cls_mx_r', 'loss'],
                'MoCo': ['loss_cls', 'loss'], 'MoCoV2': ['loss_cls', 'loss']}
 STEPS = 3
 # correlation lookup: (shape name, N, H, W) at C=256, 4 levels, radius 4
@@ -340,6 +365,15 @@ PRETRAIN_CONFIGS = ('mscl_r18_cosm_lr2e-2', 'mscl_r50_cosm_lr3e-2',
                     'moco_r18_cosistent_video_lr3e-2',
                     'moco_r50_consistent_augmentation_lr3e-2')
 PC_STEPS, PC_CLI_STEPS = 3, 8
+# ablation_arms: the decayed-InfoNCE pair at the ablation tool's shapes
+# (B, C, K: full scale, tiny scale), the tool's arms and the launches of
+# each kernel a train step (2 towers or 1, and 2 or 4 in the Mx head)
+ABL_KERNEL_SHAPES = ((32, 128, 2048), (16, 32, 256))
+ABL_LAUNCHES = dict(moco=1, modist=4, mscl_nofra=4, mscl=7, mscl_nomds=7)
+ABL_STEPS, ABL_PROFILED = 5, 3      # the tool's steps; the one profiled
+ABL_AB_STEPS = 10                   # shufflebn_ab's steps a run
+ABL_JSON_KEYS = {'arm', 'scale', 'seed', 'steps', 'batch', 'K', 'hw', 'T',
+                 'n_videos', 'platform', 'init', 'final', 'losses'}
 
 
 def log(**kw):
@@ -429,16 +463,16 @@ def phase_kernels(dev):
     return rows
 
 
-def kernel_inputs(dev, b):
-    """Unit-norm queries (b, C) and queue columns (C, K), a cotangent
-    (b, K) and the decay weights of random counts, from seed 0."""
+def kernel_inputs(dev, b, c=C, k=K):
+    """Unit-norm queries (b, c) and queue columns (c, k), a cotangent
+    (b, k) and the decay weights of random counts, from seed 0."""
     rng = np.random.default_rng(0)
-    q = rng.normal(size=(b, C)).astype(np.float32)
+    q = rng.normal(size=(b, c)).astype(np.float32)
     q /= np.linalg.norm(q, axis=1, keepdims=True)
-    queue = rng.normal(size=(C, K)).astype(np.float32)
+    queue = rng.normal(size=(c, k)).astype(np.float32)
     queue /= np.linalg.norm(queue, axis=0, keepdims=True)
-    count = rng.integers(0, 65536, size=K)
-    g = rng.normal(size=(b, K)).astype(np.float32)
+    count = rng.integers(0, 65536, size=k)
+    g = rng.normal(size=(b, k)).astype(np.float32)
     q, queue, g = (torch.from_numpy(x).to(dev) for x in (q, queue, g))
     return q, queue, g, di.decay_weights(torch.from_numpy(count).to(dev),
                                          0.99999)
@@ -448,6 +482,7 @@ def kernel_rows(q, queue, g, decay, flush):
     """l_neg and dq at q's batch against their plain versions and float64,
     each timed in turns with torch.matmul: one row a kernel."""
     b = q.shape[0]
+    c, k = queue.shape
     qg = q.clone().requires_grad_(True)
     out = di.decayed_neg(qg, queue, decay)
     out.backward(g)
@@ -466,9 +501,9 @@ def kernel_rows(q, queue, g, decay, flush):
         limit = F64_REL * ref.abs().max().item()
         err64[name], err64[name + '_limit'] = err, limit
         if not err <= limit:
-            raise AssertionError(f'{name} at B={b}: {err} from float64 > '
-                                 f'{limit}')
-    log(phase='kernel_vs_float64', batch=b, **err64)
+            raise AssertionError(f'{name} at B={b}, C={c}, K={k}: {err} '
+                                 f'from float64 > {limit}')
+    log(phase='kernel_vs_float64', batch=b, C=c, K=k, **err64)
 
     w = queue * decay
     f4 = 4
@@ -478,13 +513,13 @@ def kernel_rows(q, queue, g, decay, flush):
              lambda: di.l_neg_plain(q, queue, decay),
              lambda: torch.matmul(q, w),
              (out.detach() - want).abs().max().item(),
-             f4 * (b * C + C * K + K + b * K)),
+             f4 * (b * c + c * k + k + b * k)),
             ('decayed_infonce_dq', lambda: di.dq(g, queue, decay),
              lambda: di.dq_plain(g, queue, decay),
              lambda: torch.matmul(g, w.T),
              (qg.grad - want_dq).abs().max().item(),
-             f4 * (b * K + C * K + K + b * C))):
-        bound_ms, bound_by = bound(nbytes, 2 * b * C * K + C * K)
+             f4 * (b * k + c * k + k + b * c))):
+        bound_ms, bound_by = bound(nbytes, 2 * b * c * k + c * k)
         # kernel and library in turns on this card: kernel, library,
         # library, kernel, after one untimed round of each (the first
         # timed turn ran slow without it); each the mean of its two turns
@@ -492,7 +527,7 @@ def kernel_rows(q, queue, g, decay, flush):
             time_ms(fn, iters=5, flush=flush)
         turns = [time_ms(fn, flush=flush)
                  for fn in (kernel, library, library, kernel)]
-        row = dict(name=name, batch=b, max_abs_err=err,
+        row = dict(name=name, batch=b, C=c, K=k, max_abs_err=err,
                    kernel_ms=(turns[0] + turns[3]) / 2,
                    library_ms=(turns[1] + turns[2]) / 2,
                    turns_ms=turns, plain_ms=time_ms(plain, flush=flush),
@@ -1033,6 +1068,11 @@ def card_vs_cpu(cfg, batches, name=None):
     draws = None
     for dev in ('cpu', 'cuda'):
         model = build_model_from_cfg(cfg, device=dev, seed=1)
+        # ShuffleBN's permutations from one CPU generator, alike on both
+        perm_gen = torch.Generator().manual_seed(5)
+        for _, tower in towers(model):
+            tower.draw_shuffle = (lambda gen, b, device, g=perm_gen:
+                                  torch.randperm(b, generator=g).to(device))
         if cfg['aug']['type'] != 'IdentityAug':
             if draws is None:
                 draws = replayed_draws(model.aug, batches, seed=3)
@@ -1685,7 +1725,7 @@ def dp_compare(state, logs, ref_state, ref_logs):
         queues=lambda k: k.endswith('.queue'),
         bn_stats=lambda k: 'running' in k,
         ema=lambda k: any(f'.{p}.' in k for p in MOCO_FREEZE),
-        params=lambda k: '_q.' in k)
+        params=lambda k: '_q.' in k or k.startswith('sup_head.'))
     errs = {g: 0.0 for g in DP_TOL}
     shares = {g: 0.0 for g in DP_TOL}
     misses = {g: [] for g in list(DP_TOL) + ['exact']}
@@ -2811,6 +2851,228 @@ def phase_recognizer3d_card_vs_cpu():
                     enumerate(logs['cuda'])})
 
 
+# ------------------------------------------------------------ ablation arms
+def abl_batches(arm, b=16, seed=0):
+    """Two of the ablation tool's tiny-scale batches (its host draws)."""
+    data = abl_tool.make_videos(8, 32, 4, seed=100)
+    train_idx = np.arange(len(data['labels']))[::2]
+    rng = np.random.default_rng(seed)
+    return [abl_tool.make_batch(rng, data, train_idx, arm, b, 4)
+            for _ in range(2)]
+
+
+def abl_card_vs_cpu_cases():
+    """(name, model config, batches): each arm at the tool's tiny scale,
+    the full arm with ShuffleBN (4 groups), with its flow passes as one
+    forward and under two flow keys, and the narrow flagship whose RGB
+    neck has TemporalModulation, reverse_st and SEPC's iBN."""
+    def tiny(arm):
+        return abl_tool.arm_cfg(arm, 'tiny', 4, 256, 300, 16, 32)
+    cases = [(arm, tiny(arm), abl_batches(arm)) for arm in abl_tool.ARMS]
+    shuffle = tiny('mscl')
+    for tower in ('recognizer', 'recognizer_flow'):
+        shuffle[tower] = dict(shuffle[tower], shuffle_bn=4)
+    cases.append(('mscl+shuffle_bn4', shuffle, abl_batches('mscl')))
+    cases.append(('mscl+batch_flow_passes',
+                  dict(tiny('mscl'), batch_flow_passes=True),
+                  abl_batches('mscl')))
+    keys = ['flow_imgs', 'rot_flow_imgs']
+    two = []
+    for batch in abl_batches('mscl'):
+        flows = batch.pop('flow_imgs')
+        two.append(dict(batch, **{keys[0]: [f[:, :, :4] for f in flows],
+                                  keys[1]: [f[:, :, 4:] for f in flows]}))
+    cases.append(('mscl+two_flow_keys', dict(tiny('mscl'), flow_key=keys),
+                  two))
+    tpn = narrow_flagship_cfg(K=64, dim=32, rgb_width=16, flow_width=4,
+                              aug=dict(FLAGSHIP_AUG, crop_size=32))
+    tpn['recognizer'] = dict(tpn['recognizer'], neck=dict(
+        tpn['recognizer']['neck'], reverse_st=True,
+        temporal_modulation_cfg=dict(downsample_scales=(3, 3, 3)),
+        sepc_cfg=dict(tpn['recognizer']['neck']['sepc_cfg'], iBN=True)))
+    cases.append(('tpn_tm_reverse_st_ibn', tpn,
+                  [flagship_batch(4, hw=32, seed=s) for s in (15, 16)]))
+    return cases
+
+
+def abl_tool_run(arm, out_dir):
+    """The ablation tool's main at full scale for ABL_STEPS steps, one
+    step (ABL_PROFILED) profiled: its record, step times and losses,
+    launches, peak memory and the profiled step's summary."""
+    from torch.profiler import ProfilerActivity
+    step_s, losses, prof = [], [], {}
+
+    def on_step(s, seconds, loss):
+        step_s.append(seconds)
+        losses.append(loss)
+        if s == ABL_PROFILED - 1:
+            prof['p'] = torch.profiler.profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            prof['p'].__enter__()
+            prof['t0'] = time.perf_counter()
+        elif s == ABL_PROFILED:
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - prof['t0']) * 1e3
+            prof['p'].__exit__(None, None, None)
+            prof['summary'] = profile_summary(f'ablation_{arm}', prof['p'],
+                                              wall_ms)
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    record = abl_tool.main(['--arm', arm, '--scale', 'full', '--steps',
+                            str(ABL_STEPS), '--out-dir', out_dir],
+                           on_step=on_step)
+    seconds = time.perf_counter() - t0
+    return dict(record=record, step_s=step_s, losses=losses,
+                launches=dict(l_neg=di.l_neg.launches, dq=di.dq.launches),
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                profiled=prof['summary'], seconds=seconds)
+
+
+def abl_check_record(arm, run, out_dir):
+    """The tool's JSON (written and returned) has the JAX tool's keys and
+    finite metrics in [0, 1]; every step's loss is finite; each kernel
+    launched ABL_LAUNCHES[arm] times a step."""
+    record = run['record']
+    with open(osp.join(out_dir, f'{arm}_full_s0.json')) as f:
+        written = json.load(f)
+    if set(written) != ABL_JSON_KEYS or set(record) != ABL_JSON_KEYS:
+        raise AssertionError(f'{arm}: JSON keys {sorted(written)}')
+    for when in ('init', 'final'):
+        m = written[when]
+        vals = [m['motion']['R@1'], m['motion']['R@5'], m['probe_acc'],
+                m['instance_R1']]
+        if not all(0.0 <= v <= 1.0 for v in vals):
+            raise AssertionError(f'{arm} {when} metrics {m}')
+    if len(run['losses']) != ABL_STEPS or \
+            not all(math.isfinite(v) for v in run['losses']):
+        raise AssertionError(f'{arm}: losses {run["losses"]}')
+    want = ABL_LAUNCHES[arm] * ABL_STEPS
+    if run['launches'] != dict(l_neg=want, dq=want):
+        raise AssertionError(f'{arm}: launches {run["launches"]}, want '
+                             f'{want} each')
+
+
+def abl_dp_steps(ref_path=None):
+    """Two steps of the narrow flagship model with ShuffleBN (4 groups) in
+    both towers and SyncMoCoAugmentV5, on this rank's rows of two global
+    batches of 8 (all of them with no group). Returns the states and logs,
+    or with ref_path (world 1's) each step's comparison against it, and
+    the collectives."""
+    dev = torch.device('cuda', torch.cuda.current_device())
+    cfg = narrow_flagship_cfg(aug=dict(FLAGSHIP_AUG, crop_size=32))
+    for tower in ('recognizer', 'recognizer_flow'):
+        cfg[tower] = dict(cfg[tower], shuffle_bn=4)
+    model = build_model_from_cfg(cfg, device=dev, seed=0)
+    opt = build_optimizer(
+        model, dict(type='SGD', lr=0.02, momentum=0.9, weight_decay=1e-4),
+        build_lr_schedule(dict(policy='CosineAnnealing', min_lr=0), 0.02,
+                          400, 100),
+        grad_clip=dict(max_norm=40), freeze_patterns=MOCO_FREEZE)
+    step = make_train_step(model, opt, build_ema_fn(model))
+    dist.reset_counts()
+    states, logs = [], []
+    for seed in (17, 18):
+        batch = dp_rows(flagship_batch(8, hw=32, seed=seed))
+        logs.append({k: v.item() for k, v in
+                     step(to_torch(batch, dev)).items()})
+        states.append({k: v.detach().to('cpu', copy=True)
+                       for k, v in model.state_dict().items()})
+    out = dict(collectives=dist.counts(), logs=logs)
+    if ref_path is None:
+        out['states'] = states
+    else:
+        ref = torch.load(ref_path, weights_only=True)
+        out['compare'] = [dp_compare(st, lv, rs, rl) for st, lv, rs, rl in
+                          zip(states, logs, ref['states'], ref['logs'])]
+        out['digest'] = state_digest(states[-1])
+    return out
+
+
+def abl_shufflebn(root):
+    """shufflebn_ab through its main on the card; then ShuffleBN at world
+    2 (two gloo ranks sharing the card) against no group, within
+    DP_TOL."""
+    path = osp.join(root, 'shufflebn_ab.json')
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    ab = sbn_tool.main(['--steps', str(ABL_AB_STEPS), '--out', path])
+    ab_s = time.perf_counter() - t0
+    want = 2 * ABL_AB_STEPS
+    launches = dict(l_neg=di.l_neg.launches, dq=di.dq.launches)
+    if launches != dict(l_neg=want, dq=want):
+        raise AssertionError(f'shufflebn_ab: launches {launches}')
+    for name in ('global_bn', 'shuffle_bn4'):
+        r = ab[name]
+        if len(r['losses']) != ABL_AB_STEPS or not all(
+                math.isfinite(v) for v in r['losses']) or \
+                not 0 <= r['R@1'] <= r['R@5'] <= 1:
+            raise AssertionError(f'shufflebn_ab {name}: {r}')
+    ref_path = osp.join(root, 'abl_dp_world1.pth')
+    ref = abl_dp_steps()
+    torch.save(dict(states=ref['states'], logs=ref['logs']), ref_path)
+    ranks = dist.spawn(abl_dp_steps, 2, (ref_path,), backend='gloo',
+                       device='cuda', join_timeout_s=600)
+    worst = {}
+    for r in ranks:
+        for i, (errs, shares, misses) in enumerate(r['compare']):
+            bad = {g: m for g, m in misses.items() if m}
+            if bad:
+                raise AssertionError(f'ShuffleBN world 2 step {i + 1}: '
+                                     f'{bad}')
+            for g, v in shares.items():
+                worst[g] = max(worst.get(g, 0.0), v)
+        if r['collectives'].get('shuffle_bn', {}).get('calls') != 2 * 3:
+            raise AssertionError(f'ShuffleBN gathers {r["collectives"]}')
+    if ranks[0]['digest'] != ranks[1]['digest']:
+        raise AssertionError('ShuffleBN world 2: the ranks differ')
+    log(phase='shufflebn_ab', steps=ABL_AB_STEPS, seconds=ab_s,
+        launches=launches,
+        **{f'{n}_{k}': ab[n][k] for n in ab for k in ('R@1', 'R@5')},
+        final_loss={n: ab[n]['losses'][-1] for n in ab},
+        world2_worst_share_of_tol=worst,
+        world2_collectives=ranks[0]['collectives'])
+
+
+def phase_ablation_arms(dev, root):
+    """The MSCL ablation family: the decayed-InfoNCE pair at the ablation
+    tool's shapes (kernel_ablation lines); card against CPU for each arm
+    (tiny scale) and option; the tool's main at full scale for every arm
+    (ablation_arm lines); the ShuffleBN A/B and ShuffleBN at world 2."""
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    rows = []
+    for b, c, k in ABL_KERNEL_SHAPES:
+        for row in kernel_rows(*kernel_inputs(dev, b, c, k), flush):
+            row['launches_per_step'] = ABL_LAUNCHES
+            log(phase='kernel_ablation', **row)
+            rows.append(row)
+    del flush
+    for name, cfg, batches in abl_card_vs_cpu_cases():
+        card_vs_cpu(cfg, batches, name)
+    out_dir = osp.join(root, 'ablation')
+    arms = {}
+    for arm in abl_tool.ARMS:
+        run = abl_tool_run(arm, out_dir)
+        abl_check_record(arm, run, out_dir)
+        steady = [t for i, t in enumerate(run['step_s'])
+                  if i not in (0, ABL_PROFILED)]
+        arms[arm] = dict(
+            steps=ABL_STEPS, step_ms=[t * 1e3 for t in run['step_s']],
+            steady_ms=1e3 * sum(steady) / len(steady),
+            device_busy_ms=run['profiled']['device_busy_ms'],
+            device_idle_share=run['profiled']['device_idle_share'],
+            profiled_wall_ms=run['profiled']['wall_ms'],
+            peak_bytes=run['peak_bytes'], launches=run['launches'],
+            seconds=run['seconds'], losses=run['losses'],
+            init=run['record']['init'], final=run['record']['final'])
+        log(phase='ablation_arm', arm=arm, **arms[arm])
+    abl_shufflebn(root)
+    return rows, arms
+
+
 def _kernel_class(name):
     """Class of a device kernel by its name; the first match wins, so BN
     and resize kernels that cuDNN or a conv-like name carries come first."""
@@ -2841,6 +3103,11 @@ def profile(path, fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    return profile_summary(path, prof, wall_ms)
+
+
+def profile_summary(path, prof, wall_ms):
+    """``profile``'s line and summary from a finished profiler."""
     by_class, top = {}, []
     for e in prof.key_averages():
         if getattr(e, 'device_type', None) != torch.autograd.DeviceType.CUDA:
@@ -2908,6 +3175,7 @@ def main():
             pretrain_ckpt)
         run('readme_jpeg', phase_readme_jpeg, root)
         run('pretrain_configs', phase_pretrain_configs, dev, root, pkls)
+        run('ablation_arms', phase_ablation_arms, dev, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(phase='phase_seconds', total=sum(seconds.values()), **seconds)

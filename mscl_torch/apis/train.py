@@ -12,6 +12,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Union
 
 import torch
+from torch.nn.parameter import is_lazy
 
 from ..core import Runner, build_lr_schedule, build_optimizer
 from ..core.checkpoint import FORMAT, load_checkpoint
@@ -149,8 +150,11 @@ def train_model(cfg, validate: bool = True, resume_from: Optional[str] = None,
     if ssl_cfg:
         apply_ssl_pretrain(model, dict(ssl_cfg))
     # the ranks built the same model from one seed; rank 0's makes sure
+    # (a head's lazy projection, shapeless until its first call, is drawn
+    # from a seed taken alike on every rank)
     with torch.no_grad():
-        dist.broadcast_(list(model.state_dict().values()), tag='model_init')
+        dist.broadcast_([v for v in model.state_dict().values()
+                         if not is_lazy(v)], tag='model_init')
 
     total_epochs = max_epochs or cfg.get('total_epochs', 1)
     steps_per_epoch = max(len(train_loader), 1)

@@ -20,6 +20,14 @@ time:
   moco_state ``queue``, ``count``, ``queue_ptr``, ``iters`` as they are
   (integers as int64).
 
+The ablation family's modules keep the flax names, so the same rules
+cover them: the alignment heads' Dense projections ``trans_rgb``,
+``trans_rgb_0`` / ``trans_rgb_1``, ``trans_flow``, ``ap_fc1`` / ``ap_fc2``
+(kernels transposed as any Dense); TemporalModulation's grouped conv
+``tpn/tm_{i}/conv`` (its (3, 1, 1, C/32, C) kernel -> (C, C/32, 3, 1, 1),
+torch's grouped layout); SEPC's integrated BN ``sepc/pconv3d_{j}/ibn``;
+TPNProjMoCo's convs ``proj{i}_0`` / ``proj{i}_1``.
+
 Leaves are read with ``np.asarray``, so JAX arrays work without importing
 JAX here. RAFT has its own mapping onto the official RAFT names:
 ``raft_jax_to_state_dict``.

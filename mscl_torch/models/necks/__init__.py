@@ -1,7 +1,10 @@
-from .base_moco import BaseMoCo, TPNMoCo, gap3d
+from .base_moco import (BaseMoCo, BaseMoCo_TwoR5, MixBaseMoCo, TPNMoCo,
+                        TPNProjMoCo, TPNProjMoCoV2, gap3d)
 from .fpn import FPN, torch_nearest_resize
-from .fpn_video import TPNSingle
+from .fpn_video import TemporalModulation, TPNSingle
 from .sepc import SEPC, PConv3D, trilinear_resize
 
-__all__ = ['BaseMoCo', 'TPNMoCo', 'gap3d', 'FPN', 'torch_nearest_resize',
-           'TPNSingle', 'SEPC', 'PConv3D', 'trilinear_resize']
+__all__ = ['BaseMoCo', 'BaseMoCo_TwoR5', 'MixBaseMoCo', 'TPNMoCo',
+           'TPNProjMoCo', 'TPNProjMoCoV2', 'gap3d', 'FPN',
+           'torch_nearest_resize', 'TemporalModulation', 'TPNSingle', 'SEPC',
+           'PConv3D', 'trilinear_resize']

@@ -3,7 +3,10 @@
 Port of ``mscl_tpu/models/necks/sepc.py``: each level gets
 Pconv[1](self) + Pconv[2](finer level, strided) + the trilinear-upsampled
 Pconv[0](coarser level), in the compute ``dtype``; convs init normal(0, 0.01)
-with zero bias.
+with zero bias. With ``iBN`` one BN (``ibn``, the JAX package's BN in the
+compute dtype) normalises every level's positions together before the
+ReLU; in a process group it takes the global batch's statistics, as every
+BN of the port does.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import compute_dtype
+from ..backbones.video_resnet import make_bn
 from ..builder import NECKS
 
 
@@ -38,9 +42,10 @@ class PConv3D(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int,
                  stride: Tuple[int, int, int] = (2, 1, 1),
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, iBN: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.ibn = make_bn(out_channels, dtype) if iBN else None
         self.pconv0 = nn.Conv3d(in_channels, out_channels, 3, padding=1)
         self.pconv1 = nn.Conv3d(in_channels, out_channels, 3, padding=1)
         self.pconv2 = nn.Conv3d(in_channels, out_channels, 3, stride=stride,
@@ -59,26 +64,34 @@ class PConv3D(nn.Module):
                 temp = temp + trilinear_resize(conv(self.pconv0, x[level + 1]),
                                                temp.shape[2:])
             outs.append(temp)
+        if self.ibn is not None:
+            outs = self._integrated_bn(outs)
         return [F.relu(p) for p in outs]
+
+    def _integrated_bn(self, outs):
+        """One BN over the positions of all levels, concatenated."""
+        n, c = outs[0].shape[:2]
+        sizes = [p[0, 0].numel() for p in outs]
+        flat = self.ibn(torch.cat([p.reshape(n, c, -1) for p in outs], dim=2))
+        return [part.reshape(p.shape) for part, p in
+                zip(flat.split(sizes, dim=2), outs)]
 
 
 @NECKS.register_module()
 class SEPC(nn.Module):
-    """A stack of Pconv_num PConv3D stages (iBN is not ported)."""
+    """A stack of Pconv_num PConv3D stages."""
 
     def __init__(self, in_channels: Sequence[int] = (256, 256, 256),
                  out_channels: int = 256, stride=(2, 1, 1), iBN: bool = False,
                  Pconv_num: int = 2, dtype=None):
         super().__init__()
         dtype = compute_dtype.resolve_dtype(dtype)
-        if iBN:
-            raise NotImplementedError('SEPC iBN is not ported yet')
         self.in_channels = list(in_channels)
         self.Pconv_num = Pconv_num
         for i in range(Pconv_num):
             setattr(self, f'pconv3d_{i}', PConv3D(
                 in_channels[0] if i == 0 else out_channels, out_channels,
-                tuple(stride), dtype))
+                tuple(stride), dtype, iBN))
 
     @torch.no_grad()
     def init_weights(self, gen: torch.Generator):

@@ -19,8 +19,16 @@ Port of ``mscl_tpu/models/recognizers/moco.py`` (``_MoCoBase`` as
     the encoders, necks and MLPs: q, k and l_pos are in it, l_neg promotes
     to float32 as the JAX einsum of q with the float32 queue does (so the
     kernel takes q in float32), and the queue stays float32;
-  - key BN statistics over the global batch (no ShuffleBN), as in the JAX
-    package;
+  - key BN statistics over the global batch, as in the JAX package; or,
+    with ``shuffle_bn = g > 1``, ShuffleBN: a permutation of the global key
+    batch drawn from the aug's generator after the aug's draws (the JAX
+    step's 'moco' stream), the key encoder, neck and MLP run per group of
+    B/g rows of it, each group with its own BN statistics and running-stat
+    update (in a process group too: ``batch_norm.local_statistics``), and
+    the keys put back in order;
+  - ``forward_train_pair``: two passes (MSCLWithAug's base and rotated
+    flow) as one forward at a batch of 2B, so their BN statistics are
+    joint, then the loss and the queue bookkeeping per pass, in order;
   - the key side's multi-level features are not computed: no head reads
     them (LMCL reads the query side's), and its embedding is pooled from the
     backbone's last stage, so the key neck's pyramid would be dead work
@@ -31,7 +39,9 @@ In a process group (``parallel/dist.py``) each rank holds its rows of the
 global batch: its q against the replicated queue, the keys of every rank
 gathered in rank order for the enqueue (as the JAX step's global batch holds
 them), and ``iters`` advanced by the global batch, so the queue state stays
-the same on every rank.
+the same on every rank. ShuffleBN gathers the key clips and every rank runs
+every group on the global batch (the key side takes no gradient), so the
+groups and their running statistics are those of one device.
 
 The enqueue is out of place: each one makes a new queue tensor. The
 negative products of this pass, and the cross-modal head later in the step,
@@ -49,6 +59,7 @@ from torch import nn
 from .. import compute_dtype
 from ..builder import (RECOGNIZERS, build_backbone, build_head, build_neck,
                        build_ssl_aug)
+from ...ops import batch_norm as bn_ops
 from ...ops.decayed_infonce import decay_weights, decayed_neg
 from ...parallel import dist
 from .base import parse_losses
@@ -132,10 +143,7 @@ class MoCoBase(AugGenerator, nn.Module):
                  max_iters=1, T=0.07, mlp=False, aux_info=(), aug=None,
                  train_cfg=None, test_cfg=None, shuffle_bn=0, dtype=None):
         super().__init__()
-        if shuffle_bn > 1:
-            raise NotImplementedError(
-                'shuffle_bn > 1 (per-group key BN) is not ported; the key '
-                'BN takes the global batch')
+        self.shuffle_bn = shuffle_bn
         self.dtype = compute_dtype.resolve_dtype(dtype)
         self.aug = build_ssl_aug(dict(aug or dict(type='IdentityAug')))
         self.im_key = im_key
@@ -205,20 +213,51 @@ class MoCoBase(AugGenerator, nn.Module):
         self.queue_ptr = (self.queue_ptr + b) % self.K
 
     # ---------------------------------------------------------- forward
-    def extract_feat(self, im_q, im_k):
+    def extract_feat(self, im_q, im_k, gen=None, parts=1):
+        """q, q's multi-level features and k. ``gen`` draws ShuffleBN's
+        permutation (default: this tower's aug generator); ``parts`` says
+        how many passes the rows hold, one after another (2 in
+        forward_train_pair), so that ShuffleBN permutes the global batch
+        as one device holds it."""
         q_emb, q_mlvl = self.neck_q(self.encoder_q(im_q))
         q = F.normalize(self.mlp_q(q_emb), dim=1, eps=1e-12)
         with torch.no_grad():
-            k_emb, _ = self.neck_k(self.encoder_k(im_k), mlvl=False)
-            k = F.normalize(self.mlp_k(k_emb), dim=1, eps=1e-12)
+            if self.training and self.shuffle_bn > 1:
+                k = self._shuffled_keys(im_k, gen, parts)
+            else:
+                k = self._key_forward(im_k)
         return q, q_mlvl, k
 
-    def forward_train(self, im_q, im_k, update_queue: bool = True,
-                      aux_info=None):
-        """im_q/im_k: (B, C, T, H, W), after the aug. Returns (losses,
-        features); features carry ``bank`` = (queue, decay) as they were
-        before the enqueue. ``aux_info`` goes on to the head's loss."""
-        q, q_mlvl, k = self.extract_feat(im_q, im_k)
+    def _key_forward(self, im_k):
+        k_emb, _ = self.neck_k(self.encoder_k(im_k), mlvl=False)
+        return F.normalize(self.mlp_k(k_emb), dim=1, eps=1e-12)
+
+    def draw_shuffle(self, gen, b, device) -> torch.Tensor:
+        """ShuffleBN's permutation of a global key batch of b."""
+        return torch.randperm(b, generator=gen, device=device)
+
+    def _shuffled_keys(self, im_k, gen, parts):
+        """ShuffleBN: the global key batch permuted, the key side run per
+        group of B/g of it with the group's own BN statistics, the keys put
+        back in order; this rank's rows."""
+        if gen is None:
+            gen = self.aug_generator(im_k.device)
+        x = torch.cat([dist.all_gather_rows(part, tag='shuffle_bn')
+                       for part in im_k.chunk(parts)])
+        b, g = x.shape[0], self.shuffle_bn
+        if b % g:
+            raise ValueError(f'batch {b} % shuffle_bn groups {g} != 0')
+        perm = self.draw_shuffle(gen, b, x.device)
+        with bn_ops.local_statistics():
+            k = torch.cat([self._key_forward(part)
+                           for part in x[perm].chunk(g)])
+        k = k[torch.argsort(perm)]
+        return torch.cat([dist.rank_rows(part) for part in k.chunk(parts)])
+
+    def _instance_loss(self, q, q_mlvl, k, update_queue, aux_info):
+        """The decayed-queue InfoNCE, the enqueue and ``iters``, the head's
+        loss: everything after the forward, shared by forward_train and
+        forward_train_pair."""
         l_pos = (q * k).sum(dim=1, keepdim=True)
         decay = decay_weights(self.count, self.t_decay)
         bank = (self.queue, decay)
@@ -232,6 +271,34 @@ class MoCoBase(AugGenerator, nn.Module):
         losses = self.moco_head.loss(logits, labels, **(aux_info or {}))
         return losses, dict(q=q, q_mlvl=q_mlvl, k=k, q_neg=l_neg,
                             bank=bank)
+
+    def forward_train(self, im_q, im_k, update_queue: bool = True,
+                      aux_info=None, gen=None):
+        """im_q/im_k: (B, C, T, H, W), after the aug. Returns (losses,
+        features); features carry ``bank`` = (queue, decay) as they were
+        before the enqueue. ``aux_info`` goes on to the head's loss; ``gen``
+        draws ShuffleBN's permutation."""
+        q, q_mlvl, k = self.extract_feat(im_q, im_k, gen)
+        return self._instance_loss(q, q_mlvl, k, update_queue, aux_info)
+
+    def forward_train_pair(self, im_q_a, im_k_a, im_q_b, im_k_b,
+                           update_queue_b: bool = True, aux_info=None,
+                           gen=None):
+        """Two forward_train passes with one forward at a batch of 2B: the
+        BN statistics are joint over both passes (the JAX package's opt-in
+        divergence from the reference, which takes them per pass); the
+        loss and queue bookkeeping then run per pass, a first (it
+        enqueues), b after it (it enqueues only if update_queue_b), so b's
+        negatives are the queue a left. Returns ((losses, features) of a,
+        of b)."""
+        b = im_q_a.shape[0]
+        q2, q_mlvl2, k2 = self.extract_feat(torch.cat([im_q_a, im_q_b]),
+                                            torch.cat([im_k_a, im_k_b]), gen,
+                                            parts=2)
+        return (self._instance_loss(q2[:b], [m[:b] for m in q_mlvl2], k2[:b],
+                                    True, aux_info),
+                self._instance_loss(q2[b:], [m[b:] for m in q_mlvl2], k2[b:],
+                                    update_queue_b, aux_info))
 
     def train_step(self, batch):
         """A tower trained on its own: ``batch[im_key]`` is the [q, k] pair
@@ -269,18 +336,21 @@ class MoCoV2(MoCoBase):
 def build_ema_fn(model):
     """A callable that EMA-updates the key towers in place before the
     forward (the JAX ``build_ema_fn``): a tower on its own with its step's
-    momentum; both towers of an MSCLWithAug.
+    momentum; both towers of a composite (MSCLWithAug, MSCL, MoDist).
 
     MSCLWithAug runs its flow tower twice a step and the reference updates
     the key encoder inside every forward, so the flow tower's step momentum
-    is m**2."""
+    is m**2 (also with batch_flow_passes, as in JAX); MSCL and MoDist run
+    it once. The JAX function tells them apart by the class's name, and so
+    does this one."""
     if isinstance(model, MoCoBase):
         def tower_fn():
             model.ema_(model.momentum())
         return tower_fn
     rgb, flow = model.recognizer, model.recognizer_flow
+    flow_passes = 2 if type(model).__name__ == 'MSCLWithAug' else 1
 
     def fn():
         rgb.ema_(rgb.momentum())
-        flow.ema_(flow.momentum() ** 2)
+        flow.ema_(flow.momentum() ** flow_passes)
     return fn

@@ -14,15 +14,38 @@ all-reduce ``[sum x, sum x^2, n]`` in float32 once a call, take the mean and
 the biased variance E[x^2] - E[x]^2 from it, normalise with ``_BNTrainApply``
 and all-reduce ``[sum dy, sum dy*xhat]`` in its backward, so dx is the
 global batch's; d_weight and d_bias stay the rank's sums, which the
-gradient all-reduce adds up. With no group nothing changes.
+gradient all-reduce adds up. With no group nothing changes. Inside
+``local_statistics`` they take their own input's statistics in a group too
+(ShuffleBN's key groups).
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..parallel import dist
+
+
+_LOCAL = [False]
+
+
+@contextlib.contextmanager
+def local_statistics():
+    """Train-mode BN inside normalises with the statistics of its own input,
+    also in a process group: ShuffleBN's key groups, which every rank runs
+    on the whole gathered key batch."""
+    prev, _LOCAL[0] = _LOCAL[0], True
+    try:
+        yield
+    finally:
+        _LOCAL[0] = prev
+
+
+def _global_statistics() -> bool:
+    return dist.is_distributed() and not _LOCAL[0]
 
 
 class BatchNorm3d(nn.Module):
@@ -40,7 +63,7 @@ class BatchNorm3d(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
-        if dist.is_distributed():
+        if _global_statistics():
             return _global_bn_train(self, x)
         # F.batch_norm updates the running stats it is given in place and
         # autograd saves them, so it gets copies; the buffers are then set
@@ -157,7 +180,7 @@ class LowPrecisionBatchNorm(BatchNorm3d):
             b32 = self.bias - self.running_mean * a32
             return (x * a32.to(dt).reshape(shape) +
                     b32.to(dt).reshape(shape)).to(self.compute_dtype)
-        if dist.is_distributed():
+        if _global_statistics():
             return _global_bn_train(self, x).to(self.compute_dtype)
         with torch.no_grad():
             mean32, var32 = _batch_stats(x)

@@ -81,11 +81,13 @@ def bn_case(dtype_name):
 
 
 # ------------------------------------------------------- MSCLWithAug V5
-def mscl_steps():
+def mscl_steps(option=None):
     """Two train steps of the narrow MSCLWithAug with SyncMoCoAugmentV5 on
     this rank's rows of two global batches of 8: the state after each,
     the logged values, the decayed-InfoNCE calls (the plain versions'
-    calls on the CPU) and the collectives."""
+    calls on the CPU) and the collectives. ``option``: 'shuffle_bn'
+    (ShuffleBN with 4 groups in both towers) or 'flow_batched' (the flow
+    passes as one forward)."""
     one_thread()
     calls = dict(l_neg_plain=0, dq_plain=0)
     for name in calls:
@@ -93,6 +95,11 @@ def mscl_steps():
     cfg = narrow_flagship_cfg(K=K, dim=DIM, rgb_width=RGB_W,
                               flow_width=FLOW_W, num_frames=T,
                               aug=dict(FLAGSHIP_AUG, crop_size=HW))
+    if option == 'shuffle_bn':
+        for tower in ('recognizer', 'recognizer_flow'):
+            cfg[tower] = dict(cfg[tower], shuffle_bn=4)
+    elif option == 'flow_batched':
+        cfg['batch_flow_passes'] = True
     model = build_model_from_cfg(cfg, device='cpu', seed=3)
     opt = build_optimizer(
         model, dict(type='SGD', lr=LR, momentum=0.9, weight_decay=1e-4),
@@ -261,6 +268,12 @@ def bundle():
                 r3d=recognizer3d_steps(),
                 r3d_weighted=recognizer3d_steps([1, 2, 0.5, 3, 1.5]),
                 ce=ce_case(), eval=eval_case())
+
+
+def ablation_options():
+    """mscl_steps with each option of the ablation family."""
+    return {option: mscl_steps(option)
+            for option in ('shuffle_bn', 'flow_batched')}
 
 
 def fail_on_rank_1():

@@ -6,16 +6,28 @@ with the device aug's draws replayed from JAX's key.
 As tests/test_torch_mscl_step_aug.py: the JAX aug's key is captured inside
 the jitted step (its ``__call__`` wrapped with ``jax.debug.callback``), JAX's
 draws are replayed from it (tests/_torch_aug_util.py) and handed to the
-port's aug through its draw/apply split. The start state syncs the key side
+port's aug through its draw/apply split. ShuffleBN's permutations are
+captured the same way (``jax.random.permutation`` wrapped, in program
+order) and handed to each tower's ``draw_shuffle``. The start state syncs the key side
 to the query side and then moves it, its queues and its counters off their
 trivial values, so the EMA, the decay and the momentum do real work and the
-second step's enqueue wraps to 0. Tolerances (ROADMAP.md): losses 2e-4,
+second step's enqueue wraps to 0. With ``x64`` the JAX step runs in float64
+(x64 on, the model's dtype float64, flax's nn.BatchNorm through
+MSCL_BN_IMPL=flax; its parameters stay float32), the reference for inputs
+on which JAX's float32 BN statistics are ill-conditioned, and the port in
+float32 is held to it; the aug runs in float32 in both (its colour wheel
+floors at exact ties, which float64 breaks otherwise), its draws replayed
+as JAX drew them under x64 and handed to the port in float32. Tolerances (ROADMAP.md): losses 2e-4,
 queues 2e-5 (count, queue_ptr, iters exact), EMA 1e-5, BN statistics 1e-4,
 SGD-updated query parameters rtol 5e-3, atol 1e-4.
 """
+import contextlib
+import os
+
 import jax
 import numpy as np
 import pytest
+import torch
 
 import _torch_aug_util as draws
 from mscl_tpu.apis.train import build_model_from_cfg as jax_build
@@ -44,7 +56,10 @@ def _opt_cfg():
 
 
 def _moved(ms, K, B, iters, rng):
-    return dict(ms, queue_ptr=np.int32(K - 2 * B),
+    # under x64 the enqueue's literal 0 index is int64, and
+    # dynamic_update_slice wants the pointer of the same type
+    ptr = np.int64 if jax.config.jax_enable_x64 else np.int32
+    return dict(ms, queue_ptr=ptr(K - 2 * B),
                 count=rng.integers(0, 500, size=(K,)).astype(np.int32),
                 iters=np.int32(iters))
 
@@ -81,22 +96,66 @@ def replay(aug_type, model_aug, key, B, T):
     return draws.sync_v5(model_aug, jax.numpy.asarray(key), B, T)
 
 
-def two_steps(cfg, batches, K, B, T):
+@contextlib.contextmanager
+def jax_float64():
+    """x64 on and flax's nn.BatchNorm (float64 statistics) for the models
+    built inside."""
+    prev = os.environ.get('MSCL_BN_IMPL')
+    os.environ['MSCL_BN_IMPL'] = 'flax'
+    try:
+        with jax.enable_x64(True):
+            yield
+    finally:
+        if prev is None:
+            del os.environ['MSCL_BN_IMPL']
+        else:
+            os.environ['MSCL_BN_IMPL'] = prev
+
+
+def _float32(tree):
+    if isinstance(tree, dict):
+        return {k: _float32(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_float32(v) for v in tree)
+    if isinstance(tree, torch.Tensor) and tree.dtype == torch.float64:
+        return tree.float()
+    return tree
+
+
+def two_steps(cfg, batches, K, B, T, x64=False):
     """Two JAX steps and two port steps of ``cfg`` from the same start on
-    the same batches and aug draws. Returns JAX's states and logs and the
-    port's state dicts and logs."""
+    the same batches and aug draws (JAX in float64 with ``x64``). Returns
+    JAX's states and logs and the port's state dicts and logs."""
     aug_type = cfg['aug']['type']
-    keys = []
+    keys, perms = [], []
     aug_cls = getattr(jax_ssl_aug, aug_type)
     call = aug_cls.__call__
+    permutation = jax.random.permutation
 
     def recording_call(self, rng, *args, **kwargs):
         jax.debug.callback(lambda k: keys.append(np.asarray(k)), rng)
-        return call(self, rng, *args, **kwargs)
+        if not x64:
+            return call(self, rng, *args, **kwargs)
+        # the aug in float32, as the port's float32 model runs it: in
+        # float64 the wheel's floor lands otherwise at exact ties
+        to32 = jax.tree.map(lambda a: a.astype(np.float32) if a.dtype ==
+                            np.float64 else a, (args, kwargs))
+        dt = jax.numpy.float64
+        return jax.tree.map(lambda a: a.astype(dt) if a.dtype == np.float32
+                            else a, call(self, rng, *to32[0], **to32[1]))
 
-    with pytest.MonkeyPatch.context() as mp:
+    def recording_permutation(key, x, *args, **kwargs):
+        out = permutation(key, x, *args, **kwargs)
+        jax.debug.callback(lambda p: perms.append(np.asarray(p)), out,
+                           ordered=True)
+        return out
+
+    model = build_model_from_cfg(cfg, device='cpu')
+    precision = jax_float64() if x64 else contextlib.nullcontext()
+    with pytest.MonkeyPatch.context() as mp, precision:
         mp.setattr(aug_cls, '__call__', recording_call)
-        jmodel = jax_build(cfg)
+        mp.setattr(jax.random, 'permutation', recording_permutation)
+        jmodel = jax_build(cfg, dtype=jax.numpy.float64 if x64 else None)
         tx = jax_optimizer(_opt_cfg(), jax_lr(*_lr_cfg()),
                            grad_clip=dict(max_norm=MAX_NORM),
                            freeze_patterns=MOCO_FREEZE)
@@ -105,21 +164,25 @@ def two_steps(cfg, batches, K, B, T):
         step = jax.jit(jax_step(jmodel, tx, jax_ema(jmodel)))
         jax.effects_barrier()
         del keys[:]                           # the init's own aug call
+        del perms[:]
         jstates, jlogs = [state], []
         for batch in batches:
             state, log_vars = step(state, batch)
             jstates.append(state)
             jlogs.append(jax.device_get(log_vars))
         jax.effects_barrier()
+        replayed = [_float32(replay(aug_type, model.aug, k, B, T))
+                    for k in keys]
     assert len(keys) == len(batches), len(keys)
 
-    model = build_model_from_cfg(cfg, device='cpu')
     s0 = jstates[0]
     load_jax_variables(model, {'params': s0.params,
                                'batch_stats': s0.batch_stats,
                                'moco_state': s0.moco_state})
-    replayed = [replay(aug_type, model.aug, k, B, T) for k in keys]
     model.aug.draw = lambda gen, im_q, im_k, aux_info=None: replayed.pop(0)
+    for _, tower in towers(model):
+        tower.draw_shuffle = \
+            lambda gen, b, device: torch.from_numpy(perms.pop(0)).long()
     opt = build_optimizer(model, _opt_cfg(), build_lr_schedule(*_lr_cfg()),
                           grad_clip=dict(max_norm=MAX_NORM),
                           freeze_patterns=MOCO_FREEZE)
@@ -130,9 +193,17 @@ def two_steps(cfg, batches, K, B, T):
                       tstep(to_torch(batch, 'cpu')).items()})
         tstates.append({k: v.clone() for k, v in
                         model.state_dict().items()})
-    assert not replayed
+    assert not replayed and not perms
     return dict(jstates=jstates, jlogs=jlogs, tstates=tstates, tlogs=tlogs,
                 model=model, opt=opt)
+
+
+def towers(model):
+    """(prefix, tower) of each MoCo tower of a model."""
+    if hasattr(model, 'recognizer'):
+        return (('recognizer.', model.recognizer),
+                ('recognizer_flow.', model.recognizer_flow))
+    return (('', model),)
 
 
 def jax_sd(state):

@@ -493,7 +493,7 @@ def _frozen_enqueue(self, k):
     self.queue_ptr = (self.queue_ptr + b) % self.K
 
 
-def _frozen_forward_train(self, im_q, im_k, update_queue=True):
+def _frozen_forward_train(self, im_q, im_k, update_queue=True, gen=None):
     q, q_mlvl, k = self.extract_feat(im_q, im_k)
     l_pos = (q * k).sum(dim=1, keepdim=True)
     decay = moco.decay_weights(self.count, self.t_decay)

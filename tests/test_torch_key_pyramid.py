@@ -19,9 +19,9 @@ from mscl_torch.models.recognizers import build_ema_fn
 from mscl_torch.models.recognizers.moco import MoCoV2
 
 
-def _whole_key_neck(self, im_q, im_k):
+def _whole_key_neck(self, im_q, im_k, gen=None, parts=1):
     """MoCoV2.extract_feat as it was: the key neck's pyramid computed and
-    dropped."""
+    dropped (no ShuffleBN here: gen and parts unused)."""
     q_emb, q_mlvl = self.neck_q(self.encoder_q(im_q))
     q = F.normalize(self.mlp_q(q_emb), dim=1, eps=1e-12)
     with torch.no_grad():

@@ -99,11 +99,14 @@ def test_r50_towers_are_resnet3d_and_r2d_50():
 
 
 def test_refusals_name_what_is_not_ported():
-    """shuffle_bn > 1 is refused; so is a tower's own aug inside
-    MSCLWithAug, which the composite would never run."""
+    """ShuffleBN with a group count that does not divide the batch is
+    refused at the step (as the JAX tower asserts); so is a tower's own
+    aug inside MSCLWithAug, which the composite would never run."""
     cfg = _model_cfg('moco_r18_lr3e-2')
-    with pytest.raises(NotImplementedError, match='shuffle_bn'):
-        build_model_from_cfg(dict(cfg, shuffle_bn=2), device='cpu')
+    model = build_model_from_cfg(dict(cfg, shuffle_bn=2), device='cpu')
+    x = torch.zeros(3, 3, 8, 16, 16)
+    with pytest.raises(ValueError, match='shuffle_bn groups 2'):
+        model.train().extract_feat(x, x)
     cfg = _model_cfg('mscl_r18_cosm_lr2e-2')
     cfg['recognizer'] = dict(cfg['recognizer'], aug=dict(
         type='MoCoAugmentV2', crop_size=112))

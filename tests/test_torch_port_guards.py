@@ -57,7 +57,11 @@ def test_port_imports_no_jax_and_no_mscl_tpu():
         ' "mscl_torch.models.recognizers.recognizer3d",'
         ' "mscl_torch.parallel", "mscl_torch.parallel.dist",'
         ' "mscl_torch.parallel.launch", "mscl_torch.utils.jpeg",'
-        ' "mscl_torch.utils.np4", "mscl_torch.tools.generate_mcl_samples"}'
+        ' "mscl_torch.utils.np4", "mscl_torch.tools.generate_mcl_samples",'
+        ' "mscl_torch.tools.ablation_ordering",'
+        ' "mscl_torch.tools.shufflebn_ab",'
+        ' "mscl_torch.tools.ablation_summary",'
+        ' "mscl_torch.models.heads.local_align_heads"}'
         ' <= set(sys.modules)\n')
     out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
@@ -180,6 +184,21 @@ def test_eval_clis_need_the_card_unless_told(tmp_path, tool):
     assert out.returncode != 0
     assert "pass device='cpu'" in out.stderr
     assert not (tmp_path / 'out.json').exists()
+
+
+@pytest.mark.parametrize('tool', ['ablation_ordering', 'shufflebn_ab'])
+def test_ablation_tools_need_the_card_unless_told(tmp_path, tool):
+    if torch.cuda.is_available():
+        pytest.skip('this box has a CUDA device')
+    args = (['--arm', 'moco', '--out-dir', str(tmp_path)]
+            if tool == 'ablation_ordering' else
+            ['--out', str(tmp_path / 'ab.json')])
+    out = subprocess.run(
+        [sys.executable, '-m', f'mscl_torch.tools.{tool}', '--steps', '1',
+         *args], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert "pass device='cpu'" in out.stderr
+    assert not list(tmp_path.iterdir())
 
 
 def test_inference_needs_the_card_unless_told():
