@@ -151,6 +151,28 @@ the exit code is nonzero:
    the bytes extraction wrote, some frames took the half-scale decode and
    every loss is finite. It logs extraction pairs/s, MDS videos/s and
    each training run's steady window;
+14b. flow_tooling: the flow and motion tools through their entry points,
+   with neither cv2 nor msgpack: the C JPEG encoder on the committed
+   cases against the sha256 of cv2's bytes
+   (tests/fixtures_torch/jpeg/encode_digests.json); 8 videos of 40 JPEG
+   entries through ``flow_extraction --method arflow`` (PWC-Lite from
+   seeded weights at 128x171, padded to 128x192) and ``--method raft``,
+   each model built and warmed before its timed run; PWC-Lite on the card
+   against the CPU on 4 of its pairs; ``flow2img --with-bboxes`` (twice)
+   and ``visualize_samples`` on RAFT's blobs; ``vis_flow`` on one video
+   at 256x340 and with ``--resize 171 128``. It fails unless the digests
+   match, every blob decodes to a finite 128x171 flow, PWC-Lite's levels
+   agree within 1e-3 of their largest entry, ARFlow launches no lookup
+   and RAFT 12 a forward (each vis_flow run one forward, its last lookup
+   held against the plain version and float64), every flow image decodes
+   to its flow's size, gt_bboxes has a box a frame and the sheets and
+   bboxes.npy are written. It logs ARFlow's and RAFT's pairs/s over the
+   128 pairs and their build seconds, PWC-Lite's device ms a batch of 8
+   pairs, vis_flow's RAFT forward over 10 warm calls at each size (host
+   clock through the tool's function; device time of the model alone),
+   the lookup's launches, a 128x171 flow image's encode ms, flow2img
+   videos/s of each run and inference_bboxs ms a video (3 passes over the
+   8 videos), and its seconds;
 15. pretrain_configs: every config of configs/recognition/moco (MSCL r18,
    the flagship, as a control; MSCL r50; MoCo r18 with MoCoAugmentV2, with
    SyncMoCoAugmentV2 at 'params' and at 'batch'; MoCo r50): its own model
@@ -190,8 +212,8 @@ the exit code is nonzero:
 Every kernel launch counter is set to 0 just before each of the paths 7
 (each dtype), 8, 9 (each of its two runs), 10, 10b (in each rank, before
 its steps and before each CLI run), 15 (each config's steps and each CLI
-run), 11-14 (each CLI run; the
-fine-tune, test and retrieval paths must launch no decayed-InfoNCE
+run), 14b (each extraction run and each vis_flow run), 11-14 (each
+CLI run; the fine-tune, test and retrieval paths must launch no decayed-InfoNCE
 kernel: r3d_18 goes to cuDNN), the probe tool's run in 4 and 16 (each
 arm's run of the tool, the A/B's two runs), and read just after. The
 kernel table's decayed-InfoNCE launches are the pretrain CLI's (both runs
@@ -245,7 +267,11 @@ from mscl_torch.tools import train as train_cli
 from mscl_torch.tools import generate_mcl_samples as mds_cli
 from mscl_torch.tools import ablation_ordering as abl_tool
 from mscl_torch.tools import shufflebn_ab as sbn_tool
-from mscl_torch.utils import image_io, jpeg, np4
+from mscl_torch.tools import flow2img as flow2img_cli
+from mscl_torch.tools import vis_flow as vis_flow_cli
+from mscl_torch.tools import visualize_samples as samples_cli
+from mscl_torch.flow import flow_bbox
+from mscl_torch.utils import flow_viz, image_io, jpeg, np4
 
 B, C, K = 32, 128, 65536
 # the decayed-InfoNCE batches of the other pretrain configs: 8 (mscl_r50,
@@ -339,6 +365,20 @@ JPEG_FIXTURES = osp.join(osp.dirname(osp.abspath(__file__)), 'tests',
                          'fixtures_torch', 'jpeg')
 RJ_VIDEOS, RJ_REPEAT, RJ_STEPS = 8, 32, 8
 RJ_DECODE_ITERS = 50
+# flow_tooling: FT_TOOL_VIDEOS videos (readme_jpeg's) of FT_TOOL_ENTRIES
+# JPEG entries over the committed frames; ARFlow and RAFT extraction at
+# the README's 128x171 (gap 2, adjacent 8: 16 flows a video, 128 pairs),
+# flow2img (FT_FLOW2IMG_RUNS runs) and visualize_samples on RAFT's blobs,
+# vis_flow on one video (gap 8, adjacent 8: 4 pairs, one RAFT forward) at
+# the frames' 256x340 and resized to 171x128, its forward then timed over
+# FT_TIMED_ITERS warm calls; inference_bboxs over FT_BBOX_PASSES passes of
+# the videos. PWC-Lite on the card against the CPU: each level within
+# ARFLOW_REL of its largest entry (cuDNN's float32 sums in other orders,
+# TF32 off)
+FT_TOOL_VIDEOS, FT_TOOL_ENTRIES, ARFLOW_CHECK_PAIRS = RJ_VIDEOS, 40, 4
+FT_TIMED_ITERS, FT_FLOW2IMG_RUNS, FT_BBOX_PASSES = 10, 2, 3
+ARFLOW_REL = 1e-3
+ENCODE_ITERS = 50
 # pretrain_dp: the flagship step on one global batch of DP_BATCH at world 2
 # (two gloo ranks sharing the card) and at world 1 under NCCL, against
 # world 1 with no process group, DP_STEPS steps; then the pretrain CLI at
@@ -2358,21 +2398,21 @@ def jpeg_decoder_check(root):
                 jpeg_bytes=int(buf.size), png_bytes=len(png), **ms)
 
 
-def write_jpeg_videos(root):
-    """RJ_VIDEOS directories of CLI_LIST img_{:05}.jpg entries, video v's
-    entry i a copy of committed frame (i + 3 v) % 16; a labels file."""
+def write_jpeg_videos(root, videos=RJ_VIDEOS, entries=CLI_LIST):
+    """``videos`` directories of ``entries`` img_{:05}.jpg entries, video
+    v's entry i a copy of committed frame (i + 3 v) % 16; a labels file."""
     frames = sorted(n for n in os.listdir(JPEG_FIXTURES)
                     if n.startswith('frame_'))
-    for v in range(RJ_VIDEOS):
+    for v in range(videos):
         vdir = osp.join(root, 'frames', f'video_{v:03d}')
         os.makedirs(vdir)
-        for i in range(CLI_LIST):
+        for i in range(entries):
             shutil.copyfile(osp.join(JPEG_FIXTURES,
                                      frames[(i + 3 * v) % len(frames)]),
                             osp.join(vdir, f'img_{i:05d}.jpg'))
     labels = osp.join(root, 'labels.txt')
     with open(labels, 'w') as f:
-        f.writelines(f'video_{v:03d} {v}\n' for v in range(RJ_VIDEOS))
+        f.writelines(f'video_{v:03d} {v}\n' for v in range(videos))
     return osp.join(root, 'frames'), labels
 
 
@@ -2791,6 +2831,292 @@ def configs_cli(root, pkls):
     return out
 
 
+def jpeg_encoder_check():
+    """The C JPEG encoder on the committed cases (RGB and grey, sizes that
+    are not multiples of 16, three qualities) against the sha256 of cv2's
+    bytes (tests/test_torch_jpeg_encode.py writes them; this machine has
+    no cv2). Returns the number of cases."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        '_torch_jpeg_encode_util', osp.join(
+            osp.dirname(osp.abspath(__file__)), 'tests',
+            '_torch_jpeg_encode_util.py'))
+    eu = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(eu)
+    with open(eu.DIGESTS) as f:
+        digests = json.load(f)
+    jpeg._encoder()                 # raises unless the C library loads
+    if sorted(digests) != sorted(eu.cases()):
+        raise AssertionError('the digests do not cover the cases')
+    bad = [name for name in eu.cases()
+           if eu.sha256(jpeg.encode_jpeg(*eu.case_image(name))) !=
+           digests[name]]
+    if bad:
+        raise AssertionError(f'the C JPEG encoder differs from cv2 on {bad}')
+    return len(digests)
+
+
+class _CaptureLookup:
+    """Wrap RAFT's correlation lookup: keep the operands of the last call
+    (a copy), so the kernel can be held against its plain version on what
+    the path gave it."""
+
+    def __init__(self):
+        from mscl_torch.flow import raft as raft_mod
+        self.mod, self.real, self.last = raft_mod, raft_mod.corr_lookup, None
+
+        def wrapper(f1, pyr, coords, levels, radius):
+            self.last = (f1.clone(), pyr, coords.clone(), levels, radius)
+            return self.real(f1, pyr, coords, levels, radius)
+        raft_mod.corr_lookup = wrapper
+
+    def restore(self):
+        self.mod.corr_lookup = self.real
+
+
+def arflow_card_vs_cpu(frames_root):
+    """PWC-Lite from the same seeded weights on the card and on the CPU, on
+    the extraction CLI's first pairs (padded to 128x192 as it pads them):
+    every level of the forward flow within ARFLOW_REL of its largest
+    entry. Returns the largest share, the PWC-Lite device ms of a batch of
+    EXTRACT_PAIRS pairs and that batch's shape."""
+    from mscl_torch.flow.pwclite import build_pwclite
+    vdir = osp.join(frames_root, sorted(os.listdir(frames_root))[0])
+    files = sorted(os.listdir(vdir))
+    load = [image_io.imresize(image_io.imread_rgb(osp.join(vdir, f)),
+                              CLI_FLOW_HW[::-1]) for f in files]
+    pairs = np.stack([np.stack([load[i], load[i + 8]])
+                      for i in range(0, 2 * EXTRACT_PAIRS, 2)])
+    h, w = CLI_FLOW_HW
+    pairs = np.pad(pairs, ((0, 0), (0, 0), (0, -h % 64), (0, -w % 64),
+                           (0, 0)), mode='edge')
+    x = torch.from_numpy((pairs / 255.0).astype(np.float32))
+    flows, worst = {}, 0.0
+    for dev in ('cpu', 'cuda'):
+        model = build_pwclite(dev, seed=0)
+        with torch.inference_mode():
+            flows[dev] = [f.cpu() for f in model(
+                x[:ARFLOW_CHECK_PAIRS].to(dev))['flows_fw']]
+    for level, (cpu, card) in enumerate(zip(flows['cpu'], flows['cuda'])):
+        share = ((card - cpu).abs().max() / cpu.abs().max()).item()
+        if not share <= ARFLOW_REL:
+            raise AssertionError(f'PWC-Lite level {level}: card against CPU '
+                                 f'{share} of the largest entry')
+        worst = max(worst, share)
+    xb = x.cuda()
+    with torch.inference_mode():
+        ms = time_ms(lambda: model(xb), iters=10)
+    return worst, ms, list(x.shape)
+
+
+def warm_flow_fn(method, frames_root):
+    """The extraction CLI's flow function for ``method`` on the card,
+    built and run once on its first batch of the first video (the
+    timed run's shape). Returns the function and the seconds taken."""
+    t0 = time.perf_counter()
+    if method == 'raft':
+        flow_fn = make_raft_fn(None, RAFT_ITERS, 'cuda')
+    else:
+        flow_fn = extraction_cli.make_arflow_fn(device='cuda')
+    vdir = osp.join(frames_root, sorted(os.listdir(frames_root))[0])
+    files = sorted(os.listdir(vdir))
+    load = [image_io.imresize(image_io.imread_rgb(osp.join(vdir, f)),
+                              CLI_FLOW_HW[::-1], 'bilinear')
+            for f in files[:EXTRACT_PAIRS + 8]]
+    flow_fn(np.stack(load[:EXTRACT_PAIRS]), np.stack(load[8:]))
+    torch.cuda.synchronize()
+    return flow_fn, time.perf_counter() - t0
+
+
+def vis_flow_timing(argv):
+    """vis_flow's RAFT forward on the pairs the tool makes of ``argv``,
+    warm: the function the tool calls (the pad, the copies and the copy
+    back; host clock) and the model alone (device time, CUDA events),
+    each built and run once before FT_TIMED_ITERS timed calls. Returns
+    the host ms of each call and the mean device ms."""
+    args = vis_flow_cli.parse_args(argv)
+    frames = vis_flow_cli.load_frames(args.frame_dir, args.resize)
+    idx1, idx2 = vis_flow_cli.pair_indices(len(frames), args.gap,
+                                           args.adjacent)
+    img1 = np.stack([frames[i] for i in idx1])
+    img2 = np.stack([frames[i] for i in idx2])
+    raft_fn = make_raft_fn(None, iters=args.iters, device='cuda')
+    raft_fn(img1, img2)
+    host = []
+    for _ in range(FT_TIMED_ITERS):
+        t0 = time.perf_counter()
+        raft_fn(img1, img2)
+        host.append((time.perf_counter() - t0) * 1e3)
+    del raft_fn
+    h, w = img1.shape[1:3]
+    pad = ((0, 0), (0, -h % 8), (0, -w % 8), (0, 0))
+    x1, x2 = (torch.from_numpy(np.pad(im, pad, mode='edge')).cuda()
+              .permute(0, 3, 1, 2).contiguous() for im in (img1, img2))
+    model = build_raft(None, device='cuda', iters=args.iters)
+    with torch.inference_mode():
+        device_ms = time_ms(lambda: model(x1, x2), iters=FT_TIMED_ITERS)
+    return host, device_ms
+
+
+def phase_flow_tooling(root):
+    """The flow and motion tooling through its entry points, on the card,
+    with neither cv2 nor msgpack: the C JPEG encoder against cv2's digests;
+    ``flow_extraction --method arflow`` (PWC-Lite from seeded weights at
+    128x171, padded to 128x192; no lookup launch), PWC-Lite card against
+    CPU; ``--method raft`` on the same frames, then ``flow2img
+    --with-bboxes`` and ``visualize_samples`` on its blobs; ``vis_flow`` on
+    one video at 256x340 and with ``--resize 171 128``, the lookup counted
+    (12 launches a RAFT forward) and held against its plain version on the
+    operands of the run's last call. Fails unless every check holds. The
+    times are taken warm, each model built before its window: the
+    extraction CLI is handed its flow function built and run once on the
+    run's shape, and vis_flow's forward is timed apart from the checked
+    run (whose operands are copied for the check)."""
+    t_phase = time.perf_counter()
+    root = osp.join(root, 'flow_tooling')
+    os.makedirs(root)
+    cases = jpeg_encoder_check()
+    frames_root, labels = write_jpeg_videos(root, FT_TOOL_VIDEOS,
+                                            FT_TOOL_ENTRIES)
+    n_flows = len(extraction_cli.window_indices(FT_TOOL_ENTRIES, 2, 8))
+
+    # extraction: ARFlow (no lookup), then RAFT for the tools' blobs
+    runs = {}
+    for method in ('arflow', 'raft'):
+        pkl = osp.join(root, f'{method}.pkl')
+        flow_fn, build_s = warm_flow_fn(method, frames_root)
+        maker = 'make_raft_fn' if method == 'raft' else 'make_arflow_fn'
+        real = getattr(extraction_cli, maker)
+        setattr(extraction_cli, maker, lambda *args, **kwargs: flow_fn)
+        try:
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            extraction_cli.main([
+                frames_root, osp.join(root, f'flows_{method}'),
+                '--anno-out', pkl, '--labels', labels, '--method', method,
+                '--scale-hw', *map(str, CLI_FLOW_HW), '--gap', '2',
+                '--adjacent', '8'])
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+        finally:
+            setattr(extraction_cli, maker, real)
+        del flow_fn
+        with open(pkl, 'rb') as f:
+            annos = pickle.load(f)
+        paths = [p for a in annos for p in a['enc_flows']]
+        flows = [np4.np4_decode(open(p, 'rb').read()) for p in paths]
+        want = RAFT_ITERS * FT_TOOL_VIDEOS * -(-n_flows // EXTRACT_PAIRS) \
+            if method == 'raft' else 0
+        if len(paths) != FT_TOOL_VIDEOS * n_flows or any(
+                f is None or f.shape != CLI_FLOW_HW + (2,) or
+                not np.isfinite(f).all() for f in flows) or \
+                cl.corr_lookup.launches != want:
+            raise AssertionError(f'{method}: {len(paths)} blobs, lookup '
+                                 f'launches {cl.corr_lookup.launches} != '
+                                 f'{want}')
+        runs[method] = dict(pairs=len(paths), run_s=run_s,
+                            pairs_per_s=len(paths) / run_s,
+                            build_and_warm_s=build_s,
+                            lookup_launches=cl.corr_lookup.launches)
+    arflow_rel, pwclite_ms, pwclite_batch = arflow_card_vs_cpu(frames_root)
+
+    # flow2img on RAFT's blobs: the images decode to their flow's shape,
+    # one box a frame
+    raft_pkl = osp.join(root, 'raft.pkl')
+    flow2img_s = []
+    for r in range(FT_FLOW2IMG_RUNS):
+        t0 = time.perf_counter()
+        out = flow2img_cli.main([
+            raft_pkl, osp.join(root, f'flowimgs_{r}'),
+            osp.join(root, f'flow2img_{r}.pkl'), '--with-bboxes'])
+        flow2img_s.append(time.perf_counter() - t0)
+        for anno in out:
+            if len(anno['imflows']) != n_flows or \
+                    anno['gt_bboxes'].shape != (FT_TOOL_ENTRIES, 4) or \
+                    anno['gt_bboxes'].dtype != np.float32:
+                raise AssertionError(
+                    f'flow2img: {len(anno["imflows"])} images, boxes '
+                    f'{anno["gt_bboxes"].shape}')
+            for p in anno['imflows']:
+                img = jpeg.decode_jpeg(np.fromfile(p, np.uint8), 1, p)
+                if img.shape != CLI_FLOW_HW + (3,):
+                    raise AssertionError(f'{p}: {img.shape}')
+    all_flows = [[np4.np4_decode(open(p, 'rb').read())
+                  for p in anno['enc_flows']] for anno in out]
+    flow_img = flow_viz.flow_to_image(all_flows[0][0])
+    jpeg.encode_jpeg(flow_img)
+    t0 = time.perf_counter()
+    for _ in range(ENCODE_ITERS):
+        jpeg.encode_jpeg(flow_img)
+    encode_ms = (time.perf_counter() - t0) / ENCODE_ITERS * 1e3
+    bbox_ms = []
+    for _ in range(FT_BBOX_PASSES):
+        for video_flows in all_flows:
+            t0 = time.perf_counter()
+            flow_bbox.inference_bboxs(FT_TOOL_ENTRIES, video_flows, gap=2,
+                                      adjacent=8)
+            bbox_ms.append((time.perf_counter() - t0) * 1e3)
+
+    sheets = samples_cli.main([raft_pkl, osp.join(root, 'sheets'),
+                               '--num-videos', str(FT_TOOL_VIDEOS),
+                               '--frames-per-video', '4'])
+    if len(sheets) != FT_TOOL_VIDEOS or not all(
+            jpeg.decode_jpeg(np.fromfile(p, np.uint8), 1, p).shape ==
+            (4 * CLI_FLOW_HW[0], 3 * CLI_FLOW_HW[1], 3) for p in sheets):
+        raise AssertionError(f'visualize_samples wrote {sheets}')
+
+    # vis_flow on one video, at the frames' size and resized: the checked
+    # run, then its forward timed warm
+    vdir = osp.join(frames_root, sorted(os.listdir(frames_root))[0])
+    vis = {}
+    for name, extra in (('full', []),
+                        ('resized', ['--resize', *map(str,
+                                                      CLI_FLOW_HW[::-1])])):
+        capture = _CaptureLookup()
+        out_dir = osp.join(root, f'vis_flow_{name}')
+        try:
+            reset_launch_counts()
+            flows, boxes = vis_flow_cli.main([vdir, '--out-dir', out_dir,
+                                              *extra])
+            torch.cuda.synchronize()
+            launches = cl.corr_lookup.launches
+        finally:
+            capture.restore()
+        f1, pyr, coords, _, _ = capture.last
+        errs, _ = corr_check(f'vis_flow {name}', f1, pyr, coords)
+        n_pairs = len(vis_flow_cli.pair_indices(FT_TOOL_ENTRIES, 8, 8)[0])
+        hw = CLI_FLOW_HW if name == 'resized' else CLI_FRAME_HW
+        written = sorted(os.listdir(out_dir))
+        if launches != RAFT_ITERS or flows.shape != (n_pairs,) + hw + (2,) \
+                or not np.isfinite(flows).all() or \
+                len(boxes) != FT_TOOL_ENTRIES or written != \
+                ['bboxes.npy'] + [f'flow_{k:04d}.jpg' for k in range(n_pairs)]:
+            raise AssertionError(f'vis_flow {name}: {launches} lookup '
+                                 f'launches, flows {flows.shape}, '
+                                 f'{len(boxes)} boxes, files {written}')
+        feature_hw = list(f1.shape[1:3])
+        del capture, f1, pyr, coords
+        host_ms, device_ms = vis_flow_timing([vdir, *extra])
+        vis[name] = dict(launches=launches, pairs=n_pairs, hw=list(hw),
+                         feature_hw=feature_hw,
+                         raft_fn_ms=host_ms,
+                         raft_fn_ms_median=float(np.median(host_ms)),
+                         raft_model_device_ms=device_ms, **errs)
+    seconds = time.perf_counter() - t_phase
+    log(phase='flow_tooling', encoder_cases=cases,
+        arflow=dict(**runs['arflow'], pwclite_batch=pwclite_batch,
+                    pwclite_device_ms_batch=pwclite_ms,
+                    card_vs_cpu_rel=arflow_rel),
+        raft=runs['raft'], vis_flow=vis, jpeg_encode_ms_128x171=encode_ms,
+        flow2img=dict(videos=len(out), run_s=flow2img_s,
+                      videos_per_s=[len(out) / t for t in flow2img_s]),
+        inference_bboxs=dict(
+            calls=len(bbox_ms), ms_median=float(np.median(bbox_ms)),
+            ms_min=min(bbox_ms), ms_max=max(bbox_ms)),
+        visualize_samples=len(sheets), seconds=seconds)
+    return vis['resized']['launches']
+
+
 def phase_pretrain_configs(dev, root, pkls):
     """Every pretrain config the repo ships: full-width steps of each
     config's own model; card against CPU for MoCo with each of its augs
@@ -3174,6 +3500,7 @@ def main():
         run('retrieval_cli', phase_retrieval_cli, root, ft_pkls,
             pretrain_ckpt)
         run('readme_jpeg', phase_readme_jpeg, root)
+        run('flow_tooling', phase_flow_tooling, root)
         run('pretrain_configs', phase_pretrain_configs, dev, root, pkls)
         run('ablation_arms', phase_ablation_arms, dev, root)
     finally:

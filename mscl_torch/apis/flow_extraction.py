@@ -1,12 +1,17 @@
-"""Offline optical-flow extraction with RAFT: frames -> np4 flow blobs and
-the annotation pickle that MSCL pretraining reads (``enc_flows``).
+"""Offline optical-flow extraction: frames -> np4 flow blobs and the
+annotation pickle that MSCL pretraining reads (``enc_flows``).
 
-Port of ``tools/misc/flow_extraction.py`` for ``--method raft``:
+Port of ``tools/misc/flow_extraction.py``:
 
     python -m mscl_torch.apis.flow_extraction FRAMES_ROOT FLOW_OUT \\
         --anno-out annos.pkl --raft-weights raft-things.pth --scale-hw 128 171
 
-Same flags, plus ``--device`` (default: the card). Each video directory of
+Same flags, plus ``--device`` (default: the card). ``--method raft`` (the
+default) runs RAFT, whose correlation lookup is the hand-written kernel on
+the card; ``--method arflow`` runs PWC-Lite from seeded random weights (no
+loader for ARFlow's released weights exists, in the JAX package either);
+``--method tvl1`` runs OpenCV's TVL1 on the host and needs cv2 with
+``cv2.optflow``. Each video directory of
 FRAMES_ROOT gives flow pairs (i, i + adjacent) every ``gap`` frames, run in
 batches through RAFT and written as ``FLOW_OUT/<video>/flow_XXXXX.np4``.
 Frames (JPEG or PNG) are read and resized without cv2 and the blobs
@@ -24,10 +29,11 @@ import sys
 import numpy as np
 import torch
 
+from ..flow.pwclite import build_pwclite
 from ..flow.raft import build_raft
 from ..utils.image_io import imread_rgb, imresize
+from ..utils.device import resolve_device
 from ..utils.np4 import np4_encode
-from .train import resolve_device
 
 
 def window_indices(num_frames, gap=2, adjacent=8):
@@ -66,6 +72,46 @@ def make_raft_fn(weights_path, iters=12, device=None):
     return raft_fn
 
 
+def make_arflow_fn(seed=0, device=None):
+    """PWC-Lite (ARFlow) as a function of two (B, H, W, 3) image batches in
+    [0, 255] -> (B, H, W, 2) float32 flow: H and W padded with edge pixels
+    to multiples of 64, the pair scaled to [0, 1] and stacked as (B, 2, H,
+    W, 3), the finest forward flow cropped back."""
+    device = resolve_device(device)
+    model = build_pwclite(device, seed=seed, n_frames=2)
+    print('WARNING: ARFlow runs from random init unless trained - '
+          'only useful for pipeline smoke tests', file=sys.stderr)
+
+    def arflow_fn(img1_batch, img2_batch):
+        h, w = img1_batch.shape[1:3]
+        ph, pw = (-h) % 64, (-w) % 64
+        if ph or pw:
+            pad = ((0, 0), (0, ph), (0, pw), (0, 0))
+            img1_batch = np.pad(img1_batch, pad, mode='edge')
+            img2_batch = np.pad(img2_batch, pad, mode='edge')
+        x = np.stack([img1_batch, img2_batch], axis=1) / 255.0
+        with torch.inference_mode():
+            flow = model(torch.from_numpy(x.astype(np.float32)).to(device))
+            flow = flow['flows_fw'][0].permute(0, 2, 3, 1).cpu().numpy()
+        return flow[:, :h, :w]
+
+    return arflow_fn
+
+
+def tvl1_fn(img1_batch, img2_batch):
+    """OpenCV's TVL1 on the host (reference flow_extraction.py:28+)."""
+    import cv2
+    if not hasattr(cv2, 'optflow'):
+        raise RuntimeError('cv2.optflow unavailable; use --method raft')
+    tvl1 = cv2.optflow.DualTVL1OpticalFlow_create()
+    out = []
+    for a, b in zip(img1_batch, img2_batch):
+        g1 = cv2.cvtColor(a.astype(np.uint8), cv2.COLOR_RGB2GRAY)
+        g2 = cv2.cvtColor(b.astype(np.uint8), cv2.COLOR_RGB2GRAY)
+        out.append(tvl1.calc(g1, g2, None))
+    return np.stack(out)
+
+
 def list_videos(frames_root):
     videos = []
     for name in sorted(os.listdir(frames_root)):
@@ -89,8 +135,8 @@ def parse_args(argv=None):
                         help='output annotation pickle')
     parser.add_argument('--labels', default=None,
                         help='optional "video_name label" txt file')
-    parser.add_argument('--method', default='raft', choices=['raft'],
-                        help='only RAFT is ported (ARFlow and TVL1 are not)')
+    parser.add_argument('--method', default='raft',
+                        choices=['raft', 'arflow', 'tvl1'])
     parser.add_argument('--raft-weights', default=None,
                         help='official RAFT .pth')
     parser.add_argument('--iters', type=int, default=12)
@@ -117,7 +163,12 @@ def main(argv=None):
                 name, lab = line.split()
                 labels[name] = int(lab)
 
-    flow_fn = make_raft_fn(args.raft_weights, args.iters, args.device)
+    if args.method == 'raft':
+        flow_fn = make_raft_fn(args.raft_weights, args.iters, args.device)
+    elif args.method == 'arflow':
+        flow_fn = make_arflow_fn(device=args.device)
+    else:
+        flow_fn = tvl1_fn
 
     def load(path):
         # cv2.imread + cv2.resize (INTER_LINEAR) of the JAX CLI, bit for bit

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..parallel import dist
+from ..utils.device import resolve_device
 
 
 def _forward_each_batch(model, method: str, loader) -> List[np.ndarray]:
@@ -81,7 +82,6 @@ def retrieval_recall(train_feats: np.ndarray, train_labels,
     does), then on ``device`` (None: the card) sim = test @ train^T in
     float32 and its top-k train indices; Recall@k is the share of test
     videos with a top-k neighbour of their label."""
-    from .train import resolve_device
     device = resolve_device(device)
     train_labels = np.asarray(train_labels)
     test_labels = np.asarray(test_labels)

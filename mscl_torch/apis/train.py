@@ -9,32 +9,22 @@ its rows of each global batch.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+from typing import Dict, Optional
 
 import torch
 from torch.nn.parameter import is_lazy
 
 from ..core import Runner, build_lr_schedule, build_optimizer
-from ..core.checkpoint import FORMAT, load_checkpoint
+from ..core.checkpoint import load_checkpoint, model_state_dict
 from ..datasets import build_dataloader, build_dataset
 from ..models import RECOGNIZERS
 from ..models.recognizers import build_ema_fn, init_from_ssl_pretrain
 from ..models.recognizers.moco import KEY_PATTERNS
 from ..parallel import dist
+from ..utils.device import resolve_device
 
 # key towers follow the query towers by EMA, not by the optimizer
 MOCO_FREEZE = KEY_PATTERNS
-
-
-def resolve_device(device: Optional[Union[str, torch.device]] = None
-                   ) -> torch.device:
-    """None means the card. Raises when a CUDA device is asked for and
-    there is none; the CPU is used only when the caller names it."""
-    device = torch.device('cuda' if device is None else device)
-    if device.type == 'cuda' and not torch.cuda.is_available():
-        raise RuntimeError('mscl_torch runs on a CUDA device and none is '
-                           "available; pass device='cpu' to run on the CPU")
-    return device
 
 
 def build_model_from_cfg(model_cfg: Dict, device=None, seed: int = 0,
@@ -76,20 +66,12 @@ def _is_moco(model_cfg: Dict) -> bool:
 def apply_ssl_pretrain(model, ssl_cfg: Dict) -> None:
     """Load a pretrained encoder into ``model.backbone`` in place
     (reference base.py:129-203, ``init_from_ssl_pretrain``). The file is a
-    checkpoint of the port (the Runner's ``epoch_N.pth``) or a reference
-    ``.pth``; both hold ``recognizer.encoder_q.*`` (the prefix is
-    ``ssl_cfg.backbone.prefix``)."""
+    checkpoint of the port (the Runner's ``epoch_N.pth``), of the JAX
+    package (``epoch_N.ckpt``) or a reference ``.pth``; all hold
+    ``recognizer.encoder_q.*`` (the prefix is ``ssl_cfg.backbone.prefix``)
+    once read."""
     path = ssl_cfg['pretrained']['filename']
-    if path.endswith('.ckpt'):
-        raise NotImplementedError(
-            f'{path} is a checkpoint of the JAX package (msgpack), which the '
-            f'port does not read. Convert it where JAX runs: load it with '
-            f'mscl_tpu.core.load_checkpoint, turn its params and '
-            f'batch_stats into a state dict with '
-            f'mscl_torch.convert.jax_to_state_dict, and torch.save '
-            f'{{"state_dict": ...}} (tensors) to a .pth')
-    ckpt = load_checkpoint(path)
-    sd = ckpt['state_dict'] if ckpt.get('format') == FORMAT else ckpt
+    sd = model_state_dict(load_checkpoint(path))
     prefix = (ssl_cfg.get('backbone') or {}).get('prefix',
                                                  'recognizer.encoder_q')
     if not any(k.startswith(prefix + '.') for k in sd):

@@ -30,7 +30,8 @@ TPNProjMoCo's convs ``proj{i}_0`` / ``proj{i}_1``.
 
 Leaves are read with ``np.asarray``, so JAX arrays work without importing
 JAX here. RAFT has its own mapping onto the official RAFT names:
-``raft_jax_to_state_dict``.
+``raft_jax_to_state_dict``; PWC-Lite, whose modules keep the flax names,
+``pwclite_jax_to_state_dict``.
 """
 from __future__ import annotations
 
@@ -139,6 +140,18 @@ def raft_jax_to_state_dict(variables: Dict) -> Dict[str, np.ndarray]:
                 out[f'{key}.{name}'] = np.array(value, order='C')
                 if name == 'running_mean':
                     out[f'{key}.num_batches_tracked'] = np.array(0, np.int64)
+    return out
+
+
+def pwclite_jax_to_state_dict(variables: Dict) -> Dict[str, np.ndarray]:
+    """Flax PWC-Lite variables ({'params'}) -> the port's PWC-Lite
+    state_dict: the module path as it is, conv kernels HWIO -> OIHW."""
+    out = {}
+    for path, value in _leaves(variables['params']):
+        if path[-1] == 'kernel':
+            value = np.transpose(value, (3, 2, 0, 1))
+        out['.'.join(path[:-1] + (_LEAF['params'][path[-1]],))] = \
+            np.array(value, order='C')
     return out
 
 

@@ -18,6 +18,12 @@ only tensors, numbers, strings and containers of them, so it loads with
 ``weights_only=True``. ``epoch_N.pth.meta.json`` repeats ``meta``; a file
 ``latest`` names the newest unprefixed checkpoint.
 
+``load_checkpoint`` also reads a checkpoint of the JAX package
+(``epoch_N.ckpt``, ``core/jax_checkpoint.py``): its model's parameters and
+buffers, under the port's names, load into a model (fine-tune surgery, the
+test and retrieval CLIs); resuming training from it is refused, since its
+optimizer and RNG keys have no counterpart in the port's generators.
+
 In a process group (``parallel/dist.py``) the state is replicated, so rank
 0 alone writes, and every rank waits at a barrier until the write is done:
 a rank may then read what was written.
@@ -34,6 +40,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..parallel import dist
+from .jax_checkpoint import JAX_FORMAT, load_jax_checkpoint
 
 FORMAT = 'mscl_torch.checkpoint.v1'
 
@@ -85,11 +92,14 @@ def save_checkpoint(state: Optional[Dict[str, Any]], work_dir: str,
 
 
 def load_checkpoint(path: str) -> Dict[str, Any]:
-    """A checkpoint of the port as saved; any other file (a reference
-    ``.pth``) as its ``state_dict``. A directory means its 'latest'."""
+    """A checkpoint of the port as saved; a JAX ``.ckpt`` as
+    ``load_jax_checkpoint`` reads it; any other file (a reference ``.pth``)
+    as its ``state_dict``. A directory means its 'latest'."""
     if osp.isdir(path):
         with open(osp.join(path, 'latest')) as f:
             path = osp.join(path, f.read().strip())
+    if path.endswith('.ckpt'):
+        return load_jax_checkpoint(path)
     ckpt = torch.load(path, map_location='cpu', weights_only=True)
     if isinstance(ckpt, dict) and ckpt.get('format') == FORMAT:
         return ckpt
@@ -112,17 +122,31 @@ def latest_checkpoint(work_dir: str) -> Optional[str]:
         return osp.join(work_dir, f.read().strip())
 
 
+def model_state_dict(ckpt: Dict[str, Any]) -> Dict[str, Any]:
+    """The model's parameters and buffers of what ``load_checkpoint``
+    read."""
+    return ckpt['state_dict'] if ckpt.get('format') in (FORMAT, JAX_FORMAT) \
+        else ckpt
+
+
 def restore_model_state(model, ckpt: Dict[str, Any]) -> None:
     """Load only the model's parameters and buffers, from a checkpoint of
-    the port or a reference ``state_dict`` (the port's module names are the
-    reference's)."""
-    sd = ckpt['state_dict'] if ckpt.get('format') == FORMAT else ckpt
+    the port, of the JAX package or a reference ``state_dict`` (the port's
+    module names are the reference's)."""
+    sd = model_state_dict(ckpt)
     model.load_state_dict(sd, strict=True)
 
 
 def restore_train_state(model, optimizer, ckpt: Dict[str, Any]) -> None:
     """Everything ``train_state`` saved, back in place; a reference
-    ``state_dict`` restores the model only."""
+    ``state_dict`` restores the model only. A JAX ``.ckpt`` is refused."""
+    if ckpt.get('format') == JAX_FORMAT:
+        raise NotImplementedError(
+            f'{ckpt["path"]} is a checkpoint of the JAX package: the port '
+            f'does not resume training from it (its optimizer state and RNG '
+            f'keys do not map onto the port\'s generators). Fine-tune from '
+            f'it (model.train_cfg.ssl_pretrain) or test it instead, or '
+            f'resume from a checkpoint of the port')
     restore_model_state(model, ckpt)
     if ckpt.get('format') != FORMAT:
         return

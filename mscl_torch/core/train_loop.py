@@ -35,6 +35,7 @@ import torch
 from torch import nn
 
 from ..parallel import dist
+from ..utils.device import resolve_device
 from .checkpoint import (latest_checkpoint, load_checkpoint, load_meta,
                          restore_train_state, save_checkpoint, train_state)
 
@@ -104,11 +105,12 @@ class Runner:
     ``eval_fn``'s scores), a JSON log (``log.json``), resume, and on
     SIGTERM a ``preempt_`` checkpoint after the step in flight, then exit
     143. The step's values are read from the device only at
-    ``log_config.interval``."""
+    ``log_config.interval``. ``device`` None means the card, and raises
+    without one; the CPU runs only when it is named."""
 
     def __init__(self, model, optimizer, train_loader, cfg, work_dir,
                  val_loader=None, pre_update_fn=None, lr_schedule=None,
-                 device='cpu', val_dataset=None, eval_fn=None):
+                 device=None, val_dataset=None, eval_fn=None):
         if cfg.get('precise_bn'):
             raise NotImplementedError('precise_bn is not ported')
         self.model = model
@@ -120,7 +122,7 @@ class Runner:
         self.val_dataset = val_dataset
         self.eval_fn = eval_fn
         self.lr_schedule = lr_schedule
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
         self.total_epochs = cfg.get('total_epochs', 1)
         self.log_interval = cfg.get('log_config', {}).get('interval', 20)

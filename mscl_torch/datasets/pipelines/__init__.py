@@ -1,10 +1,11 @@
-from .augmentations import (CenterCrop, Normalize, RandomResizedCrop,
-                            Resize, get_random_resized_crop_bbox,
-                            rescale_size)
+from .augmentations import (CenterCrop, Flip, Fuse, Normalize,
+                            RandomResizedCrop, Resize,
+                            get_random_resized_crop_bbox, rescale_size)
 from .combined_augmentations import MoCoTransform
 from .compose import Compose
 from .formatting import Collect, ToTensor, batched_to_tensor, to_tensor
 from .loading import ArrayDecode, LocalDecode, SampleFrames
+from .mcl_augmentations import MCLRandomResizedCrop, motion_map_from_flow
 from .loading_mscl import (ChosenSampleFrames, MatchFlow, Seg2T,
                            TemporalShiftChosenSampleFrames)
 from .moco_augmentations import (MoCoDecodePlan, MoCoNormalize,
@@ -19,5 +20,7 @@ __all__ = [
     'MoCoDecodePlan', 'MoCoRandomResizedCrop', 'MoCoResize', 'MoCoNormalize',
     'MoCoTransform',
     'NormFlowWithAug', 'NormFlowWithStidedAug', 'norm_flow', 'rotate_flow',
-    'get_random_resized_crop_bbox', 'rescale_size', 'RandomResizedCrop', 'CenterCrop', 'Resize', 'Normalize', 'Seg2T',
+    'get_random_resized_crop_bbox', 'rescale_size', 'RandomResizedCrop',
+    'CenterCrop', 'Resize', 'Normalize', 'Flip', 'Fuse', 'Seg2T',
+    'MCLRandomResizedCrop', 'motion_map_from_flow',
 ]

@@ -6,10 +6,12 @@ crop-quadruple and box helpers, ``get_random_resized_crop_bbox`` (reference
 mmaction augmentations.py:800-849), which draws its aspect ratios and areas
 from the global ``np.random`` and its offsets from the global Python
 ``random``, in the JAX package's order, and the transforms
-``RandomResizedCrop``, ``Resize``, ``Normalize`` and ``CenterCrop``.
-Resizing is ``utils.image_io.imresize`` (OpenCV's INTER_LINEAR without
-cv2). The lazy mode of the crops and ``Resize`` (geometry recorded for a
-later ``Fuse``) is not ported: ``lazy=True`` is refused.
+``RandomResizedCrop``, ``Resize``, ``Normalize``, ``CenterCrop``, ``Flip``
+and ``Fuse``. Resizing is ``utils.image_io.imresize`` (OpenCV's
+INTER_LINEAR without cv2). With ``lazy=True`` the crops, ``Resize`` and
+``Flip`` only record their geometry in ``results['lazy']`` (reference
+augmentations.py:24-55) and ``Fuse`` applies one combined crop, resize and
+flip to the original frames (:511-549), as the JAX package does.
 """
 from __future__ import annotations
 
@@ -107,22 +109,58 @@ def get_random_resized_crop_bbox(img_shape, area_range, aspect_ratio_range,
     return x_offset, y_offset, x_offset + crop_size, y_offset + crop_size
 
 
-def _refuse_lazy(results, lazy):
-    """The non-lazy half of the JAX package's ``_init_lazy_if_proper``."""
-    if lazy:
-        raise NotImplementedError('lazy=True (geometry kept for Fuse) is not '
-                                  'ported; use lazy=False')
+def _init_lazy_if_proper(results, lazy):
+    """Reference augmentations.py:24-55: initialize the ``lazy`` record
+    (original_shape, cumulative crop_bbox in original coords, flip state,
+    interpolation) or assert no stale one leaks into a non-lazy op."""
     if 'img_shape' not in results:
         results['img_shape'] = results['imgs'][0].shape[:2]
-    assert 'lazy' not in results, 'Use Fuse after lazy operations'
+    if lazy:
+        if 'lazy' not in results:
+            img_h, img_w = results['img_shape']
+            results['lazy'] = dict(
+                original_shape=results['img_shape'],
+                crop_bbox=np.array([0, 0, img_w, img_h],
+                                   dtype=np.float32),
+                flip=False, flip_direction=None, interpolation=None)
+    else:
+        assert 'lazy' not in results, 'Use Fuse after lazy operations'
 
 
-def _finish_crop(results, crop_bbox, new_h, new_w):
+def _lazy_crop(results, crop_bbox, img_w, img_h):
+    """Compose a crop (in current virtual coords) into the lazy record
+    (reference RandomCrop lazy branch, augmentations.py:739-755)."""
+    lazyop = results['lazy']
+    if lazyop['flip']:
+        raise NotImplementedError('Put Flip at last for now')
+    x1, y1, x2, y2 = crop_bbox
+    lazy_left, lazy_top, lazy_right, lazy_bottom = lazyop['crop_bbox']
+    left = x1 * (lazy_right - lazy_left) / img_w
+    right = x2 * (lazy_right - lazy_left) / img_w
+    top = y1 * (lazy_bottom - lazy_top) / img_h
+    bottom = y2 * (lazy_bottom - lazy_top) / img_h
+    lazyop['crop_bbox'] = np.array(
+        [lazy_left + left, lazy_top + top,
+         lazy_left + right, lazy_top + bottom], dtype=np.float32)
+
+
+def _box_flip(box, img_width):
+    box_ = box.copy()
+    box_[..., 0::4] = img_width - box[..., 2::4]
+    box_[..., 2::4] = img_width - box[..., 0::4]
+    return box_
+
+
+def _finish_crop(results, crop_bbox, new_h, new_w, lazy=False):
     results['crop_bbox'] = crop_bbox
+    img_h, img_w = results['img_shape']
     results['img_shape'] = (new_h, new_w)
-    if 'imgs' in results:
+    if lazy:
+        _lazy_crop(results, crop_bbox, img_w, img_h)
+    elif 'imgs' in results:
         results['imgs'] = _crop_imgs(results['imgs'], crop_bbox)
     if 'gt_bboxes' in results:
+        assert not lazy
         results = _all_box_crop(results, crop_bbox)
     return results
 
@@ -138,14 +176,14 @@ class RandomResizedCrop:
         self.lazy = lazy
 
     def __call__(self, results):
-        _refuse_lazy(results, self.lazy)
+        _init_lazy_if_proper(results, self.lazy)
         img_h, img_w = results['img_shape']
         left, top, right, bottom = get_random_resized_crop_bbox(
             (img_h, img_w), self.area_range, self.aspect_ratio_range)
         new_h, new_w = bottom - top, right - left
         _update_crop_quadruple(results, left, top, new_w, new_h, img_w, img_h)
         crop_bbox = np.array([left, top, right, bottom])
-        return _finish_crop(results, crop_bbox, new_h, new_w)
+        return _finish_crop(results, crop_bbox, new_h, new_w, self.lazy)
 
     def __repr__(self):
         return (f'{self.__class__.__name__}(area_range={self.area_range}, '
@@ -163,7 +201,7 @@ class CenterCrop:
         self.lazy = lazy
 
     def __call__(self, results):
-        _refuse_lazy(results, self.lazy)
+        _init_lazy_if_proper(results, self.lazy)
         img_h, img_w = results['img_shape']
         crop_w, crop_h = self.crop_size
         left = (img_w - crop_w) // 2
@@ -172,7 +210,7 @@ class CenterCrop:
         new_h, new_w = bottom - top, right - left
         _update_crop_quadruple(results, left, top, new_w, new_h, img_w, img_h)
         crop_bbox = np.array([left, top, right, bottom])
-        return _finish_crop(results, crop_bbox, new_h, new_w)
+        return _finish_crop(results, crop_bbox, new_h, new_w, self.lazy)
 
     def __repr__(self):
         return f'{self.__class__.__name__}(crop_size={self.crop_size})'
@@ -202,7 +240,7 @@ class Resize:
         self.lazy = lazy
 
     def __call__(self, results):
-        _refuse_lazy(results, self.lazy)
+        _init_lazy_if_proper(results, self.lazy)
         if 'scale_factor' not in results:
             results['scale_factor'] = np.array([1, 1], dtype=np.float32)
         img_h, img_w = results['img_shape']
@@ -215,12 +253,18 @@ class Resize:
         results['img_shape'] = (new_h, new_w)
         results['keep_ratio'] = self.keep_ratio
         results['scale_factor'] = results['scale_factor'] * scale_factor
-        if 'imgs' in results:
+        if self.lazy:
+            lazyop = results['lazy']
+            if lazyop['flip']:
+                raise NotImplementedError('Put Flip at last for now')
+            lazyop['interpolation'] = self.interpolation
+        elif 'imgs' in results:
             results['imgs'] = [
                 imresize(img, (new_w, new_h), self.interpolation)
                 for img in results['imgs']
             ]
         if 'gt_bboxes' in results:
+            assert not self.lazy
             results['gt_bboxes'] = _box_resize(results['gt_bboxes'],
                                                scale_factor)
             if 'proposals' in results and results['proposals'] is not None:
@@ -231,6 +275,97 @@ class Resize:
     def __repr__(self):
         return (f'{self.__class__.__name__}(scale={self.scale}, '
                 f'keep_ratio={self.keep_ratio})')
+
+
+@PIPELINES.register_module()
+class Flip:
+    """Flip all frames with a probability (augmentations.py:1291-1436).
+
+    For 'Flow' modality the x-flow frames (even indices) are inverted
+    (255 - img) after a horizontal flip.
+    """
+    _directions = ('horizontal', 'vertical')
+
+    def __init__(self, flip_ratio=0.5, direction='horizontal',
+                 flip_label_map=None, lazy=False):
+        if direction not in self._directions:
+            raise ValueError(f'Direction {direction} not supported')
+        self.flip_ratio = flip_ratio
+        self.direction = direction
+        self.flip_label_map = flip_label_map
+        self.lazy = lazy
+
+    def _flip_imgs(self, imgs, modality):
+        axis = 1 if self.direction == 'horizontal' else 0
+        imgs = [np.flip(img, axis=axis).copy() for img in imgs]
+        if modality == 'Flow':
+            for i in range(0, len(imgs), 2):
+                imgs[i] = 255 - imgs[i]
+        return imgs
+
+    def __call__(self, results):
+        _init_lazy_if_proper(results, self.lazy)
+        modality = results.get('modality', 'RGB')
+        if modality == 'Flow':
+            assert self.direction == 'horizontal'
+        flip = np.random.rand() < self.flip_ratio
+        results['flip'] = flip
+        results['flip_direction'] = self.direction
+        if self.flip_label_map is not None and flip:
+            results['label'] = self.flip_label_map.get(
+                results['label'], results['label'])
+        if self.lazy:
+            lazyop = results['lazy']
+            if lazyop['flip']:
+                raise NotImplementedError('Use one Flip please')
+            lazyop['flip'] = flip
+            lazyop['flip_direction'] = self.direction
+            return results
+        if flip:
+            if 'imgs' in results:
+                results['imgs'] = self._flip_imgs(results['imgs'], modality)
+            if 'gt_bboxes' in results:
+                width = results['img_shape'][1]
+                results['gt_bboxes'] = _box_flip(results['gt_bboxes'], width)
+                if 'proposals' in results and results['proposals'] is not None:
+                    results['proposals'] = _box_flip(results['proposals'],
+                                                     width)
+        return results
+
+    def __repr__(self):
+        return (f'{self.__class__.__name__}(flip_ratio={self.flip_ratio}, '
+                f'direction={self.direction})')
+
+
+@PIPELINES.register_module()
+class Fuse:
+    """Apply the accumulated lazy crop + resize + flip in one pass
+    (reference augmentations.py:511-549): crop the ORIGINAL frames by the
+    composed crop_bbox, resize to the final virtual img_shape, then flip.
+    Like the reference, the fused flip does not invert x-flow frames: lazy
+    mode is for RGB pipelines."""
+
+    def __call__(self, results):
+        if 'lazy' not in results:
+            raise ValueError('No lazy operation detected')
+        lazyop = results['lazy']
+        imgs = results['imgs']
+        left, top, right, bottom = \
+            np.round(lazyop['crop_bbox']).astype(int)
+        imgs = [img[top:bottom, left:right] for img in imgs]
+        img_h, img_w = results['img_shape']
+        interpolation = lazyop['interpolation'] or 'bilinear'
+        imgs = [imresize(img, (img_w, img_h), interpolation)
+                for img in imgs]
+        if lazyop['flip']:
+            axis = 1 if lazyop['flip_direction'] == 'horizontal' else 0
+            imgs = [np.flip(img, axis=axis).copy() for img in imgs]
+        results['imgs'] = imgs
+        del results['lazy']
+        return results
+
+    def __repr__(self):
+        return f'{self.__class__.__name__}()'
 
 
 @PIPELINES.register_module()

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.corr_lookup import corr_lookup, corr_pyramid
+from ..utils.device import resolve_device
 
 
 def instance_norm(x, eps=1e-5):
@@ -275,7 +276,6 @@ def build_raft(weights: Optional[str] = None, device=None, seed: int = 0,
     """RAFT on ``device`` (None: the card), eval mode, float32 with TF32
     off for matmuls and cuDNN convolutions; from ``weights`` (an official
     .pth) or, without them, from the JAX init drawn with ``seed``."""
-    from ..apis.train import resolve_device
     device = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

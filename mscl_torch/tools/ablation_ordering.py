@@ -352,9 +352,11 @@ def knn_retrieval(f_test, y_test, f_train, y_train, ks=(1, 5)):
 
 
 def linear_probe(f_train, y_train, f_test, y_test, n_cls=4, steps=500,
-                 lr=0.5, wd=1e-4, device='cpu'):
+                 lr=0.5, wd=1e-4, device=None):
     """Multinomial logistic regression on frozen features by full-batch
-    gradient descent (the JAX tool's protocol), on ``device``."""
+    gradient descent (the JAX tool's protocol), on ``device`` (None: the
+    card)."""
+    device = resolve_device(device)
     mu, sd = f_train.mean(0), f_train.std(0) + 1e-6
     xtr = torch.from_numpy((f_train - mu) / sd).to(device)
     xte = torch.from_numpy((f_test - mu) / sd).to(device)

@@ -22,9 +22,11 @@ the standard library and numpy:
   >> 16) + 2 >> 2``), bit for bit; for float32 the same taps in float32.
   An exact 2x reduction, which OpenCV hands to its area resize, gives the
   same uint8 values by this formula; in float32 it is the area resize's
-  mean of 4. OpenCV hands a one-channel float32
+  mean of 4. OpenCV hands a one- or three-channel float32
   image whose sides are both at least 2 to Intel IPP (ippicv), which
   interpolates otherwise (``_resize_linear_ipp``); so does the port.
+- ``rectangle`` is ``cv2.rectangle`` at thickness 1 and ``LINE_8``, clipped
+  to the image.
 """
 from __future__ import annotations
 
@@ -303,11 +305,11 @@ def _resize_linear(img: np.ndarray, new_w: int, new_h: int) -> np.ndarray:
 
 def _resize_linear_ipp(img: np.ndarray, new_w: int, new_h: int
                        ) -> np.ndarray:
-    """``cv2.resize(INTER_LINEAR)`` of a one-channel float32 image as
-    OpenCV runs it through IPP: the source positions in float64, their
-    fractions rounded to float32, rows then columns, each ``a + (b - a) *
-    t`` with one rounding (a fused multiply-add; exact in float64, then
-    rounded to float32)."""
+    """``cv2.resize(INTER_LINEAR)`` of a one- or three-channel float32 image
+    as OpenCV runs it through IPP: the source positions in float64, their
+    fractions rounded to float32, rows then columns, each channel's ``a +
+    (b - a) * t`` with one rounding (a fused multiply-add; exact in
+    float64, then rounded to float32)."""
     def taps(ssize, dsize):
         f = (np.arange(dsize) + 0.5) * (ssize / dsize) - 0.5
         i = np.floor(f).astype(np.int64)
@@ -321,9 +323,9 @@ def _resize_linear_ipp(img: np.ndarray, new_w: int, new_h: int
 
     x0, x1, fx = taps(img.shape[1], new_w)
     y0, y1, fy = taps(img.shape[0], new_h)
-    src = img.reshape(img.shape[:2])
-    rows = lerp(src[:, x0], src[:, x1], fx)
-    out = lerp(rows[y0], rows[y1], fy[:, None])
+    src = img.reshape(img.shape[:2] + (-1,))
+    rows = lerp(src[:, x0], src[:, x1], fx[:, None])
+    out = lerp(rows[y0], rows[y1], fy[:, None, None])
     return out.reshape((new_h, new_w) + img.shape[2:])
 
 
@@ -333,7 +335,7 @@ def imresize(img: np.ndarray, size_wh, interpolation: str = 'bilinear'
     uint8 or float32 is the port's own; anything else goes through cv2."""
     new_w, new_h = int(size_wh[0]), int(size_wh[1])
     if interpolation == 'bilinear' and img.dtype == np.float32 and \
-            img.shape[2:] in ((), (1,)) and min(img.shape[:2]) >= 2:
+            img.shape[2:] in ((), (1,), (3,)) and min(img.shape[:2]) >= 2:
         return _resize_linear_ipp(img, new_w, new_h)
     if interpolation == 'bilinear' and img.dtype in (np.uint8, np.float32):
         return _resize_linear(img, new_w, new_h)
@@ -342,3 +344,21 @@ def imresize(img: np.ndarray, size_wh, interpolation: str = 'bilinear'
              'bicubic': cv2.INTER_CUBIC, 'area': cv2.INTER_AREA,
              'lanczos': cv2.INTER_LANCZOS4}
     return cv2.resize(img, (new_w, new_h), interpolation=flags[interpolation])
+
+
+def rectangle(img: np.ndarray, pt1, pt2, color) -> np.ndarray:
+    """``cv2.rectangle(img, pt1, pt2, color, 1, cv2.LINE_8)`` in place: the
+    four edges from corner to corner inclusive, clipped to the image."""
+    h, w = img.shape[:2]
+    (x1, y1), (x2, y2) = (tuple(int(v) for v in p) for p in (pt1, pt2))
+    color = np.asarray(color, img.dtype)
+    color = color[:img.shape[2]] if img.ndim == 3 else color[0]
+    xs = slice(max(min(x1, x2), 0), min(max(x1, x2), w - 1) + 1)
+    ys = slice(max(min(y1, y2), 0), min(max(y1, y2), h - 1) + 1)
+    for y in {y1, y2}:
+        if 0 <= y < h and xs.start < xs.stop:
+            img[y, xs] = color
+    for x in {x1, x2}:
+        if 0 <= x < w and ys.start < ys.stop:
+            img[ys, x] = color
+    return img

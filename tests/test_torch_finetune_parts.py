@@ -93,11 +93,20 @@ def test_flow_normalize_matches():
 @pytest.mark.parametrize('name', ['Resize', 'RandomResizedCrop',
                                   'CenterCrop'])
 def test_lazy_is_refused(name):
+    """With lazy=True the transform records JAX's geometry and leaves the
+    frames alone; an eager transform after it is refused until Fuse, as in
+    the JAX package."""
     arg = dict(Resize=dict(scale=(16, 16)), CenterCrop=dict(crop_size=8),
                RandomResizedCrop={})[name]
-    with pytest.raises(NotImplementedError, match='lazy'):
-        T_PIPELINES.build(dict(type=name, lazy=True, **arg))(
-            dict(imgs=_frames(0)))
+    lazy = [dict(type=name, lazy=True, **arg)]
+    frames = _frames(0)
+    want = _run(lazy, dict(imgs=copy.deepcopy(frames)), J_PIPELINES, 0)
+    got = _run(lazy, dict(imgs=frames), T_PIPELINES, 0)
+    assert_same(want, got)
+    assert all(a is b for a, b in zip(got['imgs'], frames))
+    for results, registry in ((want, J_PIPELINES), (got, T_PIPELINES)):
+        with pytest.raises(AssertionError, match='Fuse'):
+            registry.build(dict(type='CenterCrop', crop_size=4))(results)
 
 
 @pytest.mark.parametrize('lr_config', [

@@ -5,14 +5,15 @@ PNG frames on disk):
 - the SSL surgery from a narrow MSCLWithAug checkpoint that the port's
   Runner wrote: the backbone equals its encoder_q bitwise and equals what
   JAX's ``apply_ssl_pretrain`` makes of the same file; a shape mismatch is
-  reported; a JAX ``.ckpt`` is refused;
+  reported; a ``.ckpt`` is read as the JAX package's checkpoint;
 - ``train_model`` on the fine-tune config (dropout 0) for 2 epochs with
   validation by metrics each epoch, both from JAX's initial variables (the
   surgery's result): every logged loss within 2e-4, the accuracies and the
   top1/top5/mean-class metrics equal, the checkpoints present;
 - exact resume with dropout, and the decode processes stopped after a run;
 - the test and retrieval CLIs: the metrics of JAX's CLIs on the same
-  weights.
+  weights (the test CLI both from a converted ``.pth`` and from the JAX
+  ``.ckpt`` itself).
 """
 import json
 import os.path as osp
@@ -151,7 +152,7 @@ def test_surgery_reports_a_shape_mismatch(data, tmp_path, capsys):
     apply_ssl_pretrain(model, dict(pretrained=dict(filename=path)))
     assert '(shape mismatch)' in capsys.readouterr().out
     assert torch.equal(model.backbone.layer1[0].conv1[0].weight, before)
-    with pytest.raises(NotImplementedError, match='jax_to_state_dict'):
+    with pytest.raises(FileNotFoundError, match='e.ckpt'):
         apply_ssl_pretrain(model, dict(pretrained=dict(filename='e.ckpt')))
     with pytest.raises(KeyError, match='no keys under prefix'):
         apply_ssl_pretrain(model, dict(pretrained=dict(filename=path),
@@ -306,6 +307,9 @@ def test_test_cli_matches_jax(data, tmp_path, jax_init):
     want = json.load(open(tmp_path / 'jax.json'))
     assert got == want == json.load(open(tmp_path / 'port.json'))
     assert sorted(got) == ['mean_class_accuracy', 'top1_acc', 'top5_acc']
+    # the JAX checkpoint itself, read by the port
+    assert test_cli.main([cfg_py, jckpt, *metrics, '--device', 'cpu']) == \
+        want
 
 
 def test_retrieval_cli_matches_jax(data, tmp_path, xla3d_conv):

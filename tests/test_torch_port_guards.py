@@ -10,11 +10,12 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
-from mscl_torch.apis import (FLAGSHIP_CONFIG, apply_ssl_pretrain,
-                             build_model_from_cfg, flagship_model_cfg,
+from mscl_torch.apis import (FLAGSHIP_CONFIG, build_model_from_cfg,
+                             flagship_model_cfg,
                              inference_recognizer, init_recognizer,
                              load_flagship_config, retrieval_recall,
                              train_model)
@@ -36,7 +37,7 @@ def test_port_imports_no_jax_and_no_mscl_tpu():
         'import chip_smoke\n'
         'bad = sorted(m for m in sys.modules if m.split(".")[0] in\n'
         '             ("jax", "jaxlib", "flax", "optax", "mscl_tpu", "cv2",\n'
-        '                               "msgpack"))\n'
+        '                               "msgpack", "tools"))\n'
         'print(len([m for m in sys.modules if m.startswith("mscl_torch.")]))\n'
         'assert not bad, bad\n'
         'assert {"mscl_torch.tools.bench_mxu_fill", "mscl_torch.ops.mxu_fill",'
@@ -61,12 +62,121 @@ def test_port_imports_no_jax_and_no_mscl_tpu():
         ' "mscl_torch.tools.ablation_ordering",'
         ' "mscl_torch.tools.shufflebn_ab",'
         ' "mscl_torch.tools.ablation_summary",'
-        ' "mscl_torch.models.heads.local_align_heads"}'
+        ' "mscl_torch.models.heads.local_align_heads",'
+        ' "mscl_torch.flow.pwclite", "mscl_torch.flow.flow_bbox",'
+        ' "mscl_torch.tools.flow2img", "mscl_torch.tools.vis_flow",'
+        ' "mscl_torch.tools.visualize_samples",'
+        ' "mscl_torch.datasets.pipelines.mcl_augmentations",'
+        ' "mscl_torch.core.jax_checkpoint"}'
         ' <= set(sys.modules)\n')
     out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[-1]) >= 20
+
+
+# where the port may import cv2: lazily, inside these functions only
+CV2_ALLOWED = {('apis/flow_extraction.py', 'tvl1_fn'),
+               ('utils/image_io.py', '_cv2')}
+
+
+def _imports(path):
+    """(top-level module, enclosing function or None) of every import."""
+    import ast
+    tree = ast.parse(open(path).read())
+    out = []
+
+    def walk(node, func):
+        for child in ast.iter_child_nodes(node):
+            name = child.name if isinstance(
+                child, (ast.FunctionDef, ast.AsyncFunctionDef)) else func
+            if isinstance(child, ast.Import):
+                out.extend((a.name.split('.')[0], func) for a in child.names)
+            elif isinstance(child, ast.ImportFrom) and not child.level:
+                out.append((child.module.split('.')[0], func))
+            walk(child, name)
+    walk(tree, None)
+    return out
+
+
+def test_port_sources_import_no_jax_and_cv2_only_lazily():
+    """No file of the port (or chip_smoke.py) imports jax, flax, mscl_tpu,
+    msgpack or the JAX tools anywhere, even inside a function; cv2 only
+    inside the two functions that need it."""
+    pkg = os.path.join(ROOT, 'mscl_torch')
+    files = [os.path.join(d, f) for d, _, fs in os.walk(pkg) for f in fs
+             if f.endswith('.py')] + [os.path.join(ROOT, 'chip_smoke.py')]
+    cv2_sites = set()
+    for path in files:
+        rel = os.path.relpath(path, pkg)
+        for mod, func in _imports(path):
+            assert mod not in ('jax', 'jaxlib', 'flax', 'optax', 'mscl_tpu',
+                               'msgpack', 'tools'), (rel, mod)
+            if mod == 'cv2':
+                cv2_sites.add((rel, func))
+    assert cv2_sites == CV2_ALLOWED
+
+
+@pytest.mark.parametrize('source', ['jpeg_encode.c'])
+def test_new_host_sources_build_or_raise(monkeypatch, source):
+    """A host source of the port builds where there is a compiler, and its
+    wrapper raises where the library is missing: no Python path is taken
+    in its place."""
+    from mscl_torch.utils import jpeg
+    assert source in cuda_build.host_sources()
+    name = source.rsplit('.', 1)[0]
+    if cuda_build.host_cc() is not None:
+        assert cuda_build.load_host(name) is not None
+    monkeypatch.setattr(cuda_build, 'load_host', lambda n: None)
+    with pytest.raises(RuntimeError, match=source):
+        jpeg.encode_jpeg(np.zeros((8, 8, 3), np.uint8))
+
+
+def test_runner_and_linear_probe_need_the_card_unless_told():
+    """The Runner and the ablation tool's linear probe take the card by
+    default, as train_model does."""
+    if torch.cuda.is_available():
+        pytest.skip('this box has a CUDA device')
+    from mscl_torch.core import Runner
+    from mscl_torch.tools.ablation_ordering import linear_probe
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Runner(torch.nn.Linear(2, 2), None, [], {}, 'unused')
+    f = np.zeros((4, 3), np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        linear_probe(f, [0, 1, 0, 1], f, [0, 1, 0, 1], n_cls=2, steps=1)
+    acc = linear_probe(f, [0, 1, 0, 1], f, [0, 1, 0, 1], n_cls=2, steps=1,
+                       device='cpu')
+    assert 0.0 <= acc <= 1.0
+
+
+def test_flow_tools_need_the_card_unless_told(tmp_path):
+    """ARFlow extraction and vis_flow take the card by default; TVL1 without
+    cv2.optflow raises the JAX tool's error."""
+    if torch.cuda.is_available():
+        pytest.skip('this box has a CUDA device')
+    from mscl_torch.apis import flow_extraction
+    from mscl_torch.tools import vis_flow
+    with pytest.raises(RuntimeError, match='CUDA'):
+        flow_extraction.make_arflow_fn()
+    frames = tmp_path / 'frames'
+    frames.mkdir()
+    from mscl_torch.utils.jpeg import encode_jpeg
+    for i in range(3):
+        (frames / f'{i}.jpg').write_bytes(encode_jpeg(
+            np.full((64, 64, 3), 40 * i, np.uint8)))
+    with pytest.raises(RuntimeError, match='CUDA'):
+        vis_flow.main([str(frames), '--out-dir', str(tmp_path / 'out')])
+    assert not (tmp_path / 'out').exists()
+    try:
+        import cv2
+        has_optflow = hasattr(cv2, 'optflow')
+    except ImportError:
+        has_optflow = False
+    if not has_optflow:
+        img = np.zeros((1, 8, 8, 3), np.uint8)
+        with pytest.raises((RuntimeError, ImportError),
+                           match='optflow unavailable|cv2'):
+            flow_extraction.tvl1_fn(img, img)
 
 
 def test_readme_data_prep_needs_neither_cv2_nor_msgpack(tmp_path):
@@ -215,11 +325,36 @@ def test_inference_needs_the_card_unless_told():
 
 
 def test_unreadable_inputs_are_refused(tmp_path):
-    """A JAX msgpack checkpoint (msgpack is absent where the card is) and a
-    video file (cv2 would decode it) are refused with what to do instead."""
-    with pytest.raises(NotImplementedError, match='jax_to_state_dict'):
-        apply_ssl_pretrain(None, dict(pretrained=dict(
-            filename=str(tmp_path / 'epoch_400.ckpt'))))
+    """What the port cannot take is refused with what to do instead: a
+    resume from a JAX msgpack checkpoint (read by the port's own reader,
+    with msgpack blocked; its RNG keys do not map onto the port's
+    generators) and a video file (cv2 would decode it)."""
+    ckpt = tmp_path / 'epoch_400.ckpt'
+    # flax's msgpack of {'params': {'fc': {'bias': float32 [1.5]}},
+    # 'step': 3}, ext type 1 holding (shape, dtype, bytes)
+    arr = bytes([0x93, 0x91, 0x01, 0xC4, 0x07]) + b'float32' + \
+        bytes([0xC4, 0x04]) + np.float32([1.5]).tobytes()
+    ckpt.write_bytes(bytes([0x82, 0xA6]) + b'params' + bytes([0x81, 0xA2]) +
+                     b'fc' + bytes([0x81, 0xA4]) + b'bias' +
+                     bytes([0xC7, len(arr), 0x01]) + arr +
+                     bytes([0xA4]) + b'step' + bytes([0x03]))
+    code = f"""
+import sys
+sys.modules['msgpack'] = sys.modules['flax'] = sys.modules['jax'] = None
+import torch
+from mscl_torch.core import load_checkpoint, restore_train_state
+ckpt = load_checkpoint({str(ckpt)!r})
+assert torch.equal(ckpt['state_dict']['fc.bias'], torch.tensor([1.5]))
+try:
+    restore_train_state(torch.nn.Linear(1, 1), None, ckpt)
+except NotImplementedError as e:
+    assert 'epoch_400.ckpt' in str(e) and 'does not resume' in str(e)
+    print('refused')
+"""
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.split()[-1] == 'refused'
     video = tmp_path / 'clip.mp4'
     video.write_bytes(b'')
     with pytest.raises(NotImplementedError, match='extract its frames'):
