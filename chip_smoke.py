@@ -173,6 +173,27 @@ the exit code is nonzero:
    the lookup's launches, a 128x171 flow image's encode ms, flow2img
    videos/s of each run and inference_bboxs ms a video (3 passes over the
    8 videos), and its seconds;
+14c. recognition_configs: the I3D, SlowOnly and PoseC3D recipes of
+   configs/, each at its own model, batch, clip length and crop, float32:
+   a Kinetics-shaped rawframe set written with the port's JPEG encoder
+   (32 videos of 72 256x340 frames, and the same as grey x/y flow pairs)
+   and an NTU-shaped skeleton pickle (64 samples, 2 persons, 17 COCO
+   keypoints, 100 frames, heatmaps at img_shape 56x56: a cut, NTU's
+   1080x1920 would make 6.8 GB of heatmaps a sample); for each of the
+   seven trainable configs (i3d_r50_dense and _lazy, slowonly_r50_8x8x1,
+   the ImageNet 8x4x1 recipe, the flow recipe, PoseC3D NTU-60 and -120)
+   two train steps and forward_test of its narrowed model (base_channels
+   8, one block a stage) on the card against the CPU on a batch of its own
+   train pipeline, within 1e-3, then the training CLI on the file itself
+   (1 epoch of 4 steps at its batch, validation where its val pipeline is
+   NCTHW) and one more step profiled; the test CLI on i3d_r50_dense's
+   checkpoint (10 dense clips a video, 8 videos); and the refusals by
+   name: i3d_r50_32x2x1 and slowonly_r50_4x16x1_rgb (NTHWC clips) before
+   their first step, the PoseC3D limb config (left_kp) and the video
+   config (VideoDataset). It fails unless every loss is finite and no
+   decayed-InfoNCE or lookup kernel launched; it logs each config's steady
+   ms a step (steps 3-4), data-wait share, the profiled step's device ms
+   and idle share, peak memory, and the test CLI's videos/s;
 15. pretrain_configs: every config of configs/recognition/moco (MSCL r18,
    the flagship, as a control; MSCL r50; MoCo r18 with MoCoAugmentV2, with
    SyncMoCoAugmentV2 at 'params' and at 'batch'; MoCo r50): its own model
@@ -206,19 +227,25 @@ the exit code is nonzero:
    ShuffleBN at world 2 (two gloo ranks sharing the card, the narrow
    flagship model, a global batch of 8) against no group within the
    pretrain_dp tolerances (shufflebn_ab line);
-17. print the kernel table, the card's name and power limit, and the
+17. print the card's name and power limit, the kernel table and the
    result. Each phase's seconds are logged (phase_seconds).
+
+Every phase's log lines (and the CLIs' and spawned ranks' own output) go
+to build/chip_smoke.log; the script's stdout has one summary line a phase
+(its headline numbers; a phase that fails raises, and the end of the log
+is printed), then the card's name and power limit, the kernel table and
+the result, well inside the 24 KB a caller may keep of it.
 
 Every kernel launch counter is set to 0 just before each of the paths 7
 (each dtype), 8, 9 (each of its two runs), 10, 10b (in each rank, before
 its steps and before each CLI run), 15 (each config's steps and each CLI
-run), 14b (each extraction run and each vis_flow run), 11-14 (each
-CLI run; the fine-tune, test and retrieval paths must launch no decayed-InfoNCE
-kernel: r3d_18 goes to cuDNN), the probe tool's run in 4 and 16 (each
-arm's run of the tool, the A/B's two runs), and read just after. The
-kernel table's decayed-InfoNCE launches are the pretrain CLI's (both runs
-of 9). It needs a CUDA device: without one it exits
-nonzero before printing any result.
+run), 14b (each extraction run and each vis_flow run), 14c (each CLI run:
+none may launch a kernel), 11-14 (each CLI run; the fine-tune, test and
+retrieval paths must launch no decayed-InfoNCE kernel: r3d_18 goes to
+cuDNN), the probe tool's run in 4 and 16 (each arm's run of the tool, the
+A/B's two runs), and read just after. The kernel table's decayed-InfoNCE
+launches are the pretrain CLI's (both runs of 9). It needs a CUDA device:
+without one it exits nonzero before printing any result.
 """
 from __future__ import annotations
 
@@ -412,12 +439,80 @@ ABL_KERNEL_SHAPES = ((32, 128, 2048), (16, 32, 256))
 ABL_LAUNCHES = dict(moco=1, modist=4, mscl_nofra=4, mscl=7, mscl_nomds=7)
 ABL_STEPS, ABL_PROFILED = 5, 3      # the tool's steps; the one profiled
 ABL_AB_STEPS = 10                   # shufflebn_ab's steps a run
+# recognition_configs: a Kinetics-shaped rawframe set (RC_VIDEOS videos of
+# RC_FRAMES 256x340 JPEG frames, and the same as grey flow pairs; the
+# first RC_VAL the val and test set) and an NTU-shaped skeleton set
+# (RC_POSE samples of RC_POSE_FRAMES frames; heatmaps at RC_POSE_HW, a cut:
+# NTU's 1080x1920 would make 17 x 48 x 1080 x 1920 x 4 B = 6.8 GB of
+# heatmaps a sample); RC_STEPS steps of each trainable config at its own
+# batch (8, PoseC3D 16); card against CPU on RC_CHECK clips
+RC_VIDEOS, RC_FRAMES, RC_HW, RC_VAL = 32, 72, (256, 340), 8
+RC_POSE, RC_POSE_FRAMES, RC_POSE_HW = 64, 100, (56, 56)
+RC_STEPS, RC_CHECK = 4, 2
+RECOGNITION_CONFIGS = (   # (label, config, set, validate: val is NCTHW)
+    ('i3d_dense', 'configs/recognition/i3d/'
+     'i3d_r50_dense_32x2x1_100e_kinetics400_rgb.py', 'rgb', True),
+    ('i3d_lazy', 'configs/recognition/i3d/'
+     'i3d_r50_lazy_32x2x1_100e_kinetics400_rgb.py', 'rgb', False),
+    ('slowonly_8x8', 'configs/recognition/slowonly/'
+     'slowonly_r50_8x8x1_256e_kinetics400_rgb.py', 'rgb', True),
+    ('slowonly_in_8x4', 'configs/recognition/slowonly/'
+     'slowonly_imagenet_pretrained_r50_8x4x1_64e_kinetics400_rgb.py', 'rgb',
+     True),
+    ('slowonly_flow', 'configs/recognition/slowonly/'
+     'slowonly_r50_4x16x1_256e_kinetics400_flow.py', 'flow', False),
+    ('posec3d_ntu60', 'configs/skeleton/posec3d/'
+     'slowonly_r50_u48_240e_ntu60_xsub_keypoint.py', 'pose', True),
+    ('posec3d_ntu120', 'configs/skeleton/posec3d/'
+     'slowonly_r50_u48_240e_ntu120_xsub_keypoint.py', 'pose', True))
+RC_NTHWC = ('configs/recognition/i3d/i3d_r50_32x2x1_100e_kinetics400_rgb.py',
+            'configs/recognition/slowonly/'
+            'slowonly_r50_4x16x1_256e_kinetics400_rgb.py')
+RC_REFUSED = (('configs/skeleton/posec3d/'
+               'slowonly_r50_u48_240e_ntu60_xsub_limb.py', 'left_kp', 'pose'),
+              ('configs/recognition/i3d/'
+               'i3d_r50_video_32x2x1_100e_kinetics400_rgb.py', 'VideoDataset',
+               'rgb'))
 ABL_JSON_KEYS = {'arm', 'scale', 'seed', 'steps', 'batch', 'K', 'hw', 'T',
                  'n_videos', 'platform', 'init', 'final', 'losses'}
 
 
+# every log line goes to LOG_PATH (the process's stdout is pointed there
+# while the phases run, so the CLIs' lines and spawned ranks' go there too);
+# the script's own stdout gets one summary line a phase, then the result
+LOG_PATH = osp.join(osp.dirname(osp.abspath(__file__)), 'build',
+                    'chip_smoke.log')
+SUMMARY_BYTES = 1000
+_RECORDS = []
+
+
 def log(**kw):
+    _RECORDS.append(kw)
     print(json.dumps(kw), flush=True)
+
+
+def _short(v):
+    return float(f'{v:.4g}') if isinstance(v, float) else v
+
+
+def phase_summary(name, seconds, records):
+    """One line for a phase that passed: its headline record if it logged
+    one, else its records by kind and its first scalar numbers."""
+    for r in reversed(records):
+        if 'headline' in r:
+            line = dict(phase=name, s=round(seconds, 1), **r['headline'])
+            break
+    else:
+        kinds, head = {}, {}
+        for r in records:
+            kinds[r.get('phase')] = kinds.get(r.get('phase'), 0) + 1
+            for k, v in r.items():
+                if isinstance(v, (int, float)) and not isinstance(v, bool) \
+                        and k not in head and len(head) < 10:
+                    head[k] = _short(v)
+        line = dict(phase=name, s=round(seconds, 1), checks='passed',
+                    records=kinds, head=head)
+    return json.dumps(line)[:SUMMARY_BYTES]
 
 
 def launch_ms(fn, iters=20, flush=None, warmup=3):
@@ -3117,6 +3212,273 @@ def phase_flow_tooling(root):
     return vis['resized']['launches']
 
 
+# ---------------------------------------------------- recognition configs
+
+def write_recognition_sets(root):
+    """The phase's synthetic sets: RC_VIDEOS Kinetics-shaped videos of
+    RC_FRAMES img_{:05}.jpg frames from 1 at RC_HW (16 distinct frames,
+    encoded once by the port's JPEG encoder, video v's frame i a copy of
+    (i + 3 v) % 16), the same videos as grey x_/y_{:05d}.jpg flow pairs,
+    train and val lists, and an NTU-shaped skeleton pickle of RC_POSE
+    samples (2 persons, 17 COCO keypoints, RC_POSE_FRAMES frames at
+    RC_POSE_HW). Returns {set: (data_prefix, train list, val list)}."""
+    rng = np.random.default_rng(0)
+    h, w = RC_HW
+    ys, xs = np.mgrid[0:h, 0:w]
+    encoded = []
+    for k in range(16):
+        img = np.stack([(xs * (k + 1) + ys * 3) % 256, (ys * 2 + k * 16) %
+                        256, (xs + ys + k * 40) % 256], -1)
+        img = np.clip(img + rng.normal(0, 12, img.shape), 0, 255).astype(
+            np.uint8)
+        encoded.append((jpeg.encode_jpeg(img, 90),
+                        jpeg.encode_jpeg(img[..., 0], 90),
+                        jpeg.encode_jpeg(img[..., 1], 90)))
+    sets = {}
+    for kind in ('rgb', 'flow'):
+        base = osp.join(root, f'kinetics_{kind}')
+        lines = []
+        for v in range(RC_VIDEOS):
+            vdir = osp.join(base, f'video_{v:03d}')
+            os.makedirs(vdir)
+            for i in range(1, RC_FRAMES + 1):
+                rgb, x, y = encoded[(i + 3 * v) % 16]
+                files = ([(f'img_{i:05}.jpg', rgb)] if kind == 'rgb' else
+                         [(f'x_{i:05d}.jpg', x), (f'y_{i:05d}.jpg', y)])
+                for name, data in files:
+                    with open(osp.join(vdir, name), 'wb') as f:
+                        f.write(data)
+            lines.append(f'video_{v:03d} {RC_FRAMES} {v % 400}\n')
+        for split, rows in (('train', lines), ('val', lines[:RC_VAL])):
+            with open(osp.join(base, f'{split}.txt'), 'w') as f:
+                f.writelines(rows)
+        sets[kind] = (base, osp.join(base, 'train.txt'),
+                      osp.join(base, 'val.txt'))
+    samples = []
+    for i in range(RC_POSE):
+        base = rng.uniform(10, RC_POSE_HW[0] - 10, (2, 1, 17, 2))
+        kp = base + np.cumsum(rng.normal(0, 0.6, (2, RC_POSE_FRAMES, 17, 2)),
+                              axis=1)
+        samples.append(dict(
+            frame_dir=f'S001C001P001R001A{i:03d}', label=i % 60,
+            total_frames=RC_POSE_FRAMES, img_shape=RC_POSE_HW,
+            original_shape=RC_POSE_HW, keypoint=kp.astype(np.float32),
+            keypoint_score=rng.uniform(0.2, 1, (2, RC_POSE_FRAMES, 17))
+            .astype(np.float32)))
+    base = osp.join(root, 'ntu')
+    os.makedirs(base)
+    for split, rows in (('train', samples), ('val', samples[:RC_VAL * 2])):
+        with open(osp.join(base, f'{split}.pkl'), 'wb') as f:
+            pickle.dump(rows, f)
+    sets['pose'] = (None, osp.join(base, 'train.pkl'),
+                    osp.join(base, 'val.pkl'))
+    return sets
+
+
+def recognition_options(sets, kind, work):
+    """--cfg-options that point a config's splits at the phase's set and
+    cut its run to one epoch, with a checkpoint, validation and a log line
+    every epoch and step."""
+    prefix, train, val = sets[kind]
+    opts = []
+    for split, ann in (('train', train), ('val', val), ('test', val)):
+        opts.append(f'data.{split}.ann_file={ann}')
+        if prefix:
+            opts.append(f'data.{split}.data_prefix={prefix}')
+    return opts + ['total_epochs=1', 'checkpoint_config.interval=1',
+                   'evaluation.interval=1', 'log_config.interval=1',
+                   f'work_dir={work}']
+
+
+def narrow_recognizer(model_cfg):
+    """A recognition config's model, narrowed: base_channels 8, one block
+    a stage, dropout 0."""
+    cfg = json.loads(json.dumps(model_cfg))
+    stages = cfg['backbone'].get('num_stages', 4)
+    cfg['backbone'].update(base_channels=8, stage_blocks=[1] * stages)
+    cfg['cls_head'].update(in_channels=8 * 2 ** (stages - 1) * 4,
+                           dropout_ratio=0.0)
+    return cfg
+
+
+def recognition_card_vs_cpu(cfg, sets, kind):
+    """Two train steps and forward_test of a config's narrowed model on the
+    card and on the CPU from the same weights, on one batch of RC_CHECK
+    clips from the config's own train pipeline."""
+    from mscl_torch.datasets import build_dataset
+    from mscl_torch.datasets.loader import default_collate
+    prefix, train, _ = sets[kind]
+    ds_cfg = cfg.data.train.to_dict()
+    ds_cfg['ann_file'] = train
+    if prefix:
+        ds_cfg['data_prefix'] = prefix
+    random.seed(0)
+    np.random.seed(0)
+    dataset = build_dataset(ds_cfg)
+    batch = default_collate([dataset[i] for i in range(RC_CHECK)])
+    model_cfg = narrow_recognizer(cfg.model.to_dict())
+    losses, scores = {}, {}
+    for dev in ('cpu', 'cuda'):
+        model = build_model_from_cfg(model_cfg, device=dev, seed=1)
+        opt = build_optimizer(
+            model, cfg.optimizer.to_dict(),
+            build_lr_schedule({}, cfg.optimizer['lr'], 1, 2),
+            grad_clip=cfg.optimizer_config['grad_clip'])
+        step = make_train_step(model, opt)
+        on_dev = to_torch(batch, dev)
+        losses[dev] = [step(on_dev)['loss'].item() for _ in range(2)]
+        model.eval()
+        with torch.no_grad():
+            scores[dev] = model.forward_test(on_dev['imgs']).cpu()
+    torch.testing.assert_close(torch.tensor(losses['cuda']),
+                               torch.tensor(losses['cpu']), **STEP_TOL)
+    torch.testing.assert_close(scores['cuda'], scores['cpu'], **STEP_TOL)
+    return dict(
+        imgs=list(batch['imgs'].shape),
+        loss_diff=max(abs(a - b) for a, b in zip(losses['cuda'],
+                                                 losses['cpu'])),
+        score_diff=(scores['cuda'] - scores['cpu']).abs().max().item())
+
+
+def recognition_train(cfg_path, sets, kind, validate, work):
+    """The training CLI on a config file over the phase's set: 1 epoch of
+    RC_STEPS steps at the config's batch (validation where asked), then
+    one more step profiled. Fails unless every loss is finite and neither
+    decayed InfoNCE nor the lookup launched."""
+    argv = [cfg_path, '--seed', '0', '--cfg-options',
+            *recognition_options(sets, kind, work)]
+    if validate:
+        argv.insert(1, '--validate')
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (runner, model), launches, run_s = cli_run(train_cli.main, argv)
+    peak = torch.cuda.max_memory_allocated()
+    launches['corr_lookup'] = cl.corr_lookup.launches
+    if any(launches.values()):
+        raise AssertionError(f'{cfg_path}: kernels launched {launches}')
+    records = read_log(work)
+    train = [r for r in records if r['mode'] == 'train']
+    val = [r for r in records if r['mode'] == 'val']
+    if len(train) != RC_STEPS or len(val) != int(validate) or not all(
+            math.isfinite(r['loss']) for r in train):
+        raise AssertionError(f'{cfg_path}: {len(train)} train lines, '
+                             f'{len(val)} val lines, losses '
+                             f'{[r["loss"] for r in train]}')
+    if validate and not {'top1_acc', 'mean_class_accuracy'} <= set(val[0]):
+        raise AssertionError(f'{cfg_path}: val line {val[0]}')
+    steady = train[2:]
+    step_s = sum(r['time'] for r in steady) / len(steady)
+    it = iter(runner.train_loader)
+    batch = to_torch(next(it), 'cuda')
+    it.close()
+    it._thread.join()
+    name = osp.basename(work)
+    prof = profile(f'{name}_step', lambda: runner._train_step(batch))
+    row = dict(batch=runner.train_loader.batch_size,
+               imgs=list(batch['imgs'].shape), steady_ms=step_s * 1e3,
+               data_wait_share=sum(r['data_time'] for r in steady) /
+               len(steady) / step_s,
+               device_ms=prof['device_busy_ms'],
+               idle_share=prof['device_idle_share'], peak_bytes=peak,
+               losses=[r['loss'] for r in train], run_s=run_s,
+               val={k: val[0][k] for k in ('top1_acc', 'top5_acc',
+                                           'mean_class_accuracy')}
+               if validate else None)
+    del runner, model, batch
+    torch.cuda.empty_cache()
+    return row
+
+
+def recognition_refusals(sets, root):
+    """The configs the port refuses by name: the NTHWC ones stop before
+    their first step with Recognizer3D's message; the PoseC3D limb config
+    names left_kp; the video config names its video reader."""
+    out = {}
+    for name in RC_NTHWC:
+        work = osp.join(root, 'refused_' + name.split('/')[-1])
+        try:
+            cli_run(train_cli.main, [name, '--seed', '0', '--cfg-options',
+                                     *recognition_options(sets, 'rgb',
+                                                          work)])
+        except ValueError as e:
+            if "FormatShape('NTHWC')" not in str(e):
+                raise
+            out[name] = str(e)[:60]
+        else:
+            raise AssertionError(f'{name} trained on NTHWC clips')
+        logged = osp.join(work, 'log.json')
+        if osp.exists(logged) and open(logged).read().strip():
+            raise AssertionError(f'{name} logged a step before refusing')
+    for name, word, kind in RC_REFUSED:
+        try:
+            cli_run(train_cli.main, [name, '--cfg-options',
+                                     *recognition_options(
+                                         sets, kind, osp.join(root, 'x'))])
+        except (TypeError, NotImplementedError) as e:
+            if word not in str(e):
+                raise
+            out[name] = str(e)[:60]
+        else:
+            raise AssertionError(f'{name} was not refused')
+    return out
+
+
+def phase_recognition_configs(root):
+    """The I3D, SlowOnly and PoseC3D recipes of configs/: data written,
+    card against CPU, the training CLI on each trainable config, the test
+    CLI on i3d_r50_dense's checkpoint, and the refusals. Each config runs
+    its own model, batch, clip length and crop, float32."""
+    from mscl_torch.apis import inference
+    t_phase = time.perf_counter()
+    root = osp.join(root, 'recognition')
+    t0 = time.perf_counter()
+    sets = write_recognition_sets(root)
+    write_s = time.perf_counter() - t0
+    rows = {}
+    for name, cfg_path, kind, validate in RECOGNITION_CONFIGS:
+        cfg = Config.fromfile(cfg_path)
+        check = recognition_card_vs_cpu(cfg, sets, kind)
+        rows[name] = dict(card_vs_cpu=check, **recognition_train(
+            cfg_path, sets, kind, validate, osp.join(root, name)))
+        log(phase='recognition_config', config=cfg_path, **rows[name])
+    dense = RECOGNITION_CONFIGS[0][1]
+    work = osp.join(root, RECOGNITION_CONFIGS[0][0])
+    out = osp.join(work, 'test.json')
+    loop_s, restore = timed_calls(inference, 'run_test')
+    try:
+        metrics, launches, test_s = cli_run(test_cli.main, [
+            dense, osp.join(work, 'epoch_1.pth'), '--out', out,
+            '--cfg-options', *recognition_options(sets, 'rgb', work)])
+    finally:
+        restore()
+    if any(launches.values()) or not all(0 <= v <= 1
+                                         for v in metrics.values()):
+        raise AssertionError(f'test CLI: {metrics}, {launches}')
+    refusals = recognition_refusals(sets, root)
+    seconds = time.perf_counter() - t_phase
+    test = dict(videos=RC_VAL, clips_a_video=10, metrics=metrics,
+                videos_per_s=RC_VAL / test_s,
+                loop_videos_per_s=RC_VAL / sum(loop_s))
+    log(phase='recognition_configs', write_s=write_s, test_cli=test,
+        refusals=refusals, seconds=seconds,
+        cut=f'skeletons at img_shape {RC_POSE_HW}, not NTU\'s 1080x1920: '
+            f'the configs have no PoseCompact/Resize, so heatmaps come out '
+            f'at img_shape')
+    log(phase='recognition_configs', headline=dict(
+        checks='card_vs_cpu 1e-3, finite losses, 0 kernel launches, '
+               'test metrics, 4 refusals',
+        seconds=round(seconds, 1), test_videos_per_s=round(
+            test['videos_per_s'], 2),
+        configs={k: [round(r['steady_ms'], 1),
+                          round(r['data_wait_share'], 3),
+                          round(r['device_ms'], 1),
+                          round(r['idle_share'], 3),
+                          round(r['peak_bytes'] / 2 ** 30, 2)]
+                 for k, r in rows.items()},
+        keys='steady_ms, data_wait_share, device_ms, idle_share, '
+             'peak_GiB'))
+
+
 def phase_pretrain_configs(dev, root, pkls):
     """Every pretrain config the repo ships: full-width steps of each
     config's own model; card against CPU for MoCo with each of its augs
@@ -3456,15 +3818,45 @@ def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         return 1
+    os.makedirs(osp.dirname(LOG_PATH), exist_ok=True)
+    sys.stdout.flush()
+    saved = os.dup(1)
+    with open(LOG_PATH, 'w') as f:
+        os.dup2(f.fileno(), 1)
+    out = os.fdopen(os.dup(saved), 'w', buffering=1)
+    try:
+        rows, corr, mxu, mxu_launches, cli_launches, corr_launches = \
+            run_phases(out)
+    except BaseException:
+        sys.stdout.flush()
+        with open(LOG_PATH, errors='replace') as f:
+            tail = f.read()[-8000:]
+        print(f'chip_smoke: failed; the end of {LOG_PATH}:\n{tail}',
+              file=out)
+        raise
+    finally:
+        sys.stdout.flush()
+        os.dup2(saved, 1)
+        os.close(saved)
+        out.close()
+    return main_result(rows, corr, mxu, mxu_launches, cli_launches,
+                       corr_launches)
+
+
+def run_phases(out):
+    """Every phase in order; a summary line of each on ``out``."""
     dev = torch.device('cuda')
     seconds = {}
 
     def run(name, fn, *args):
         t0 = time.perf_counter()
-        out = fn(*args)
+        first = len(_RECORDS)
+        result = fn(*args)
         seconds[name] = time.perf_counter() - t0
         log(phase='phase_seconds', name=name, seconds=seconds[name])
-        return out
+        print(phase_summary(name, seconds[name], _RECORDS[first:]),
+              file=out)
+        return result
 
     t0 = time.perf_counter()
     cuda_build.build(cuda_build.all_sources())
@@ -3474,6 +3866,8 @@ def main():
     log(phase='build', sources=cuda_build.all_sources(),
         host_sources=cuda_build.host_sources(),
         seconds=time.perf_counter() - t0)
+    print(phase_summary('build', time.perf_counter() - t0, _RECORDS[-1:]),
+          file=out)
 
     rows = run('kernels', phase_kernels, dev)
     corr = run('corr_lookup', phase_corr_lookup, dev)
@@ -3501,12 +3895,19 @@ def main():
             pretrain_ckpt)
         run('readme_jpeg', phase_readme_jpeg, root)
         run('flow_tooling', phase_flow_tooling, root)
+        run('recognition_configs', phase_recognition_configs, root)
         run('pretrain_configs', phase_pretrain_configs, dev, root, pkls)
         run('ablation_arms', phase_ablation_arms, dev, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(phase='phase_seconds', total=sum(seconds.values()), **seconds)
+    print(json.dumps(dict(phase='all', s=round(sum(seconds.values()), 1),
+                          log=osp.relpath(LOG_PATH))), file=out)
+    return rows, corr, mxu, mxu_launches, cli_launches, corr_launches
 
+
+def main_result(rows, corr, mxu, mxu_launches, cli_launches,
+                corr_launches):
     # the TPU functions that reach pl.pallas_call, and the row of each
     # kernel at the shape its main path gives it
     rows.append(dict(corr['extraction_16x22'], name='corr_lookup'))

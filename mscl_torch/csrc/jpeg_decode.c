@@ -25,7 +25,9 @@
  *   replication; h2v1 and h2v2 are fancy only where the component's
  *   downsampled width exceeds 2;
  * - colour: jdcolor.c's ycc_rgb tables (SCALEBITS 16); grey is repeated
- *   into 3 channels.
+ *   into 3 channels. jpeg_decode_grey gives OpenCV's IMREAD_GRAYSCALE
+ *   (libjpeg's JCS_GRAYSCALE output): the first component, no colour
+ *   conversion.
  *
  * The whole image is decoded from a buffer in one call, with no callback
  * into Python, so ctypes releases the GIL around it. Built with the host C
@@ -833,6 +835,17 @@ static void write_rgb(dec_t *d, uint8_t *out) {
   free(tmp);
 }
 
+/* JCS_GRAYSCALE output (jdcolor.c grayscale_convert): the first
+ * component's rows as they are, the others decoded and not used. */
+static void write_grey(dec_t *d, uint8_t *out) {
+  uint8_t *tmp = (uint8_t *)malloc((size_t)d->out_w + 16);
+  int y;
+  for (y = 0; y < d->out_h; y++)
+    memcpy(out + (size_t)y * d->out_w, upsample_row(d, &d->comp[0], y, tmp),
+           (size_t)d->out_w);
+  free(tmp);
+}
+
 /* ------------------------------------------------------------ interface */
 
 static int prepare(dec_t *d, const uint8_t *buf, int64_t len, int reduce,
@@ -859,10 +872,11 @@ int jpeg_dims(const uint8_t *buf, int64_t len, int reduce, int32_t *dims,
   return 0;
 }
 
-/* Decode into out, an (h, w, 3) RGB uint8 array of jpeg_dims' size.
- * Returns 0, or -1 with the reason in err. */
-int jpeg_decode(const uint8_t *buf, int64_t len, int reduce, uint8_t *out,
-                int32_t h, int32_t w, char *err, int64_t errcap) {
+/* Decode into out: RGB (h, w, 3), or with grey the first component
+ * (h, w). */
+static int decode_into(const uint8_t *buf, int64_t len, int reduce,
+                       uint8_t *out, int32_t h, int32_t w, int grey,
+                       char *err, int64_t errcap) {
   dec_t d;
   int i, rc = 0;
   if (prepare(&d, buf, len, reduce, err, errcap)) return -1;
@@ -874,7 +888,24 @@ int jpeg_decode(const uint8_t *buf, int64_t len, int reduce, uint8_t *out,
     if (!c->plane) rc = fail(&d, "out of memory");
   }
   if (!rc) rc = decode_scan(&d);
-  if (!rc) write_rgb(&d, out);
+  if (!rc && grey) write_grey(&d, out);
+  else if (!rc) write_rgb(&d, out);
   for (i = 0; i < d.nc; i++) free(d.comp[i].plane);
   return rc;
+}
+
+/* Decode into out, an (h, w, 3) RGB uint8 array of jpeg_dims' size.
+ * Returns 0, or -1 with the reason in err. */
+int jpeg_decode(const uint8_t *buf, int64_t len, int reduce, uint8_t *out,
+                int32_t h, int32_t w, char *err, int64_t errcap) {
+  return decode_into(buf, len, reduce, out, h, w, 0, err, errcap);
+}
+
+/* Decode into out, an (h, w) grey uint8 array of jpeg_dims' size at
+ * reduce 1, as libjpeg's JCS_GRAYSCALE output gives it (OpenCV's
+ * IMREAD_GRAYSCALE): the first component, upsampled if it is not at the
+ * largest sampling factors, with no colour conversion. */
+int jpeg_decode_grey(const uint8_t *buf, int64_t len, uint8_t *out,
+                     int32_t h, int32_t w, char *err, int64_t errcap) {
+  return decode_into(buf, len, 1, out, h, w, 1, err, errcap);
 }

@@ -1,13 +1,22 @@
-"""The host data path of pretraining: the file dataset, the numpy
-pipelines of the flagship config and the loader of global batches (port of
-``mscl_tpu/datasets``, the parts that config names)."""
+"""The host data path: the file, rawframe and pose datasets, their dataset
+wrappers, the numpy pipelines of the shipped configs, batch blending and
+the loader of global batches (port of ``mscl_tpu/datasets``, the parts the
+ported configs name)."""
 from . import pipelines  # noqa: F401  (registers the transforms)
 from .base import BaseDataset
-from .builder import DATASETS, PIPELINES, build_dataloader, build_dataset
+from .blending import CutmixBlending, MixupBlending
+from .builder import (BLENDINGS, DATASETS, PIPELINES, build_dataloader,
+                      build_dataset)
+from .dataset_wrappers import ConcatDataset, RepeatDataset
 from .file_dataset import (DataTransfer, FileRawframe2BranchDataset,
                            FileRawframeDataset)
 from .loader import NumpyLoader, default_collate
+from .misc_datasets import PoseDataset
+from .rawframe_dataset import RawframeDataset
 
-__all__ = ['BaseDataset', 'DATASETS', 'PIPELINES', 'build_dataset',
-           'build_dataloader', 'DataTransfer', 'FileRawframeDataset',
-           'FileRawframe2BranchDataset', 'NumpyLoader', 'default_collate']
+__all__ = ['BaseDataset', 'DATASETS', 'PIPELINES', 'BLENDINGS',
+           'build_dataset', 'build_dataloader', 'DataTransfer',
+           'FileRawframeDataset', 'FileRawframe2BranchDataset',
+           'RawframeDataset', 'PoseDataset', 'RepeatDataset',
+           'ConcatDataset', 'MixupBlending', 'CutmixBlending',
+           'NumpyLoader', 'default_collate']

@@ -11,11 +11,20 @@ from ..registry import Registry, build_from_cfg
 
 DATASETS = Registry('dataset')
 PIPELINES = Registry('pipeline')
+BLENDINGS = Registry('blending')
 
 
 def build_dataset(cfg, default_args=None):
-    if cfg['type'] in ('RepeatDataset', 'ConcatDataset'):
-        raise NotImplementedError(f'{cfg["type"]} is not ported')
+    """A dataset, or the RepeatDataset / ConcatDataset wrapper of the ones
+    its config lists (reference datasets/builder.py:28-40)."""
+    if cfg['type'] == 'RepeatDataset':
+        from .dataset_wrappers import RepeatDataset
+        return RepeatDataset(build_dataset(cfg['dataset'], default_args),
+                             cfg['times'])
+    if cfg['type'] == 'ConcatDataset':
+        from .dataset_wrappers import ConcatDataset
+        return ConcatDataset([build_dataset(c, default_args)
+                              for c in cfg['datasets']])
     return build_from_cfg(cfg, DATASETS, default_args)
 
 

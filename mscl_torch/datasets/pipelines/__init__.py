@@ -1,26 +1,40 @@
-from .augmentations import (CenterCrop, Flip, Fuse, Normalize,
-                            RandomResizedCrop, Resize,
-                            get_random_resized_crop_bbox, rescale_size)
+from .augmentations import (CenterCrop, ColorJitter, Flip, Fuse,
+                            GPUNormalize, MultiGroupCrop, MultiScaleCrop,
+                            Normalize, RandomCrop, RandomRescale,
+                            RandomResizedCrop, RandomScale, Resize, TenCrop,
+                            ThreeCrop, get_random_resized_crop_bbox,
+                            rescale_size)
 from .combined_augmentations import MoCoTransform
 from .compose import Compose
-from .formatting import Collect, ToTensor, batched_to_tensor, to_tensor
-from .loading import ArrayDecode, LocalDecode, SampleFrames
+from .formatting import (Collect, FormatShape, ImageToTensor, Rename,
+                         ToDataContainer, ToTensor, Transpose,
+                         batched_to_tensor, to_tensor)
+from .loading import (ArrayDecode, DenseSampleFrames, LocalDecode,
+                      RawFrameDecode, SampleFrames, UntrimmedSampleFrames)
 from .mcl_augmentations import MCLRandomResizedCrop, motion_map_from_flow
 from .loading_mscl import (ChosenSampleFrames, MatchFlow, Seg2T,
                            TemporalShiftChosenSampleFrames)
 from .moco_augmentations import (MoCoDecodePlan, MoCoNormalize,
                                  MoCoRandomResizedCrop, MoCoResize)
+from .pose_loading import (GeneratePoseTarget, LoadKineticsPose, PoseCompact,
+                           PoseDecode, UniformSampleFrames)
 from .transforms_motion import (NormFlowWithAug, NormFlowWithStidedAug,
                                 norm_flow, rotate_flow)
 
 __all__ = [
     'Compose', 'Collect', 'ToTensor', 'to_tensor', 'batched_to_tensor',
-    'SampleFrames', 'LocalDecode', 'ArrayDecode', 'MatchFlow',
+    'Rename', 'FormatShape', 'Transpose', 'ImageToTensor', 'ToDataContainer',
+    'SampleFrames', 'DenseSampleFrames', 'UntrimmedSampleFrames',
+    'RawFrameDecode', 'LocalDecode', 'ArrayDecode', 'MatchFlow',
     'ChosenSampleFrames', 'TemporalShiftChosenSampleFrames',
     'MoCoDecodePlan', 'MoCoRandomResizedCrop', 'MoCoResize', 'MoCoNormalize',
     'MoCoTransform',
     'NormFlowWithAug', 'NormFlowWithStidedAug', 'norm_flow', 'rotate_flow',
-    'get_random_resized_crop_bbox', 'rescale_size', 'RandomResizedCrop',
-    'CenterCrop', 'Resize', 'Normalize', 'Flip', 'Fuse', 'Seg2T',
+    'get_random_resized_crop_bbox', 'rescale_size', 'RandomCrop',
+    'RandomResizedCrop', 'MultiScaleCrop', 'CenterCrop', 'ThreeCrop',
+    'TenCrop', 'MultiGroupCrop', 'Resize', 'RandomRescale', 'RandomScale',
+    'Normalize', 'ColorJitter', 'GPUNormalize', 'Flip', 'Fuse', 'Seg2T',
     'MCLRandomResizedCrop', 'motion_map_from_flow',
+    'UniformSampleFrames', 'PoseDecode', 'GeneratePoseTarget',
+    'LoadKineticsPose', 'PoseCompact',
 ]

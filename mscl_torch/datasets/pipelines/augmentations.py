@@ -1,14 +1,18 @@
-"""Per-sample crops, resizes and normalisation over the ``results`` dict.
+"""Per-sample crops, resizes, jitter and normalisation over the ``results``
+dict.
 
-Port of the parts of ``mscl_tpu/datasets/pipelines/augmentations.py`` that
-the flagship and fine-tune configs' pipelines run: ``rescale_size``, the
-crop-quadruple and box helpers, ``get_random_resized_crop_bbox`` (reference
-mmaction augmentations.py:800-849), which draws its aspect ratios and areas
-from the global ``np.random`` and its offsets from the global Python
-``random``, in the JAX package's order, and the transforms
-``RandomResizedCrop``, ``Resize``, ``Normalize``, ``CenterCrop``, ``Flip``
-and ``Fuse``. Resizing is ``utils.image_io.imresize`` (OpenCV's
-INTER_LINEAR without cv2). With ``lazy=True`` the crops, ``Resize`` and
+Port of ``mscl_tpu/datasets/pipelines/augmentations.py``: ``rescale_size``,
+the crop-quadruple and box helpers, ``get_random_resized_crop_bbox``
+(reference mmaction augmentations.py:800-849) and the transforms
+``RandomCrop``, ``RandomResizedCrop``, ``MultiScaleCrop``, ``Resize``,
+``RandomRescale``, ``Normalize``, ``CenterCrop``, ``ThreeCrop``,
+``TenCrop``, ``MultiGroupCrop``, ``RandomScale``, ``ColorJitter``,
+``Flip``, ``Fuse`` and ``GPUNormalize``. Every draw comes from the global
+``np.random`` or the global Python ``random``, with the JAX package's calls
+in its order, so a seeded run gives its crops, flips and jitters. Resizing
+is ``utils.image_io.imresize`` (OpenCV's INTER_LINEAR without cv2), and
+``ColorJitter``'s hue step ``utils.color`` (OpenCV's uint8 HSV
+conversions). With ``lazy=True`` the crops, ``Resize`` and
 ``Flip`` only record their geometry in ``results['lazy']`` (reference
 augmentations.py:24-55) and ``Fuse`` applies one combined crop, resize and
 flip to the original frames (:511-549), as the JAX package does.
@@ -20,6 +24,7 @@ import random as _pyrandom
 import numpy as np
 
 from ..builder import PIPELINES
+from ...utils.color import hsv_to_rgb, rgb_to_hsv
 from ...utils.image_io import imresize
 
 
@@ -166,7 +171,37 @@ def _finish_crop(results, crop_bbox, new_h, new_w, lazy=False):
 
 
 @PIPELINES.register_module()
-class RandomResizedCrop:
+class RandomCrop:
+    """Square random crop (augmentations.py:623-766); the base of the other
+    crops, as in the JAX package."""
+
+    def __init__(self, size, lazy=False):
+        if not isinstance(size, int):
+            raise TypeError(f'Size must be an int, got {type(size)}')
+        self.size = size
+        self.lazy = lazy
+
+    def __call__(self, results):
+        _init_lazy_if_proper(results, self.lazy)
+        img_h, img_w = results['img_shape']
+        assert self.size <= img_h and self.size <= img_w
+        y_offset = int(np.random.randint(0, img_h - self.size)) \
+            if img_h > self.size else 0
+        x_offset = int(np.random.randint(0, img_w - self.size)) \
+            if img_w > self.size else 0
+        _update_crop_quadruple(results, x_offset, y_offset,
+                               self.size, self.size, img_w, img_h)
+        crop_bbox = np.array([x_offset, y_offset,
+                              x_offset + self.size, y_offset + self.size])
+        return _finish_crop(results, crop_bbox, self.size, self.size,
+                            self.lazy)
+
+    def __repr__(self):
+        return f'{self.__class__.__name__}(size={self.size})'
+
+
+@PIPELINES.register_module()
+class RandomResizedCrop(RandomCrop):
     """Area + aspect-ratio ranged random crop (augmentations.py:769-927)."""
 
     def __init__(self, area_range=(0.08, 1.0),
@@ -191,7 +226,74 @@ class RandomResizedCrop:
 
 
 @PIPELINES.register_module()
-class CenterCrop:
+class MultiScaleCrop(RandomCrop):
+    """TSN's multi-scale crop (augmentations.py:929-1105): a (w, h) pair of
+    ``scales`` x the short edge, at most ``max_wh_scale_gap`` scales apart,
+    snapped to ``input_size`` within 3 pixels, at a random offset or one of
+    5 or 13 fixed ones."""
+
+    def __init__(self, input_size, scales=(1,), max_wh_scale_gap=1,
+                 random_crop=False, num_fixed_crops=5, lazy=False):
+        if isinstance(input_size, int):
+            input_size = (input_size, input_size)
+        self.input_size = tuple(input_size)
+        if not isinstance(scales, tuple):
+            raise TypeError(f'Scales must be tuple, got {type(scales)}')
+        if num_fixed_crops not in (5, 13):
+            raise ValueError('num_fixed_crops must be 5 or 13')
+        self.scales = scales
+        self.max_wh_scale_gap = max_wh_scale_gap
+        self.random_crop = random_crop
+        self.num_fixed_crops = num_fixed_crops
+        self.lazy = lazy
+
+    def __call__(self, results):
+        _init_lazy_if_proper(results, self.lazy)
+        img_h, img_w = results['img_shape']
+        base_size = min(img_h, img_w)
+        crop_sizes = [int(base_size * s) for s in self.scales]
+        candidate_sizes = []
+        for i, h in enumerate(crop_sizes):
+            for j, w in enumerate(crop_sizes):
+                if abs(i - j) <= self.max_wh_scale_gap:
+                    candidate_sizes.append([w, h])
+        crop_size = list(_pyrandom.choice(candidate_sizes))
+        for i in range(2):
+            if abs(crop_size[i] - self.input_size[i]) < 3:
+                crop_size[i] = self.input_size[i]
+        crop_w, crop_h = crop_size
+        if self.random_crop:
+            x_offset = _pyrandom.randint(0, img_w - crop_w)
+            y_offset = _pyrandom.randint(0, img_h - crop_h)
+        else:
+            w_step = (img_w - crop_w) // 4
+            h_step = (img_h - crop_h) // 4
+            candidate_offsets = [
+                (0, 0), (4 * w_step, 0), (0, 4 * h_step),
+                (4 * w_step, 4 * h_step), (2 * w_step, 2 * h_step),
+            ]
+            if self.num_fixed_crops == 13:
+                candidate_offsets += [
+                    (0, 2 * h_step), (4 * w_step, 2 * h_step),
+                    (2 * w_step, 4 * h_step), (2 * w_step, 0),
+                    (1 * w_step, 1 * h_step), (3 * w_step, 1 * h_step),
+                    (1 * w_step, 3 * h_step), (3 * w_step, 3 * h_step),
+                ]
+            x_offset, y_offset = _pyrandom.choice(candidate_offsets)
+        _update_crop_quadruple(results, x_offset, y_offset,
+                               crop_w, crop_h, img_w, img_h)
+        crop_bbox = np.array([x_offset, y_offset,
+                              x_offset + crop_w, y_offset + crop_h])
+        results['scales'] = self.scales
+        return _finish_crop(results, crop_bbox, crop_h, crop_w, self.lazy)
+
+    def __repr__(self):
+        return (f'{self.__class__.__name__}(input_size={self.input_size}, '
+                f'scales={self.scales})')
+
+
+@PIPELINES.register_module()
+class CenterCrop(RandomCrop):
     """Center crop (augmentations.py:1621-1718)."""
 
     def __init__(self, crop_size, lazy=False):
@@ -278,6 +380,74 @@ class Resize:
 
 
 @PIPELINES.register_module()
+class RandomRescale:
+    """Resize the short edge to a random size in ``scale_range``
+    (augmentations.py:1238-1289)."""
+
+    def __init__(self, scale_range, interpolation='bilinear'):
+        self.scale_range = scale_range
+        assert len(scale_range) == 2
+        assert scale_range[0] < scale_range[1]
+        assert np.all([x > 0 for x in scale_range])
+        self.interpolation = interpolation
+
+    def __call__(self, results):
+        short_edge = np.random.randint(self.scale_range[0],
+                                       self.scale_range[1] + 1)
+        resize = Resize((-1, short_edge), keep_ratio=True,
+                        interpolation=self.interpolation)
+        results = resize(results)
+        results['short_edge'] = short_edge
+        return results
+
+    def __repr__(self):
+        return f'{self.__class__.__name__}(scale_range={self.scale_range})'
+
+
+@PIPELINES.register_module()
+class RandomScale:
+    """A random scale, then ``Resize`` to it (reference augmentations.py
+    RandomScale): with two scales a long and a short edge drawn in their
+    ranges ('range') or one of them ('value'); more scales only by
+    'value'."""
+
+    def __init__(self, scales, mode='range', **kwargs):
+        if mode not in ('range', 'value'):
+            raise ValueError(f"mode must be 'range' or 'value': {mode}")
+        self.scales = scales
+        self.mode = mode
+        self.kwargs = kwargs
+
+    def select_scale(self, scales):
+        num_scales = len(scales)
+        if num_scales == 1:
+            return scales[0]
+        if num_scales == 2:
+            if self.mode == 'value':
+                return scales[int(np.random.randint(2))]
+            scale_long = [max(s) for s in scales]
+            scale_short = [min(s) for s in scales]
+            long_edge = np.random.randint(min(scale_long),
+                                          max(scale_long) + 1)
+            short_edge = np.random.randint(min(scale_short),
+                                           max(scale_short) + 1)
+            return (long_edge, short_edge)
+        if self.mode != 'value':
+            raise ValueError(
+                "only 'value' mode supports more than 2 scales")
+        return scales[int(np.random.randint(num_scales))]
+
+    def __call__(self, results):
+        scale = self.select_scale(self.scales)
+        results['scale'] = scale
+        return Resize(scale, **self.kwargs)(results)
+
+    def __repr__(self):
+        return (f'{self.__class__.__name__}(scales={self.scales}, '
+                f'mode={self.mode})')
+
+
+@PIPELINES.register_module()
 class Flip:
     """Flip all frames with a probability (augmentations.py:1291-1436).
 
@@ -287,7 +457,15 @@ class Flip:
     _directions = ('horizontal', 'vertical')
 
     def __init__(self, flip_ratio=0.5, direction='horizontal',
-                 flip_label_map=None, lazy=False):
+                 flip_label_map=None, lazy=False, left_kp=None,
+                 right_kp=None):
+        if left_kp is not None or right_kp is not None:
+            # mmaction2's Flip swaps the left and right keypoints; the JAX
+            # package's Flip takes no such arguments (its limb pipeline does
+            # not build), so there is nothing to hold the port's to
+            raise TypeError(
+                'Flip does not flip keypoints (left_kp, right_kp): '
+                'mscl_tpu\'s Flip has no such arguments either')
         if direction not in self._directions:
             raise ValueError(f'Direction {direction} not supported')
         self.flip_ratio = flip_ratio
@@ -418,3 +596,180 @@ class Normalize:
         return (f'{self.__class__.__name__}(mean={self.mean}, '
                 f'std={self.std}, to_bgr={self.to_bgr})')
 
+
+
+def _crop_at(imgs, offsets, crop_w, crop_h):
+    """Each offset's crop of every frame, offset after offset, and the
+    crop boxes, one a frame."""
+    crops, boxes = [], []
+    for x_offset, y_offset in offsets:
+        crops.extend(img[y_offset:y_offset + crop_h,
+                         x_offset:x_offset + crop_w] for img in imgs)
+        boxes.extend([[x_offset, y_offset, x_offset + crop_w,
+                       y_offset + crop_h]] * len(imgs))
+    return crops, boxes
+
+
+@PIPELINES.register_module()
+class ThreeCrop:
+    """Three crops along the long edge (its two ends and its middle), for
+    testing (augmentations.py:1721-1800)."""
+
+    def __init__(self, crop_size):
+        if isinstance(crop_size, int):
+            crop_size = (crop_size, crop_size)
+        self.crop_size = tuple(crop_size)
+
+    def __call__(self, results):
+        imgs = results['imgs']
+        img_h, img_w = imgs[0].shape[:2]
+        crop_w, crop_h = self.crop_size
+        assert crop_h == img_h or crop_w == img_w
+        if crop_h == img_h:
+            w_step = (img_w - crop_w) // 2
+            offsets = [(0, 0), (2 * w_step, 0), (w_step, 0)]
+        else:
+            h_step = (img_h - crop_h) // 2
+            offsets = [(0, 0), (0, 2 * h_step), (0, h_step)]
+        crops, boxes = _crop_at(imgs, offsets, crop_w, crop_h)
+        results['imgs'] = crops
+        results['crop_bbox'] = np.array(boxes)
+        results['img_shape'] = crops[0].shape[:2]
+        return results
+
+    def __repr__(self):
+        return f'{self.__class__.__name__}(crop_size={self.crop_size})'
+
+
+@PIPELINES.register_module()
+class TenCrop:
+    """The four corners and the centre, each also flipped, for testing
+    (mmaction TenCrop)."""
+
+    def __init__(self, crop_size):
+        if isinstance(crop_size, int):
+            crop_size = (crop_size, crop_size)
+        self.crop_size = tuple(crop_size)
+
+    def __call__(self, results):
+        imgs = results['imgs']
+        img_h, img_w = imgs[0].shape[:2]
+        crop_w, crop_h = self.crop_size
+        w_step = (img_w - crop_w) // 4
+        h_step = (img_h - crop_h) // 4
+        offsets = [(0, 0), (4 * w_step, 0), (0, 4 * h_step),
+                   (4 * w_step, 4 * h_step), (2 * w_step, 2 * h_step)]
+        img_crops, boxes = [], []
+        for offset in offsets:
+            crop, box = _crop_at(imgs, [offset], crop_w, crop_h)
+            img_crops.extend(crop)
+            img_crops.extend(np.flip(c, axis=1).copy() for c in crop)
+            boxes.extend(box * 2)
+        results['imgs'] = img_crops
+        results['crop_bbox'] = np.array(boxes)
+        results['img_shape'] = img_crops[0].shape[:2]
+        return results
+
+    def __repr__(self):
+        return f'{self.__class__.__name__}(crop_size={self.crop_size})'
+
+
+@PIPELINES.register_module()
+class MultiGroupCrop:
+    """``groups`` random crops of every frame, one after the other
+    (reference augmentations.py MultiGroupCrop)."""
+
+    def __init__(self, crop_size, groups):
+        if isinstance(crop_size, int):
+            crop_size = (crop_size, crop_size)
+        self.crop_size = tuple(crop_size)
+        if not isinstance(groups, int) or groups <= 0:
+            raise ValueError(f'groups must be a positive int: {groups}')
+        self.groups = groups
+
+    def __call__(self, results):
+        imgs = results['imgs']
+        img_h, img_w = imgs[0].shape[:2]
+        crop_w, crop_h = self.crop_size
+        offsets = []
+        for _ in range(self.groups):
+            x_offset = _pyrandom.randint(0, img_w - crop_w)
+            offsets.append((x_offset, _pyrandom.randint(0, img_h - crop_h)))
+        crops, boxes = _crop_at(imgs, offsets, crop_w, crop_h)
+        results['imgs'] = crops
+        results['crop_bbox'] = np.array(boxes)
+        results['img_shape'] = (crop_h, crop_w)
+        return results
+
+    def __repr__(self):
+        return (f'{self.__class__.__name__}(crop_size={self.crop_size}, '
+                f'groups={self.groups})')
+
+
+@PIPELINES.register_module()
+class ColorJitter:
+    """Brightness, contrast, saturation and hue jitter, one draw of each a
+    clip (augmentations.py:1524-1618): float32 arithmetic on the frames,
+    the hue shifted in OpenCV's uint8 HSV (H in [0, 180)); float32 frames
+    in [0, 255] out."""
+
+    def __init__(self, brightness=0.5, contrast=0.5, saturation=0.5, hue=0.1):
+        self.brightness = self._range(brightness, base=1)
+        self.contrast = self._range(contrast, base=1)
+        self.saturation = self._range(saturation, base=1)
+        self.hue = self._range(hue, base=0)
+
+    @staticmethod
+    def _range(val, base):
+        if isinstance(val, (tuple, list)):
+            return tuple(val)
+        return (max(0.0, base - val), base + val)
+
+    @staticmethod
+    def _rgb_to_gray(img):
+        return (img @ np.array([0.299, 0.587, 0.114],
+                               dtype=np.float32))[..., None]
+
+    def __call__(self, results):
+        imgs = [np.asarray(img, dtype=np.float32)
+                for img in results['imgs']]
+        b = np.random.uniform(*self.brightness)
+        c = np.random.uniform(*self.contrast)
+        s = np.random.uniform(*self.saturation)
+        h = np.random.uniform(-self.hue[1], self.hue[1])
+        out = []
+        for img in imgs:
+            img = img * b
+            mean = self._rgb_to_gray(img).mean()
+            img = (img - mean) * c + mean
+            gray = self._rgb_to_gray(img)
+            img = (img - gray) * s + gray
+            if h != 0:
+                hsv = rgb_to_hsv(np.clip(img, 0, 255).astype(np.uint8))
+                hsv = hsv.astype(np.int32)
+                hsv[..., 0] = (hsv[..., 0] + int(h * 180)) % 180
+                img = hsv_to_rgb(hsv.astype(np.uint8)).astype(np.float32)
+            out.append(np.clip(img, 0, 255))
+        results['imgs'] = out
+        return results
+
+    def __repr__(self):
+        return (f'{self.__class__.__name__}(brightness={self.brightness}, '
+                f'contrast={self.contrast}, saturation={self.saturation}, '
+                f'hue={self.hue})')
+
+
+@PIPELINES.register_module()
+class GPUNormalize:
+    """The reference prepares mean and std tensors here and normalises on
+    the card; the port's models take the pipeline's arrays, so this only
+    records the config (reference augmentations.py GPUNormalize)."""
+
+    def __init__(self, input_format, mean, std):
+        self.input_format = input_format
+        self.mean = np.array(mean, np.float32)
+        self.std = np.array(std, np.float32)
+
+    def __call__(self, results):
+        results['img_norm_cfg'] = dict(mean=self.mean, std=self.std)
+        return results

@@ -1,19 +1,25 @@
 """Frame sampling and decoding transforms.
 
-Port of ``mscl_tpu/datasets/pipelines/loading.py``, the parts the flagship
-config's pipelines run: the clip-offset samplers and ``SampleFrames``
-(reference mmaction loading.py:83-270), ``LocalDecode`` (the reference's
-NoriDecode, loading.py:1812-1914, re-targeted at the local filesystem;
-``NoriDecode`` is an alias) and ``ArrayDecode``. Frames are decoded by
+Port of ``mscl_tpu/datasets/pipelines/loading.py``, the parts the shipped
+configs' pipelines run: the clip-offset samplers, ``SampleFrames``
+(reference mmaction loading.py:83-270), ``DenseSampleFrames``,
+``UntrimmedSampleFrames``, ``RawFrameDecode`` (a frame directory's
+``filename_tmpl`` files: RGB frames, or a flow's x and y grey frames
+interleaved), ``LocalDecode`` (the reference's NoriDecode,
+loading.py:1812-1914, re-targeted at the local filesystem; ``NoriDecode`` is
+an alias) and ``ArrayDecode``. Frames are decoded by
 ``mscl_torch.utils.image_io`` (PNG and JPEG without cv2); flows are ``.npy``
-or ``.np4`` (``mscl_torch.utils.np4``, without msgpack).
+or ``.np4`` (``mscl_torch.utils.np4``, without msgpack). The samplers draw
+from the global ``np.random`` in the JAX package's order.
 """
 from __future__ import annotations
+
+import os.path as osp
 
 import numpy as np
 
 from ..builder import PIPELINES
-from ...utils.image_io import imread_rgb
+from ...utils.image_io import imread_grey, imread_rgb
 from ...utils.np4 import np4_decode
 
 
@@ -133,6 +139,136 @@ class SampleFrames:
                 f'frame_interval={self.frame_interval}, '
                 f'num_clips={self.num_clips}, test_mode={self.test_mode})')
 
+
+@PIPELINES.register_module()
+class DenseSampleFrames(SampleFrames):
+    """Clips at a fixed interval inside a ``sample_range``-frame window:
+    one window at a random start in training, ``num_sample_positions``
+    evenly spaced windows in test mode (mmaction DenseSampleFrames)."""
+
+    def __init__(self, *args, sample_range=64, num_sample_positions=10,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        self.sample_range = sample_range
+        self.num_sample_positions = num_sample_positions
+
+    def _get_train_clips(self, num_frames):
+        sample_position = max(1, 1 + num_frames - self.sample_range)
+        interval = self.sample_range // self.num_clips
+        start_idx = 0 if sample_position == 1 else np.random.randint(
+            0, sample_position - 1)
+        base_offsets = np.arange(self.num_clips) * interval
+        return (base_offsets + start_idx) % num_frames
+
+    def _get_test_clips(self, num_frames):
+        sample_position = max(1, 1 + num_frames - self.sample_range)
+        interval = self.sample_range // self.num_clips
+        start_list = np.linspace(0, sample_position - 1,
+                                 num=self.num_sample_positions, dtype=int)
+        base_offsets = np.arange(self.num_clips) * interval
+        clip_offsets = []
+        for start_idx in start_list:
+            clip_offsets.extend((base_offsets + start_idx) % num_frames)
+        return np.array(clip_offsets)
+
+    def _sample_clips(self, num_frames):
+        if self.test_mode:
+            return self._get_test_clips(num_frames)
+        return self._get_train_clips(num_frames)
+
+
+@PIPELINES.register_module()
+class UntrimmedSampleFrames:
+    """Clip centres every ``frame_interval`` frames over an untrimmed
+    video, from ``frame_interval // 2``, each widened to ``clip_len``
+    frames and clipped to the video (reference loading.py
+    UntrimmedSampleFrames)."""
+
+    def __init__(self, clip_len=1, frame_interval=16, start_index=None):
+        self.clip_len = clip_len
+        self.frame_interval = frame_interval
+        self.start_index = start_index
+
+    def __call__(self, results):
+        total_frames = results['total_frames']
+        start_index = self.start_index if self.start_index is not None \
+            else results.get('start_index', 0)
+        clip_centers = np.arange(self.frame_interval // 2, total_frames,
+                                 self.frame_interval)
+        num_clips = clip_centers.shape[0]
+        frame_inds = clip_centers[:, None] + np.arange(
+            -(self.clip_len // 2),
+            self.clip_len - (self.clip_len // 2))[None, :]
+        frame_inds = np.clip(frame_inds, 0, total_frames - 1)
+        results['frame_inds'] = (np.concatenate(frame_inds) +
+                                 start_index).astype(np.int64)
+        results['clip_len'] = self.clip_len
+        results['frame_interval'] = self.frame_interval
+        results['num_clips'] = num_clips
+        return results
+
+    def __repr__(self):
+        return (f'{self.__class__.__name__}(clip_len={self.clip_len}, '
+                f'frame_interval={self.frame_interval})')
+
+
+def _fmt_tmpl(tmpl, *args):
+    """Filename templates come in both % ('img_%05d.jpg') and str.format
+    ('img_{:05}.jpg') styles across the mm configs."""
+    return tmpl % args if '%' in tmpl else tmpl.format(*args)
+
+
+@PIPELINES.register_module()
+class RawFrameDecode:
+    """Load ``frame_dir``'s ``filename_tmpl`` frames at ``frame_inds``
+    (plus ``offset``) (mmaction RawFrameDecode, disk backend): RGB frames
+    (each file read once a call), or for 'Flow' the x and y grey frames of
+    each index, interleaved; ``gt_bboxes`` and ``proposals`` scaled from
+    [0, 1] to pixels."""
+
+    def __init__(self, io_backend='disk', decoding_backend='cv2', **kwargs):
+        assert io_backend == 'disk', 'only the disk backend is supported'
+        self.io_backend = io_backend
+        self.decoding_backend = decoding_backend
+
+    def __call__(self, results):
+        directory = results['frame_dir']
+        filename_tmpl = results['filename_tmpl']
+        modality = results['modality']
+        if results['frame_inds'].ndim != 1:
+            results['frame_inds'] = np.squeeze(results['frame_inds'])
+        offset = results.get('offset', 0)
+        imgs = []
+        cache = {}
+        for frame_idx in results['frame_inds']:
+            frame_idx = int(frame_idx) + offset
+            if modality == 'RGB':
+                if frame_idx not in cache:
+                    cache[frame_idx] = imread_rgb(osp.join(
+                        directory, _fmt_tmpl(filename_tmpl, frame_idx)))
+                imgs.append(cache[frame_idx].copy())
+            elif modality == 'Flow':
+                for axis in ('x', 'y'):
+                    imgs.append(imread_grey(osp.join(
+                        directory, _fmt_tmpl(filename_tmpl, axis,
+                                             frame_idx))))
+            else:
+                raise NotImplementedError(f'modality {modality}')
+        results['imgs'] = imgs
+        results['original_shape'] = imgs[0].shape[:2]
+        results['img_shape'] = imgs[0].shape[:2]
+        if 'gt_bboxes' in results:
+            h, w = results['img_shape']
+            scale_factor = np.array([w, h, w, h])
+            results['gt_bboxes'] = (results['gt_bboxes'] *
+                                    scale_factor).astype(np.float32)
+            if 'proposals' in results and results['proposals'] is not None:
+                results['proposals'] = (results['proposals'] *
+                                        scale_factor).astype(np.float32)
+        return results
+
+    def __repr__(self):
+        return f'{self.__class__.__name__}(io_backend={self.io_backend})'
 
 
 def _load_flow_blob(path):

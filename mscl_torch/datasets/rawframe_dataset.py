@@ -1,0 +1,93 @@
+"""RawframeDataset: a frame directory a video, listed as
+"frame_dir [offset] total_frames label..." lines.
+
+Port of ``mscl_tpu/datasets/rawframe_dataset.py`` ``RawframeDataset``
+(reference mmaction rawframe_dataset.py): ``with_offset`` lines, and
+``multi_class`` labels turned into a one-hot over ``num_classes``. The
+frames' file names are ``filename_tmpl`` (``'img_{:05}.jpg'``; a flow set
+names ``'{}_{:05d}.jpg'`` with 'x' and 'y'), numbered from
+``start_index``. ``VideoDataset`` is refused by name: its videos need a
+video codec, which the port does not have.
+"""
+from __future__ import annotations
+
+import copy
+import os.path as osp
+
+import numpy as np
+
+from .base import BaseDataset
+from .builder import DATASETS
+
+
+@DATASETS.register_module()
+class RawframeDataset(BaseDataset):
+
+    def __init__(self, ann_file, pipeline, data_prefix=None, test_mode=False,
+                 filename_tmpl='img_{:05}.jpg', with_offset=False,
+                 multi_class=False, num_classes=None, start_index=1,
+                 modality='RGB', sample_by_class=False, power=0.0,
+                 dynamic_length=False, **kwargs):
+        self.filename_tmpl = filename_tmpl
+        self.with_offset = with_offset
+        super().__init__(ann_file, pipeline, data_prefix, test_mode,
+                         multi_class, num_classes, start_index, modality,
+                         sample_by_class=sample_by_class, power=power,
+                         dynamic_length=dynamic_length)
+
+    def load_annotations(self):
+        video_infos = []
+        with open(self.ann_file, 'r') as fin:
+            for line in fin:
+                line_split = line.strip().split()
+                if not line_split:
+                    continue
+                video_info = {}
+                frame_dir = line_split[0]
+                if self.data_prefix is not None:
+                    frame_dir = osp.join(self.data_prefix, frame_dir)
+                video_info['frame_dir'] = frame_dir
+                idx = 1
+                if self.with_offset:
+                    video_info['offset'] = int(line_split[idx])
+                    video_info['total_frames'] = int(line_split[idx + 1])
+                    idx += 2
+                else:
+                    video_info['total_frames'] = int(line_split[idx])
+                    idx += 1
+                label = [int(x) for x in line_split[idx:]]
+                assert label, f'missing label in line: {line}'
+                if self.multi_class:
+                    assert self.num_classes is not None
+                    video_info['label'] = label
+                else:
+                    assert len(label) == 1
+                    video_info['label'] = label[0]
+                video_infos.append(video_info)
+        return video_infos
+
+    def prepare_train_frames(self, idx):
+        results = copy.deepcopy(self.video_infos[idx])
+        results['filename_tmpl'] = self.filename_tmpl
+        results['modality'] = self.modality
+        results['start_index'] = self.start_index
+        if self.multi_class:
+            onehot = np.zeros(self.num_classes, dtype=np.float32)
+            onehot[results['label']] = 1.
+            results['label'] = onehot
+        return self.pipeline(results)
+
+    def prepare_test_frames(self, idx):
+        return self.prepare_train_frames(idx)
+
+
+@DATASETS.register_module()
+class VideoDataset:
+    """Refused: video files need a video codec (decord, PyAV, PIMS or
+    OpenCV), which the port does not have."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            'VideoDataset reads video files, which need a video codec '
+            '(decord, PyAV, PIMS or OpenCV) that the port does not have; '
+            'extract the frames and use RawframeDataset')

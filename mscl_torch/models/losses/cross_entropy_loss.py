@@ -3,9 +3,11 @@
 Port of ``mscl_tpu/models/losses/cross_entropy_loss.py``:
 ``CrossEntropyLoss_torch`` (hard labels with ignore_index: the mean over
 non-ignored samples, and 0, not NaN, when every sample is ignored, as the
-JAX function returns) and ``CrossEntropyLoss`` (hard or soft labels, by
+JAX function returns), ``CrossEntropyLoss`` (hard or soft labels, by
 the label's shape, with an optional class weight; the classification
-heads' default).
+heads' default), ``BCELossWithLogits`` (multi-label, the mean over every
+entry), ``NLLLoss`` (on log-probabilities) and
+``WeightedCrossEntropyLoss_torch`` (a per-sample pool weight).
 
 In a process group (``parallel/dist.py``) a hard-label loss is the global
 batch's: its denominator (the non-ignored count, or the class weights'
@@ -93,3 +95,54 @@ class CrossEntropyLossTorch:
 
 LOSSES.register_module(name='CrossEntropyLoss_torch',
                        module=CrossEntropyLossTorch)
+
+
+@LOSSES.register_module()
+class BCELossWithLogits:
+    """The mean over every entry of the binary cross-entropy of the logits,
+    each class weighted by ``class_weight``."""
+
+    def __init__(self, loss_weight=1.0, class_weight=None):
+        self.loss_weight = loss_weight
+        self.class_weight = None if class_weight is None else \
+            torch.as_tensor(class_weight, dtype=torch.float32)
+
+    def __call__(self, cls_score, label, **kwargs):
+        per = F.binary_cross_entropy_with_logits(
+            cls_score, label.to(cls_score.dtype), reduction='none')
+        if self.class_weight is not None:
+            per = per * self.class_weight.to(per)
+        return self.loss_weight * per.mean()
+
+
+@LOSSES.register_module()
+class NLLLoss:
+    """The batch mean of -cls_score[label] (the scores are
+    log-probabilities)."""
+
+    def __init__(self, loss_weight=1.0):
+        self.loss_weight = loss_weight
+
+    def __call__(self, cls_score, label, **kwargs):
+        return self.loss_weight * F.nll_loss(cls_score, label.long())
+
+
+@LOSSES.register_module()
+class WeightedCrossEntropyLoss_torch:
+    """sum(w * ce) / (sum(w) + eps) with a per-sample ``pool_weight`` w
+    (reference cross_entropy_loss.py WeightedCrossEntropyLoss_torch);
+    samples labelled ``ignore_index`` add 0."""
+
+    def __init__(self, weight=None, size_average=None, ignore_index=-100,
+                 loss_weight=1.0, eps=1e-5):
+        self.ignore_index = ignore_index
+        self.loss_weight = loss_weight
+        self.eps = eps
+
+    def __call__(self, cls_score, label, pool_weight, **kwargs):
+        label = label.long()
+        valid = label != self.ignore_index
+        per = F.cross_entropy(cls_score, torch.where(valid, label, 0),
+                              reduction='none') * valid
+        loss = (pool_weight * per).sum() / (pool_weight.sum() + self.eps)
+        return self.loss_weight * loss

@@ -12,6 +12,13 @@ recognizers/recognizer3d.py), in NCTHW throughout:
 - ``extract_features_pooled`` is the retrieval feature: each clip's last
   stage averaged over T, H and W, then the mean over segments.
 
+Every path checks that a clip's channel axis (dim -4) is the backbone
+stem's ``in_channels`` and raises a ``ValueError`` otherwise. A
+``FormatShape('NTHWC')`` pipeline gives (..., T, H, W, C) clips: the JAX
+``Recognizer3D`` reads those with T as the channel axis
+(``mscl_tpu/models/recognizers/recognizer3d.py:25-32``), and its lazy stem
+convolution takes T input channels without a word; the port refuses them.
+
 The caller sets the mode: ``model.eval()`` before ``forward_test`` (BN's
 running statistics, no dropout). Module names are the JAX tree's minus
 ``_m`` (``backbone``, ``neck``, ``cls_head.fc_cls``), so
@@ -30,9 +37,19 @@ from ..builder import BACKBONES, HEADS, NECKS, RECOGNIZERS
 from .base import parse_losses
 
 
-def _clips(imgs: torch.Tensor) -> torch.Tensor:
-    """(..., C, T, H, W) -> (N, C, T, H, W)."""
-    return imgs.reshape((-1,) + tuple(imgs.shape[-4:]))
+def _registered(registry, kind: str, name: str):
+    factory = registry.get(name)
+    if factory is None:
+        raise KeyError(f'unknown {kind} {name}')
+    return factory
+
+
+def _stem_channels(backbone: nn.Module) -> Optional[int]:
+    """The input channels of the backbone's first convolution."""
+    for m in backbone.modules():
+        if isinstance(m, (nn.Conv3d, nn.Conv2d)):
+            return m.in_channels
+    return None
 
 
 @RECOGNIZERS.register_module()
@@ -51,15 +68,29 @@ class Recognizer3D(nn.Module):
         self.neck = None
         if neck is not None:
             neck_cfg = dict(neck)
-            self.neck = NECKS.get(neck_cfg.pop('type'))(dtype=self.dtype,
-                                                        **neck_cfg)
+            self.neck = _registered(NECKS, 'neck', neck_cfg.pop('type'))(
+                dtype=self.dtype, **neck_cfg)
         self.cls_head = None
         if cls_head is not None:
             head_cfg = dict(cls_head)
-            self.cls_head = HEADS.get(head_cfg.pop('type'))(dtype=self.dtype,
-                                                            **head_cfg)
+            self.cls_head = _registered(HEADS, 'head', head_cfg.pop('type'))(
+                dtype=self.dtype, **head_cfg)
         self.train_cfg = train_cfg
         self.test_cfg = dict(test_cfg or {})
+        self.in_channels = _stem_channels(self.backbone)
+
+    def _clips(self, imgs: torch.Tensor) -> torch.Tensor:
+        """(..., C, T, H, W) -> (N, C, T, H, W), C checked."""
+        if self.in_channels is not None and (
+                imgs.dim() < 5 or imgs.shape[-4] != self.in_channels):
+            raise ValueError(
+                f'Recognizer3D takes clips as (..., C, T, H, W) with C = '
+                f'{self.in_channels}, the backbone\'s in_channels; got '
+                f'{tuple(imgs.shape)}. FormatShape(\'NTHWC\') gives '
+                f'(..., T, H, W, C): format the clips as NCTHW. (mscl_tpu\'s '
+                f'Recognizer3D reads an NTHWC batch with T as the channel '
+                f'axis and sizes its stem to T without a word.)')
+        return imgs.reshape((-1,) + tuple(imgs.shape[-4:]))
 
     def init_weights(self, gen: torch.Generator):
         for m in (self.backbone, self.neck, self.cls_head):
@@ -98,7 +129,7 @@ class Recognizer3D(nn.Module):
 
     def forward_train(self, imgs: torch.Tensor, labels: torch.Tensor
                       ) -> Dict[str, torch.Tensor]:
-        imgs = _clips(imgs)
+        imgs = self._clips(imgs)
         labels = labels.reshape(-1)
         if self.neck is not None:
             x, aux_losses = self._neck_feat(self.backbone(imgs), labels)
@@ -117,9 +148,9 @@ class Recognizer3D(nn.Module):
         batches = imgs.shape[0]
         num_segs = imgs.shape[1] if imgs.dim() == 6 else 1
         if self.neck is not None:
-            x, _ = self._neck_feat(self.backbone(_clips(imgs)))
+            x, _ = self._neck_feat(self.backbone(self._clips(imgs)))
         else:
-            x = self.extract_feat(_clips(imgs))
+            x = self.extract_feat(self._clips(imgs))
         cls_score = self.cls_head(x).reshape(batches, num_segs, -1)
         if self.test_cfg.get('average_clips') == 'prob':
             return F.softmax(cls_score, dim=-1).mean(dim=1)
@@ -130,7 +161,7 @@ class Recognizer3D(nn.Module):
         segments (reference recognizer3d.py:67-93)."""
         batches = imgs.shape[0]
         num_segs = imgs.shape[1] if imgs.dim() == 6 else 1
-        feat = self.extract_feat(_clips(imgs))
+        feat = self.extract_feat(self._clips(imgs))
         if feat.dim() == 5:
             feat = feat.mean(dim=(2, 3, 4))
         return feat.reshape(batches, num_segs, -1).mean(dim=1)

@@ -16,6 +16,12 @@ the standard library and numpy:
   ``utils/jpeg.py`` (``csrc/jpeg_decode.c``, libjpeg-turbo's arithmetic; at
   ``reduce=2`` in the DCT domain, to ``ceil(w / 2) x ceil(h / 2)``). Every
   other file goes through cv2, imported at the call.
+- ``imread_grey`` is ``cv2.imread(path, cv2.IMREAD_GRAYSCALE)`` (the flow
+  frames' x and y planes): a grey JPEG's plane and a YCbCr JPEG's Y plane
+  (libjpeg's JCS_GRAYSCALE output), a grey PNG's plane, and an RGB or RGBA
+  PNG through libpng's ``png_set_rgb_to_gray`` as OpenCV sets it (weights
+  0.299 and 0.587 as 9797, 19234 and 3737 over 2^15, truncated; a grey
+  pixel kept as it is).
 - ``imresize`` with 'bilinear' is ``cv2.resize(..., INTER_LINEAR)``: for
   uint8 the 11-bit fixed-point taps of OpenCV's row pass and the rounding of
   its vectorised column pass (``(((S0 >> 4) * b0) >> 16) + (((S1 >> 4) * b1)
@@ -37,7 +43,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 from ..ops import cuda_build
-from .jpeg import decode_jpeg
+from .jpeg import decode_jpeg, decode_jpeg_grey
 
 _PNG_SIGNATURE = b'\x89PNG\r\n\x1a\n'
 _PNG_CHANNELS = {0: 1, 2: 3, 6: 4}          # colour type -> samples a pixel
@@ -133,9 +139,9 @@ def _unfilter_lib():
     return lib
 
 
-def decode_png(buf: bytes) -> Optional[np.ndarray]:
-    """An 8-bit, non-interlaced grey, RGB or RGBA PNG -> RGB uint8 (h, w, 3);
-    None for any other file (the caller hands it to cv2)."""
+def _png_pixels(buf: bytes) -> Optional[np.ndarray]:
+    """An 8-bit, non-interlaced grey, RGB or RGBA PNG -> its samples, uint8
+    (h, w, 1, 3 or 4); None for any other file."""
     if buf[:8] != _PNG_SIGNATURE:
         return None
     pos, header, idat = 8, None, []
@@ -177,9 +183,32 @@ def decode_png(buf: bytes) -> Optional[np.ndarray]:
         filt = lines[:, 1:].reshape(h, w, bpp)
         img = (_unfilter_rows(filt, types) if types.max(initial=0) <= 2
                else _unfilter_wavefront(filt, types))
-    if bpp == 1:
+    return img
+
+
+def decode_png(buf: bytes) -> Optional[np.ndarray]:
+    """An 8-bit, non-interlaced grey, RGB or RGBA PNG -> RGB uint8 (h, w, 3);
+    None for any other file (the caller hands it to cv2)."""
+    img = _png_pixels(buf)
+    if img is None:
+        return None
+    if img.shape[2] == 1:
         return np.repeat(img, 3, axis=2)
     return np.ascontiguousarray(img[..., :3])
+
+
+def png_grey(buf: bytes) -> Optional[np.ndarray]:
+    """An 8-bit, non-interlaced grey, RGB or RGBA PNG -> grey uint8 (h, w),
+    as libpng's ``png_set_rgb_to_gray(png, 1, 0.299, 0.587)`` makes it;
+    None for any other file."""
+    img = _png_pixels(buf)
+    if img is None:
+        return None
+    if img.shape[2] == 1:
+        return img[..., 0]
+    r, g, b = (img[..., c].astype(np.int32) for c in range(3))
+    grey = (r * 9797 + g * 19234 + b * 3737) >> 15
+    return np.where((r == g) & (g == b), r, grey).astype(np.uint8)
 
 
 def _exact_taps(ssize: int, dsize: int):
@@ -255,6 +284,24 @@ def imread_rgb(path, reduce: int = 1) -> np.ndarray:
     if img is None:
         return _cv2_imread_rgb(buf, path, reduce)
     return reduce_half(img) if reduce == 2 else img
+
+
+def imread_grey(path) -> np.ndarray:
+    """Decode an image file to grey uint8 (h, w), as
+    ``cv2.imread(path, cv2.IMREAD_GRAYSCALE)`` does."""
+    buf = np.fromfile(path, np.uint8)
+    if buf.size == 0:
+        raise FileNotFoundError(f'failed to read image: {path}')
+    if buf[:2].tobytes() == b'\xff\xd8':
+        return decode_jpeg_grey(buf, path)
+    img = png_grey(buf.tobytes()) if buf[:8].tobytes() == \
+        _PNG_SIGNATURE else None
+    if img is None:
+        cv2 = _cv2(path)
+        img = cv2.imdecode(buf, cv2.IMREAD_GRAYSCALE)
+        if img is None:
+            raise FileNotFoundError(f'failed to decode image: {path}')
+    return img
 
 
 def _linear_taps(ssize: int, dsize: int):

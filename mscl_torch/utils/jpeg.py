@@ -3,9 +3,10 @@ and ``csrc/jpeg_encode.c``, built with the host C compiler at first use and
 called through ctypes (which releases the GIL, so the loader's decode
 threads decode side by side).
 
-``decode_jpeg(buf)`` equals ``cv2.imdecode(buf, cv2.IMREAD_COLOR_RGB)``
-and ``decode_jpeg(buf, reduce=2)`` equals ``cv2.imdecode(buf,
-cv2.IMREAD_REDUCED_COLOR_2)`` turned to RGB, bit for bit, for the files
+``decode_jpeg(buf)`` equals ``cv2.imdecode(buf, cv2.IMREAD_COLOR_RGB)``,
+``decode_jpeg(buf, reduce=2)`` equals ``cv2.imdecode(buf,
+cv2.IMREAD_REDUCED_COLOR_2)`` turned to RGB and ``decode_jpeg_grey(buf)``
+equals ``cv2.imdecode(buf, cv2.IMREAD_GRAYSCALE)``, bit for bit, for the files
 the decoder takes (sequential Huffman, 8-bit, grey or YCbCr, one scan; the
 C file lists them). ``reduce=2`` decodes in the DCT domain, as libjpeg does,
 to ``ceil(w / 2) x ceil(h / 2)``. Any other file raises ``ValueError``
@@ -40,7 +41,12 @@ def _lib():
                                     ctypes.c_int, ctypes.c_void_p,
                                     ctypes.c_int32, ctypes.c_int32,
                                     ctypes.c_char_p, ctypes.c_int64]
+        lib.jpeg_decode_grey.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                         ctypes.c_void_p, ctypes.c_int32,
+                                         ctypes.c_int32, ctypes.c_char_p,
+                                         ctypes.c_int64]
         lib.jpeg_dims.restype = lib.jpeg_decode.restype = ctypes.c_int
+        lib.jpeg_decode_grey.restype = ctypes.c_int
     return lib
 
 
@@ -94,9 +100,7 @@ def imwrite(path, img: np.ndarray, quality: int = 95) -> bool:
     return True
 
 
-def decode_jpeg(buf: np.ndarray, reduce: int = 1, name='<buffer>'
-                ) -> np.ndarray:
-    """A JPEG file's bytes (uint8 array) -> RGB uint8 (h, w, 3)."""
+def _decode(buf: np.ndarray, reduce: int, name, grey: bool) -> np.ndarray:
     lib = _lib()
     if lib is None:
         raise RuntimeError(
@@ -109,8 +113,26 @@ def decode_jpeg(buf: np.ndarray, reduce: int = 1, name='<buffer>'
                      err, _ERR):
         raise ValueError(f'{name}: {err.value.decode()}')
     h, w = int(dims[0]), int(dims[1])
-    out = np.empty((h, w, 3), np.uint8)
-    if lib.jpeg_decode(buf.ctypes.data, buf.size, reduce, out.ctypes.data,
-                       h, w, err, _ERR):
+    if grey:
+        out = np.empty((h, w), np.uint8)
+        rc = lib.jpeg_decode_grey(buf.ctypes.data, buf.size, out.ctypes.data,
+                                  h, w, err, _ERR)
+    else:
+        out = np.empty((h, w, 3), np.uint8)
+        rc = lib.jpeg_decode(buf.ctypes.data, buf.size, reduce,
+                             out.ctypes.data, h, w, err, _ERR)
+    if rc:
         raise ValueError(f'{name}: {err.value.decode()}')
     return out
+
+
+def decode_jpeg(buf: np.ndarray, reduce: int = 1, name='<buffer>'
+                ) -> np.ndarray:
+    """A JPEG file's bytes (uint8 array) -> RGB uint8 (h, w, 3)."""
+    return _decode(buf, reduce, name, grey=False)
+
+
+def decode_jpeg_grey(buf: np.ndarray, name='<buffer>') -> np.ndarray:
+    """A JPEG file's bytes (uint8 array) -> grey uint8 (h, w): a grey
+    file's plane, a YCbCr file's Y plane."""
+    return _decode(buf, 1, name, grey=True)

@@ -1,0 +1,148 @@
+"""Every shipped config in the port: the counterpart of
+tests/test_configs.py over the repo's own ``configs/``.
+
+For each of the config files outside ``configs/**/_base_/`` the port loads
+the file, builds the model at full width on the meta device (every
+constructor runs; no weight is allocated or drawn, the recipes' own tests
+hold the init) and constructs every dataset and pipeline step of
+``data.train``, ``val`` and ``test``, with the annotation files left
+unread. A file either builds in full or is refused
+with an error that names what is missing (a ``type`` of the file, or the
+argument ``left_kp``). The counts are a gate that later slices raise and
+never lower.
+"""
+import contextlib
+import glob
+import os.path as osp
+from unittest import mock
+
+import pytest
+import torch
+
+from mscl_torch.config import Config
+from mscl_torch.datasets import DATASETS, build_dataset
+from mscl_torch.datasets.pipelines import Compose
+from mscl_torch.models import RECOGNIZERS
+
+ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
+CONFIGS = sorted(p for p in glob.glob(f'{ROOT}/configs/**/*.py',
+                                      recursive=True)
+                 if f'{osp.sep}_base_{osp.sep}' not in p)
+
+FULL = {
+    'moco/moco_r18_consistent_augmentation_lr3e-2.py',
+    'moco/moco_r18_cosistent_video_lr3e-2.py', 'moco/moco_r18_lr3e-2.py',
+    'moco/moco_r50_consistent_augmentation_lr3e-2.py',
+    'moco/mscl_r18_cosm_lr2e-2.py', 'moco/mscl_r50_cosm_lr3e-2.py',
+    'ssl_test/test_ssv2_r18.py', 'ssl_test/test_ucf101_r18.py',
+    'i3d/i3d_r50_32x2x1_100e_kinetics400_rgb.py',
+    'i3d/i3d_r50_dense_32x2x1_100e_kinetics400_rgb.py',
+    'i3d/i3d_r50_lazy_32x2x1_100e_kinetics400_rgb.py',
+    'slowonly/slowonly_imagenet_pretrained_r50_8x4x1_64e_kinetics400_rgb.py',
+    'slowonly/slowonly_r50_4x16x1_256e_kinetics400_flow.py',
+    'slowonly/slowonly_r50_4x16x1_256e_kinetics400_rgb.py',
+    'slowonly/slowonly_r50_8x8x1_256e_kinetics400_rgb.py',
+    'posec3d/slowonly_r50_u48_240e_ntu120_xsub_keypoint.py',
+    'posec3d/slowonly_r50_u48_240e_ntu60_xsub_keypoint.py',
+}
+# model builds, data refused by name
+REFUSED = {
+    'i3d/i3d_r50_video_32x2x1_100e_kinetics400_rgb.py': 'VideoDataset',
+    'posec3d/slowonly_r50_u48_240e_ntu60_xsub_limb.py': 'left_kp',
+}
+
+
+def _short(path):
+    return '/'.join(path.split(osp.sep)[-2:])
+
+
+def _types(node):
+    if isinstance(node, dict):
+        if isinstance(node.get('type'), str):
+            yield node['type']
+        for v in node.values():
+            yield from _types(v)
+    elif isinstance(node, (list, tuple)):
+        for v in node:
+            yield from _types(v)
+
+
+def _build_data(cfg):
+    """Construct each split's dataset (its annotation file unread) and its
+    pipeline's steps."""
+    for split in ('train', 'val', 'test'):
+        ds_cfg = (cfg.get('data') or {}).get(split)
+        if ds_cfg is None:
+            continue
+        ds_cfg = ds_cfg.to_dict() if hasattr(ds_cfg, 'to_dict') \
+            else dict(ds_cfg)
+        with contextlib.ExitStack() as stack:
+            for cls in DATASETS.module_dict.values():
+                if 'load_annotations' in vars(cls):
+                    stack.enter_context(mock.patch.object(
+                        cls, 'load_annotations', lambda self: []))
+            dataset = build_dataset(ds_cfg)
+        inner = getattr(dataset, 'dataset', None) or dataset
+        for d in getattr(inner, 'datasets', [inner]):
+            assert isinstance(d.pipeline, Compose)
+            assert len(d.pipeline.transforms) == \
+                len(ds_cfg.get('pipeline') or ds_cfg['dataset']['pipeline'])
+
+
+def _build_model(model_cfg):
+    cfg = dict(model_cfg)
+    cls = RECOGNIZERS.get(cfg.pop('type'))
+    if cls is None:
+        raise KeyError(f'unknown recognizer {model_cfg["type"]}')
+    with torch.device('meta'):
+        return cls(**cfg)
+
+
+def _sweep(path):
+    """('full' | 'data' | 'model', the refusal's message)."""
+    cfg = Config.fromfile(path)
+    types = set(_types(cfg.to_dict()))
+    try:
+        model = _build_model(cfg.model.to_dict())
+    except Exception as e:     # noqa: BLE001 -- every refusal is checked
+        return 'model', str(e), types
+    del model
+    try:
+        _build_data(cfg)
+    except Exception as e:     # noqa: BLE001
+        return 'data', str(e), types
+    return 'full', '', types
+
+
+@pytest.fixture(scope='module')
+def sweep():
+    return {_short(p): _sweep(p) for p in CONFIGS}
+
+
+def test_every_config_builds_or_is_refused_by_name(sweep):
+    assert len(sweep) == 75
+    for name, (stage, msg, types) in sweep.items():
+        if stage == 'full':
+            continue
+        named = [t for t in types if t in msg] + \
+            (['left_kp'] if 'left_kp' in msg else [])
+        assert named, (name, stage, msg)
+
+
+def test_the_counts(sweep):
+    models = {n for n, (stage, _, _) in sweep.items() if stage != 'model'}
+    full = {n for n, (stage, _, _) in sweep.items() if stage == 'full'}
+    assert len(models) == 19
+    assert full == FULL
+    assert models == FULL | set(REFUSED)
+    for name, word in REFUSED.items():
+        stage, msg, _ = sweep[name]
+        assert stage == 'data' and word in msg, (name, msg)
+    assert 'codec' in sweep[
+        'i3d/i3d_r50_video_32x2x1_100e_kinetics400_rgb.py'][1]
+
+
+def test_the_datasets_are_registered():
+    for name in ('RawframeDataset', 'PoseDataset', 'RepeatDataset',
+                 'ConcatDataset'):
+        assert name in DATASETS

@@ -563,3 +563,57 @@ def test_flagship_copy_matches_config_file():
             return [norm(v) for v in x]
         return x
     assert norm(model) == norm(copy)
+
+
+def test_recognition_data_needs_no_cv2(tmp_path):
+    """The rawframe and skeleton data paths as the card's machine runs
+    them, with cv2 and msgpack blocked: grey flow frames and RGB frames
+    written by the port's JPEG encoder through the flow and I3D configs'
+    train pipelines, ColorJitter's hue step, and a PoseC3D config's."""
+    code = f"""
+import os, pickle, sys
+sys.modules['cv2'] = sys.modules['msgpack'] = None
+import numpy as np
+from mscl_torch.config import Config
+from mscl_torch.datasets import build_dataset
+from mscl_torch.datasets.pipelines import Compose
+from mscl_torch.utils.jpeg import encode_jpeg
+root = {str(tmp_path)!r}
+rng = np.random.default_rng(0)
+os.makedirs(root + '/v0')
+for i in range(1, 41):
+    img = rng.integers(0, 256, (48, 64, 3), dtype=np.uint8)
+    for name, arr in (('img_%05d.jpg', img), ('x_%05d.jpg', img[..., 0]),
+                      ('y_%05d.jpg', img[..., 1])):
+        with open(root + '/v0/' + name % i, 'wb') as f:
+            f.write(encode_jpeg(arr))
+with open(root + '/list.txt', 'w') as f:
+    f.write('v0 40 3\\n')
+for name, c in (('slowonly/slowonly_r50_4x16x1_256e_kinetics400_flow.py', 2),
+                ('i3d/i3d_r50_dense_32x2x1_100e_kinetics400_rgb.py', 3)):
+    cfg = Config.fromfile('configs/recognition/' + name)
+    ds = dict(cfg.data.train.to_dict(), ann_file=root + '/list.txt',
+              data_prefix=root)
+    imgs = build_dataset(ds)[0]['imgs']
+    assert imgs.shape[:2] == (1, c), imgs.shape
+    assert imgs.shape[-2:] == (224, 224), imgs.shape
+out = Compose([dict(type='ColorJitter', hue=0.3)])(
+    dict(imgs=[rng.integers(0, 256, (8, 40, 3), dtype=np.uint8)]))
+assert out['imgs'][0].dtype == np.float32
+kp = rng.uniform(5, 50, (2, 60, 17, 2)).astype(np.float32)
+with open(root + '/ntu.pkl', 'wb') as f:
+    pickle.dump([dict(frame_dir='a', total_frames=60, img_shape=(56, 56),
+                      label=1, keypoint=kp,
+                      keypoint_score=np.ones(kp.shape[:-1], np.float32))], f)
+cfg = Config.fromfile('configs/skeleton/posec3d/'
+                      'slowonly_r50_u48_240e_ntu60_xsub_keypoint.py')
+imgs = build_dataset(dict(cfg.data.train.to_dict(),
+                          ann_file=root + '/ntu.pkl'))[0]['imgs']
+assert imgs.shape == (1, 17, 48, 56, 56), imgs.shape
+assert sys.modules['cv2'] is None and sys.modules['msgpack'] is None
+print('ok')
+"""
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.split()[-1] == 'ok'
