@@ -66,15 +66,16 @@ the exit code is nonzero:
    MDS-like chosen_idx, a train pickle listing the videos 4 times and a
    val pickle), then ``python -m mscl_torch.tools.train`` runs in this
    process on the flagship config file itself with --validate --seed 0
-   and --cfg-options for the pickles, total_epochs=2, a checkpoint,
+   and --cfg-options for the pickles, total_epochs=1, a checkpoint,
    validation and a log line every epoch and step, and the work dir
-   (workers_per_gpu stays 4): 2 epochs of 8 steps, each followed by one
-   val step; then it resumes from epoch_2 with total_epochs=3. It fails
-   unless every logged loss is finite, queue_ptr, iters and the launches
-   are those of 24 train steps and 3 val steps (a val step launches l_neg
-   7 times and dq never), epoch_1..3 and latest exist, the state loaded at
-   resume equals the state saved bitwise (parameters, buffers, momentum,
-   steps, the aug generator) and the resumed run starts at step 16. It
+   (workers_per_gpu stays 4): 1 epoch of 8 steps followed by one val
+   step; then it resumes from epoch_1 with total_epochs=2. It
+   fails unless every logged loss is finite, queue_ptr, iters and the
+   launches are those of 16 train steps and 2 val steps (a val step
+   launches l_neg 7 times and dq never), epoch_1, epoch_2 and latest
+   exist, the state loaded at resume equals the state saved bitwise
+   (parameters, buffers, momentum, steps, the aug generator) and the
+   resumed run starts at step 8. It
    logs each log line's time and data_time, the steady iterations a second
    and data-wait share (each epoch's steps 3..5, while the producer
    decodes beside them), the cold-start batch wait, the epoch's last 3
@@ -83,7 +84,7 @@ the exit code is nonzero:
    with the C row unfilter and with numpy's;
 10. pretrain_cli_process: the same config and data with
    ``data.workers_mode=process`` (4 decode processes, a whole batch
-   each), 2 epochs: the same checks of losses, launches and queues, no
+   each), 1 epoch: the same checks of losses, launches and queues, no
    decode process left after the run, the steady window beside thread
    mode's, and the bytes of one batch's pickle on the result queue and
    the time to unpickle it;
@@ -227,7 +228,29 @@ the exit code is nonzero:
    ShuffleBN at world 2 (two gloo ranks sharing the card, the narrow
    flagship model, a global batch of 8) against no group within the
    pretrain_dp tolerances (shufflebn_ab line);
-17. print the card's name and power limit, the kernel table and the
+17. mscl_family: the rest of the MSCL family. (a) The flagship config
+   with ``--cfg-options model.moco_mx_head.type=MSCLWithAugMSFMxHead`` (and
+   that head's own multi-positive loss) through the training CLI at full
+   width (float32, K=65536, V5, batch 32) over pretrain_cli's videos: 1
+   epoch of MF_STEPS steps, thread workers, no validation; it fails unless
+   every logged loss is finite (the four MSF terms among them), each
+   tower's queue_ptr, iters and count are those of MF_STEPS enqueues and
+   the decayed-InfoNCE kernels launched 11 + 7 times a step (the towers'
+   3 + 3; 2 + 1 per _msf_sp_sn, 2 directions x 2 flow passes); it logs
+   each step's ms (the last one runs after the producer has made the
+   epoch's last batch: the step alone) and the idle share of one more step
+   profiled. (b) Card against CPU within STEP_TOL: every head
+   of heads/moco_head_v3.py (the distill head with and without small_p) at
+   B=32, C=128, K=4096, the circle losses and TripletLoss, every head of
+   heads/reid_distill_heads.py (outputs, losses, gradients, the BN-neck's
+   statistics), and two train steps (as 6) of the narrow MSCLWithAug with
+   the MSF head and of a MoCo tower on ResNet3dSlowOnly_TwoR5 through
+   BaseMoCo_TwoR5. (c) ``python -m mscl_torch.tools.clip_feature_extraction``
+   on finetune_cli's checkpoint over its test videos (finite (32, 512)
+   features, the videos' labels, no decayed-InfoNCE launch) and ``python -m
+   mscl_torch.tools.merge_pkls`` on two shards of an annotation list the
+   phase writes (each video once, as in the unsharded list);
+18. print the card's name and power limit, the kernel table and the
    result. Each phase's seconds are logged (phase_seconds).
 
 Every phase's log lines (and the CLIs' and spawned ranks' own output) go
@@ -243,9 +266,9 @@ run), 14b (each extraction run and each vis_flow run), 14c (each CLI run:
 none may launch a kernel), 11-14 (each CLI run; the fine-tune, test and
 retrieval paths must launch no decayed-InfoNCE kernel: r3d_18 goes to
 cuDNN), the probe tool's run in 4 and 16 (each arm's run of the tool, the
-A/B's two runs), and read just after. The kernel table's decayed-InfoNCE
-launches are the pretrain CLI's (both runs of 9). It needs a CUDA device:
-without one it exits nonzero before printing any result.
+A/B's two runs), 17 (the CLI run), and read just after. The kernel table's
+decayed-InfoNCE launches are the pretrain CLI's (both runs of 9). It needs
+a CUDA device: without one it exits nonzero before printing any result.
 """
 from __future__ import annotations
 
@@ -439,6 +462,21 @@ ABL_KERNEL_SHAPES = ((32, 128, 2048), (16, 32, 256))
 ABL_LAUNCHES = dict(moco=1, modist=4, mscl_nofra=4, mscl=7, mscl_nomds=7)
 ABL_STEPS, ABL_PROFILED = 5, 3      # the tool's steps; the one profiled
 ABL_AB_STEPS = 10                   # shufflebn_ab's steps a run
+# mscl_family: the flagship config with the MSF cross-modal head through
+# the training CLI (MF_STEPS steps over pretrain_cli's set, no validation),
+# its decayed-InfoNCE products a step (the towers' 3 with their dq; per
+# _msf_sp_sn the key's product alone and the query's with its dq, 2
+# directions x 2 flow passes), the heads card against CPU at B, C and
+# MF_HEAD_K, and the two tools
+MF_STEPS, MF_HEAD_K = 4, 4096
+MF_LAUNCHES = dict(l_neg=3 + 2 * 2 * 2, dq=3 + 1 * 2 * 2)
+MF_OPTIONS = ('model.moco_mx_head.type=MSCLWithAugMSFMxHead',
+              # the config's CrossEntropyLoss_torch (with ignore_index) is
+              # the InfoNCE head's; the MSF head takes its own default
+              'model.moco_mx_head.loss_cls._delete_=True',
+              'model.moco_mx_head.loss_cls.type=MultiPositiveSumLoss')
+MF_LOSSES = ('loss_circle_mx', 'loss_circle_mx_r', 'loss_circle_mx_aug',
+             'loss_circle_mx_r_aug')
 # recognition_configs: a Kinetics-shaped rawframe set (RC_VIDEOS videos of
 # RC_FRAMES 256x340 JPEG frames, and the same as grey flow pairs; the
 # first RC_VAL the val and test set) and an NTU-shaped skeleton set
@@ -1194,11 +1232,11 @@ def phase_card_vs_cpu():
         card_vs_cpu(narrow_flagship_cfg(aug=aug_cfg), batches)
 
 
-def card_vs_cpu(cfg, batches, name=None):
+def card_vs_cpu(cfg, batches, name=None, required=None):
     """Two train steps of cfg's model on the CPU and on the card from the
     same weights and batches (a device aug fed the same draws on both):
-    every loss (STEP_LOSSES of its recognizer at least) and every queue
-    within STEP_TOL."""
+    every loss (``required``, by default STEP_LOSSES of its recognizer, at
+    least) and every queue within STEP_TOL."""
     logs = {}
     draws = None
     for dev in ('cpu', 'cuda'):
@@ -1227,7 +1265,7 @@ def card_vs_cpu(cfg, batches, name=None):
                                 model.state_dict().items()
                                 if k.endswith('queue')}
     worst = 0.0
-    required = STEP_LOSSES[cfg['type']]
+    required = STEP_LOSSES[cfg['type']] if required is None else required
     for cpu, card in zip(logs['cpu'], logs['cuda']):
         if sorted(cpu) != sorted(card):
             raise AssertionError(f'logged {sorted(card)} != {sorted(cpu)}')
@@ -1591,10 +1629,10 @@ def phase_pretrain_cli(root):
     """The pretrain entry point end to end on the card: the flagship config
     file through ``python -m mscl_torch.tools.train`` (its main()), from
     rawframes on disk (written under root) through the config's own
-    pipelines and thread workers, 2 epochs of CLI_REPEAT * 2 steps with
-    validation by loss and a checkpoint after each, then a resume from
-    epoch_2 for a third epoch. Returns (launches, the steady window, the
-    pickles, the last checkpoint)."""
+    pipelines and thread workers, 1 epoch of CLI_REPEAT * 2 steps with
+    validation by loss and a checkpoint, then a resume from epoch_1 for a
+    second epoch. Returns (launches, the steady window, the pickles, the
+    last checkpoint)."""
     t_phase = time.perf_counter()
     timings = dict(save_s=[], state_s=[], resume_s=[])
     real_save, real_state = train_loop.save_checkpoint, \
@@ -1625,7 +1663,7 @@ def phase_pretrain_cli(root):
         work = osp.join(root, 'work')
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        runner, first, first_s = pretrain_run(train_pkl, val_pkl, work, 2)
+        runner, first, first_s = pretrain_run(train_pkl, val_pkl, work, 1)
         peak = torch.cuda.max_memory_allocated()
         bs, per_epoch = runner.train_loader.batch_size, len(
             runner.train_loader)
@@ -1636,9 +1674,9 @@ def phase_pretrain_cli(root):
                  for n in ('queue_ptr', 'iters')}
         del runner, model
         torch.cuda.empty_cache()
-        ckpt = osp.join(work, 'epoch_2.pth')
+        ckpt = osp.join(work, 'epoch_1.pth')
         on_disk = load_checkpoint(ckpt)
-        runner, second, second_s = pretrain_run(train_pkl, val_pkl, work, 3,
+        runner, second, second_s = pretrain_run(train_pkl, val_pkl, work, 2,
                                                 resume_from=ckpt)
         model = runner.model
         final = {f'{t}.{n}': int(getattr(getattr(model, t), n))
@@ -1666,30 +1704,30 @@ def phase_pretrain_cli(root):
     bad = [r for r in records
            if not all(math.isfinite(v) for k, v in r.items()
                       if k.startswith('loss'))]
-    if bad or len(train) != 3 * per_epoch or len(val) != 3:
+    if bad or len(train) != 2 * per_epoch or len(val) != 2:
         raise AssertionError(f'{len(train)} train and {len(val)} val log '
                              f'lines, non-finite losses in {bad}')
     # a train step launches l_neg and dq 7 times each, a val step l_neg 7
-    want_first = dict(l_neg=7 * 2 * per_epoch + 7 * 2, dq=7 * 2 * per_epoch)
-    want_second = dict(l_neg=7 * per_epoch + 7, dq=7 * per_epoch)
+    want_first = want_second = dict(l_neg=7 * per_epoch + 7,
+                                    dq=7 * per_epoch)
     if first != want_first or second != want_second:
         raise AssertionError(f'launches {first}, {second}; want '
                              f'{want_first}, {want_second}')
-    want, want_final = moco_state(2, per_epoch, bs), \
-        moco_state(3, per_epoch, bs)
+    want, want_final = moco_state(1, per_epoch, bs), \
+        moco_state(2, per_epoch, bs)
     if state != want or final != want_final:
         raise AssertionError(f'moco state {state}, {final}; want {want}, '
                              f'{want_final}')
-    missing = [n for n in ('epoch_1.pth', 'epoch_2.pth', 'epoch_3.pth',
-                           'latest') if n not in files]
+    missing = [n for n in ('epoch_1.pth', 'epoch_2.pth', 'latest')
+               if n not in files]
     if missing:
         raise AssertionError(f'missing {missing} in {files}')
     diff = states_equal(saved, on_disk) + states_equal(saved, resumed[0])
     if diff or len(resumed) != 1:
         raise AssertionError(f'the state loaded at resume differs from the '
                              f'state saved: {diff[:10]}')
-    if resumed[0]['optimizer']['steps'] != 2 * per_epoch or \
-            steps != 3 * per_epoch:
+    if resumed[0]['optimizer']['steps'] != per_epoch or \
+            steps != 2 * per_epoch:
         raise AssertionError(f'resumed at step '
                              f'{resumed[0]["optimizer"]["steps"]}, ended at '
                              f'{steps}')
@@ -1708,11 +1746,11 @@ def phase_pretrain_cli(root):
         peak_bytes=peak, checkpoint_bytes=ckpt_bytes,
         state_copy_s=timings['state_s'], save_s=timings['save_s'],
         resume_load_s=timings['resume_s'], run_s=[first_s, second_s],
-        launches=launches, state=final, resumed_at_step=2 * per_epoch,
+        launches=launches, state=final, resumed_at_step=per_epoch,
         losses=[r['loss'] for r in train],
         phase_s=time.perf_counter() - t_phase)
     return launches, window, (train_pkl, val_pkl), \
-        osp.join(work, 'epoch_3.pth')
+        osp.join(work, 'epoch_2.pth')
 
 
 def moco_state(epochs, per_epoch, bs):
@@ -1738,7 +1776,7 @@ def batch_transport(dataset, bs):
 
 def phase_pretrain_cli_process(root, pkls, thread_window):
     """pretrain_cli's config and data with the decode workers as processes
-    (``data.workers_mode=process``): 2 epochs with validation; its steady
+    (``data.workers_mode=process``): 1 epoch with validation; its steady
     window beside thread mode's, what a batch moves through the result
     queue, and no decode process left after the run."""
     import multiprocessing
@@ -1766,7 +1804,7 @@ def phase_pretrain_cli_process(root, pkls, thread_window):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         runner, launches, run_s = pretrain_run(
-            train_pkl, val_pkl, work, 2,
+            train_pkl, val_pkl, work, 1,
             options=['data.workers_mode=process'])
         peak = torch.cuda.max_memory_allocated()
     finally:
@@ -1791,11 +1829,11 @@ def phase_pretrain_cli_process(root, pkls, thread_window):
     bad = [r for r in records
            if not all(math.isfinite(v) for k, v in r.items()
                       if k.startswith('loss'))]
-    if bad or len(train) != 2 * per_epoch or len(val) != 2:
+    if bad or len(train) != per_epoch or len(val) != 1:
         raise AssertionError(f'{len(train)} train and {len(val)} val log '
                              f'lines, non-finite losses in {bad}')
-    want = dict(l_neg=7 * 2 * per_epoch + 7 * 2, dq=7 * 2 * per_epoch)
-    if launches != want or state != moco_state(2, per_epoch, bs):
+    want = dict(l_neg=7 * per_epoch + 7, dq=7 * per_epoch)
+    if launches != want or state != moco_state(1, per_epoch, bs):
         raise AssertionError(f'launches {launches}, state {state}')
     window = steady_window(train, per_epoch, CLI_TAIL)
     log(phase='pretrain_cli_process', workers_mode='process',
@@ -3761,6 +3799,324 @@ def phase_ablation_arms(dev, root):
     return rows, arms
 
 
+def mf_flagship_cli(root, pkls):
+    """(a) The flagship config with MSCLWithAugMSFMxHead through the
+    training CLI at full width (float32, K=65536, V5, batch 32): 1 epoch
+    of MF_STEPS steps over pretrain_cli's videos, thread workers, then one
+    more step profiled on a batch already on the card. Fails unless every
+    logged loss (the four MSF terms among them) is finite, queue_ptr, iters
+    and each tower's count are those of MF_STEPS enqueues and the kernels
+    launched MF_LAUNCHES a step."""
+    with open(pkls[0], 'rb') as f:
+        annos = pickle.load(f)
+    bs = load_flagship_config().data['videos_per_gpu']
+    pkl = osp.join(root, 'mscl_family_train.pkl')
+    with open(pkl, 'wb') as f:
+        pickle.dump(annos[:MF_STEPS * bs], f)
+    work = osp.join(root, 'work_mscl_family')
+    argv = [FLAGSHIP_CONFIG, '--seed', '0', '--cfg-options',
+            f'data.train.pkl_path={pkl}', 'total_epochs=1',
+            'log_config.interval=1', f'work_dir={work}', *MF_OPTIONS]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (runner, model), launches, run_s = cli_run(train_cli.main, argv)
+    peak = torch.cuda.max_memory_allocated()
+    per_epoch = len(runner.train_loader)
+    head = type(model.moco_mx_head).__name__
+    want = {k: v * per_epoch for k, v in MF_LAUNCHES.items()}
+    if head != 'MSCLWithAugMSFMxHead' or per_epoch != MF_STEPS or \
+            launches != want:
+        raise AssertionError(f'{head}, {per_epoch} steps, launches '
+                             f'{launches} != {want}')
+    train = [r for r in read_log(work) if r['mode'] == 'train']
+    bad = [r for r in train if not all(
+        math.isfinite(v) for k, v in r.items() if k.startswith('loss'))]
+    missing = [k for k in MF_LOSSES if not all(k in r for r in train)]
+    if bad or missing or len(train) != per_epoch:
+        raise AssertionError(f'{len(train)} train lines, missing {missing}, '
+                             f'non-finite in {bad}')
+    state, problems = {}, []
+    for prefix, tower in towers(model):
+        for n in ('queue_ptr', 'iters'):
+            state[f'{prefix}.{n}'] = int(getattr(tower, n))
+        # each step enqueues bs keys once: a column's count is the steps
+        # since it was written (MF_STEPS for the never-written ones)
+        cols = torch.arange(tower.K, device=tower.count.device)
+        want_count = torch.where(cols < per_epoch * bs,
+                                 per_epoch - cols // bs, per_epoch)
+        if not torch.equal(tower.count.long(), want_count):
+            problems.append(f'{prefix}.count')
+        written = tower.queue[:, :per_epoch * bs].norm(dim=0)
+        if not torch.allclose(written, torch.ones_like(written), atol=1e-4):
+            problems.append(f'{prefix}.queue')
+    want_state = moco_state(1, per_epoch, bs)
+    if state != want_state or problems:
+        raise AssertionError(f'moco state {state} != {want_state}, '
+                             f'{problems}')
+    it = iter(runner.train_loader)
+    batch = to_torch(next(it), 'cuda')
+    it.close()
+    it._thread.join()               # no decode thread beside the step
+    prof = profile('mscl_family_step', lambda: runner._train_step(batch))
+    del runner, model, batch
+    torch.cuda.empty_cache()
+    steps_ms = [r['time'] * 1e3 for r in train]
+    row = dict(config=osp.relpath(FLAGSHIP_CONFIG), options=MF_OPTIONS,
+               batch=bs, K=K, steps=per_epoch, launches=launches,
+               launches_a_step=MF_LAUNCHES, state=state, step_ms=steps_ms,
+               data_ms=[r['data_time'] * 1e3 for r in train],
+               # the epoch's last step runs after the producer has made
+               # its last batch: the step alone, with no decode beside it
+               last_ms=steps_ms[-1],
+               device_busy_ms=prof['device_busy_ms'],
+               device_idle_share=prof['device_idle_share'],
+               profiled_wall_ms=prof['wall_ms'], peak_bytes=peak,
+               run_s=run_s, losses=[{k: r[k] for k in MF_LOSSES + ('loss',)}
+                                    for r in train])
+    log(phase='mscl_family_cli', **row)
+    return row
+
+
+def mf_head_inputs(dev, seed):
+    """Unit queries and keys (B, C) and two banks of K = MF_HEAD_K unit
+    columns with decay 0.99**count, on dev, from one seed."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def unit(*shape, dim):
+        x = torch.randn(*shape, generator=gen)
+        return (x / x.norm(dim=dim, keepdim=True)).to(dev)
+    feats = [unit(B, C, dim=1) for _ in range(4)]
+    banks = [(unit(C, MF_HEAD_K, dim=0), (0.99 ** torch.randint(
+        0, 300, (MF_HEAD_K,), generator=gen).float()).to(dev))
+        for _ in range(2)]
+    return feats, banks
+
+
+def mf_head_run(cfg, dev, seed):
+    """A head of moco_head_v3.py on dev: its outputs, its losses and the
+    gradients of their sum in the queries, on the host."""
+    from mscl_torch.models import HEADS
+    head = HEADS.build(dict(cfg))
+    (q, k, q_flow, k_flow), (bank, bank_flow) = mf_head_inputs(dev, seed)
+    q.requires_grad_(True)
+    q_flow.requires_grad_(True)
+    if hasattr(head, 'forward_moco_mx'):
+        out = head.forward_moco_mx(q, k, q_flow, k_flow, bank, bank_flow)
+        extra = out[3] if len(out) == 4 else {}
+        losses = head.loss(*out[:3], **extra)
+        flat = [x for o in out[:2] for x in (o if isinstance(o, tuple)
+                                            else (o,))]
+    else:
+        labels = torch.arange(MF_HEAD_K, device=dev) % 7
+        out = head(q, k, bank, label=labels[:B], label_queue=labels)
+        losses = head.loss(**out)
+        flat = [v for v in out.values() if v.is_floating_point()]
+    sum(v for n, v in losses.items() if n.startswith('loss')).backward()
+    grads = [q.grad] + ([q_flow.grad] if q_flow.grad is not None else [])
+    return [x.detach().cpu() for x in flat + grads], \
+        {n: v.detach().cpu() for n, v in losses.items()}
+
+
+MF_HEADS = (
+    ('MoCoHeadV2', dict(type='MoCoHeadV2')),
+    ('MSFHead', dict(type='MSFHead', topk=5)),
+    ('NMSFHead', dict(type='NMSFHead', topk=5)),
+    ('NMSFHead/circle', dict(type='NMSFHead', topk=5, loss_cls=dict(
+        type='MultiPositiveCircleLoss'))),
+    ('MSCLWithAugMSFMxHead', dict(type='MSCLWithAugMSFMxHead', topk=5)),
+    ('MSCLWithAugMSFMxHead/other_kn', dict(type='MSCLWithAugMSFMxHead',
+                                           topk=5, same_kn=False)),
+    ('MSCLWithAugDistillMxHead', dict(type='MSCLWithAugDistillMxHead')),
+    ('MSCLWithAugDistillMxHead/small_p', dict(
+        type='MSCLWithAugDistillMxHead', small_p=512)),
+)
+
+
+def mf_reid_run(name, cfg, dev):
+    """A head of reid_distill_heads.py (or the triplet and circle losses)
+    on dev from seeded weights and inputs: its outputs, losses and the
+    gradients in its inputs and parameters, on the host, in train mode
+    (the BN-neck's running statistics after the step included)."""
+    from mscl_torch.models import HEADS, LOSSES
+    torch.manual_seed(3)
+    gen = torch.Generator().manual_seed(4)
+    if name.startswith('MultiPositive') or name == 'TripletLoss':
+        x = [torch.randn(8, 2, 16, generator=gen), torch.randn(
+            8, 2, 96, generator=gen)] if name != 'TripletLoss' else \
+            [torch.randn(16, 128, generator=gen)]
+        x = [v.to(dev).requires_grad_(True) for v in x]
+        if name == 'TripletLoss':
+            x.append((torch.arange(16) % 5).to(dev))
+        loss = LOSSES.build(dict(cfg))(*x)
+        loss.backward()
+        return [loss.detach().cpu()] + [v.grad.cpu() for v in x
+                                        if v.is_floating_point()]
+    head = HEADS.build(dict(cfg))
+    head.init_weights(torch.Generator().manual_seed(5))
+    head.to(dev).train()
+    labels = (torch.arange(8) % 6).to(dev)
+    if name == 'RcMoDistHead':
+        levels = [torch.randn(2, 128, 4, s, s, generator=gen).to(dev)
+                  .requires_grad_(True) for s in (28, 14, 7)]
+        flow = torch.rand(2, 3, 8, 112, 112, generator=gen).to(dev)
+        loss = head.loss_mx(**head(levels, flow))['loss_rc']
+        outs, inputs = [loss], levels
+    else:
+        x = torch.randn(8 * 8, 512, 7, 7, generator=gen).to(dev) \
+            .requires_grad_(True)
+        if name == 'TSMHead3D':
+            score = head(x)
+            losses = head.loss(score, labels)
+            outs = [score]
+        else:
+            score, feat = head(x, labels=labels, return_feat=True)
+            losses = head.loss(score, labels, reid_feat=feat)
+            outs = [score, feat]
+        loss = sum(v for n, v in losses.items() if n.startswith('loss'))
+        outs.append(loss)
+        inputs = [x]
+    loss.backward()
+    return [o.detach().cpu() for o in outs] + \
+        [v.grad.cpu() for v in inputs] + \
+        [p.grad.cpu() for p in head.parameters() if p.grad is not None] + \
+        [b.cpu() for b in head.buffers()]
+
+
+MF_REID = (
+    ('MultiPositiveSumLoss', dict(type='MultiPositiveSumLoss')),
+    ('MultiPositiveUniLoss', dict(type='MultiPositiveUniLoss', gamma=4)),
+    ('MultiPositiveCircleLoss', dict(type='MultiPositiveCircleLoss',
+                                     avg_on_group=False)),
+    ('TripletLoss', dict(type='TripletLoss')),
+    ('TSMReidSimpleHead', dict(type='TSMReidSimpleHead', num_classes=6,
+                               in_channels=512, dropout_ratio=0.0,
+                               use_cosface=dict(use=True))),
+    ('FGTSMReidSimpleHead', dict(type='FGTSMReidSimpleHead', num_classes=6,
+                                 in_channels=512, dropout_ratio=0.0)),
+    ('TSMHead3D', dict(type='TSMHead3D', num_classes=6, in_channels=512,
+                       num_clfs=2, dropout_ratio=0.0)),
+    ('RcMoDistHead', dict(type='RcMoDistHead', dim_fpn=128)),
+)
+
+
+def mf_two_r5_cfg():
+    """A MoCo tower on ResNet3dSlowOnly_TwoR5 (depth 18, 8 wide, one block
+    a stage; the last stage and the one before out) and BaseMoCo_TwoR5."""
+    return dict(type='MoCo', backbone=dict(
+        type='ResNet3dSlowOnly_TwoR5', depth=18, base_channels=8,
+        stage_blocks=(1, 1, 1, 1), out_indices=(2, 3)),
+        neck=dict(type='BaseMoCo_TwoR5'), dim_in=64, K=32, dim=32,
+        moco_head=dict(type='MoCoHead'), aug=dict(type='IdentityAug'))
+
+
+def mf_card_vs_cpu(dev):
+    """(b) Every head and loss of the slice on the card against the CPU on
+    the same inputs and weights within STEP_TOL (the heads' products in the
+    decayed-InfoNCE kernels on the card, plain on the CPU); the narrow
+    MSCLWithAug with the MSF head and the TwoR5 MoCo tower, two train
+    steps each, as card_vs_cpu. Returns the worst difference of each."""
+    worst = {}
+    for name, cfg in MF_HEADS:
+        (cpu, cpu_losses), (card, card_losses) = (
+            mf_head_run(cfg, d, 11) for d in ('cpu', dev))
+        if sorted(cpu_losses) != sorted(card_losses):
+            raise AssertionError(f'{name}: {sorted(card_losses)}')
+        for a, b in zip(card + list(card_losses.values()),
+                        cpu + list(cpu_losses.values())):
+            torch.testing.assert_close(a, b, **STEP_TOL)
+        worst[name] = max(float((a.float() - b.float()).abs().max())
+                          for a, b in zip(card, cpu))
+    for name, cfg in MF_REID:
+        cpu, card = (mf_reid_run(name, cfg, d) for d in ('cpu', dev))
+        if len(cpu) != len(card):
+            raise AssertionError(f'{name}: {len(card)} != {len(cpu)}')
+        for a, b in zip(card, cpu):
+            torch.testing.assert_close(a, b, **STEP_TOL)
+        worst[name] = max(float((a.float() - b.float()).abs().max())
+                          for a, b in zip(card, cpu))
+    msf = narrow_flagship_cfg(aug=dict(FLAGSHIP_AUG, crop_size=32))
+    msf['moco_mx_head'] = dict(type='MSCLWithAugMSFMxHead', basename='mx',
+                               topk=5)
+    card_vs_cpu(msf, [flagship_batch(4, hw=32, seed=s) for s in (17, 18)],
+                'MSCLWithAug+MSCLWithAugMSFMxHead',
+                required=list(MF_LOSSES) + ['loss_cls', 'loss_pos', 'loss'])
+    rng = np.random.default_rng(19)
+    card_vs_cpu(mf_two_r5_cfg(), [{'imgs': [
+        rng.uniform(size=(4, 3, 8, 32, 32)).astype(np.float32)
+        for _ in range(2)]} for _ in range(2)], 'MoCo+TwoR5')
+    log(phase='mscl_family_card_vs_cpu', max_abs_diff=worst)
+    return worst
+
+
+def mf_tools(root, ft_pkls, ft_work):
+    """(c) The two tools on the card's machine: clip_feature_extraction on
+    finetune_cli's checkpoint (the fine-tune config at full width over its
+    FT_VAL_VIDEOS test videos): finite (videos, FT_FEATURES) features and
+    the videos' labels in the .npz; merge_pkls on two shards of an
+    annotation list this phase writes (dealt out as flow_extraction
+    --num-shards 2 does, one entry repeated across them): every video
+    once, each entry the unsharded list's."""
+    from mscl_torch.tools import clip_feature_extraction as cfe_cli
+    from mscl_torch.tools import merge_pkls as merge_cli
+    out = osp.join(root, 'mscl_family_features.npz')
+    argv = [FT_CONFIG, osp.join(ft_work, 'epoch_2.pth'), '--out', out,
+            '--cfg-options', *finetune_options(*ft_pkls, ft_work)]
+    (feats, labels), launches, feat_s = cli_run(cfe_cli.main, argv)
+    saved = np.load(out)
+    want_labels = np.arange(FT_VAL_VIDEOS) % FT_CLASSES
+    if sorted(saved.files) != ['features', 'labels'] or \
+            saved['features'].shape != (FT_VAL_VIDEOS, FT_FEATURES) or \
+            not np.isfinite(saved['features']).all() or \
+            not np.array_equal(saved['labels'], want_labels) or \
+            not np.array_equal(saved['features'], feats) or \
+            any(launches.values()):
+        raise AssertionError(f'features {saved["features"].shape}, labels '
+                             f'{saved["labels"][:8]}, launches {launches}')
+    annos = [dict(video_name=f'video_{v:03d}', total_frames=CLI_LIST,
+                  flow_paths=[f'video_{v:03d}/flow_{i:05d}.np4'
+                              for i in range(121)]) for v in range(CLI_VIDEOS)]
+    shards = [annos[0::2], annos[1::2] + annos[:1]]
+    for i, shard in enumerate(shards):
+        with open(osp.join(root, f'annos_shard{i}.pkl'), 'wb') as f:
+            pickle.dump(shard, f)
+    merged_path = osp.join(root, 'annos_merged.pkl')
+    merged, _, merge_s = cli_run(merge_cli.main, [
+        osp.join(root, 'annos_shard*.pkl'), merged_path])
+    with open(merged_path, 'rb') as f:
+        on_disk = pickle.load(f)
+    if on_disk != merged or sorted(
+            merged, key=lambda a: a['video_name']) != annos:
+        raise AssertionError(f'merged {len(merged)} annotations, not the '
+                             f'{len(annos)} of the unsharded list')
+    row = dict(features=list(saved['features'].shape), feature_s=feat_s,
+               videos_per_s=FT_VAL_VIDEOS / feat_s, merged=len(merged),
+               shards=[len(s) for s in shards], merge_s=merge_s)
+    log(phase='mscl_family_tools', **row)
+    return row
+
+
+def phase_mscl_family(dev, root, pkls, ft_pkls, ft_work):
+    """The rest of the MSCL family: (a) mf_flagship_cli, (b)
+    mf_card_vs_cpu, (c) mf_tools."""
+    t_phase = time.perf_counter()
+    cli = mf_flagship_cli(root, pkls)
+    worst = mf_card_vs_cpu(dev)
+    tools = mf_tools(root, ft_pkls, ft_work)
+    seconds = time.perf_counter() - t_phase
+    log(phase='mscl_family', headline=dict(
+        checks=f'{MF_LAUNCHES["l_neg"]} l_neg + {MF_LAUNCHES["dq"]} dq a '
+               'step, finite losses, queues, card_vs_cpu 1e-3 '
+               f'({len(worst)} heads and losses, 2 models), features, merge',
+        seconds=round(seconds, 1), last_ms=round(cli['last_ms'], 1),
+        step_ms=[round(v, 1) for v in cli['step_ms']],
+        device_busy_ms=round(cli['device_busy_ms'], 1),
+        idle_share=round(cli['device_idle_share'], 3),
+        peak_GiB=round(cli['peak_bytes'] / 2 ** 30, 2),
+        max_abs_diff=_short(max(worst.values())),
+        features=tools['features'],
+        feature_videos_per_s=round(tools['videos_per_s'], 2)))
+
+
 def _kernel_class(name):
     """Class of a device kernel by its name; the first match wins, so BN
     and resize kernels that cuDNN or a conv-like name carries come first."""
@@ -3898,6 +4254,8 @@ def run_phases(out):
         run('recognition_configs', phase_recognition_configs, root)
         run('pretrain_configs', phase_pretrain_configs, dev, root, pkls)
         run('ablation_arms', phase_ablation_arms, dev, root)
+        run('mscl_family', phase_mscl_family, dev, root, pkls, ft_pkls,
+            ft_work)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(phase='phase_seconds', total=sum(seconds.values()), **seconds)

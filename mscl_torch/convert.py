@@ -5,7 +5,9 @@ where the two differ, so the mapping is mechanical, one path segment at a
 time:
 
   module ``<name>_m``  -> ``<name>``      (recognizer_m -> recognizer)
-  ``layer{i}_{j}``     -> ``layer{i}.{j}`` (torchvision stage / block)
+  ``layer{i}_{j}``     -> ``layer{i}.{j}`` (torchvision stage / block);
+                          ``layer{i}_{j}_local`` -> ``layer{i}_local.{j}``
+                          (ResNet3dSlowOnly_TwoR5's second last stage)
   ``conv`` / ``bn``    -> ``0`` / ``1``    inside a VideoResNet (the subtree
                           holding ``stem``), whose ConvBN is the Sequential
                           conv, BN, ReLU; elsewhere (ResNet3d's ConvModule)
@@ -26,7 +28,8 @@ cover them: the alignment heads' Dense projections ``trans_rgb``,
 (kernels transposed as any Dense); TemporalModulation's grouped conv
 ``tpn/tm_{i}/conv`` (its (3, 1, 1, C/32, C) kernel -> (C, C/32, 3, 1, 1),
 torch's grouped layout); SEPC's integrated BN ``sepc/pconv3d_{j}/ibn``;
-TPNProjMoCo's convs ``proj{i}_0`` / ``proj{i}_1``.
+TPNProjMoCo's convs ``proj{i}_0`` / ``proj{i}_1``; the reid heads' raw
+``fc_cls_kernel`` (in, classes) and ``fc_cls_bias``, kept as they are.
 
 Leaves are read with ``np.asarray``, so JAX arrays work without importing
 JAX here. RAFT has its own mapping onto the official RAFT names:
@@ -42,7 +45,9 @@ import numpy as np
 import torch
 from torch import nn
 
-_LEAF = {'params': {'kernel': 'weight', 'scale': 'weight', 'bias': 'bias'},
+_LEAF = {'params': {'kernel': 'weight', 'scale': 'weight', 'bias': 'bias',
+                    'fc_cls_kernel': 'fc_cls_kernel',
+                    'fc_cls_bias': 'fc_cls_bias'},
          'batch_stats': {'mean': 'running_mean', 'var': 'running_var'}}
 
 
@@ -51,9 +56,9 @@ def _segment(seg: str, convbn: bool = False) -> str:
         return seg.replace('_', '.')
     if convbn and seg in ('conv', 'bn'):
         return '0' if seg == 'conv' else '1'
-    m = re.fullmatch(r'(layer\d+)_(\d+)', seg)
+    m = re.fullmatch(r'(layer\d+)_(\d+)(_local)?', seg)
     if m:
-        return f'{m.group(1)}.{m.group(2)}'
+        return f'{m.group(1)}{m.group(3) or ""}.{m.group(2)}'
     if seg.endswith('_m'):
         return seg[:-2]
     return seg

@@ -12,14 +12,19 @@ from .formatting import (Collect, FormatShape, ImageToTensor, Rename,
 from .loading import (ArrayDecode, DenseSampleFrames, LocalDecode,
                       RawFrameDecode, SampleFrames, UntrimmedSampleFrames)
 from .mcl_augmentations import MCLRandomResizedCrop, motion_map_from_flow
-from .loading_mscl import (ChosenSampleFrames, MatchFlow, Seg2T,
-                           TemporalShiftChosenSampleFrames)
+from .loading_mscl import (AlignIndex, ChosenSampleFrames, FlowToGT,
+                           MatchFlow, Seg2T, TemporalShiftChosenSampleFrames,
+                           TemporalShiftSampleFrames)
 from .moco_augmentations import (MoCoDecodePlan, MoCoNormalize,
-                                 MoCoRandomResizedCrop, MoCoResize)
+                                 MoCoNormalizeV2, MoCoRandomResizedCrop,
+                                 MoCoResize)
 from .pose_loading import (GeneratePoseTarget, LoadKineticsPose, PoseCompact,
                            PoseDecode, UniformSampleFrames)
-from .transforms_motion import (NormFlowWithAug, NormFlowWithStidedAug,
-                                norm_flow, rotate_flow)
+from .transforms_motion import (Flow2ImgWithAug, NormFlowV2,
+                                NormFlowWithAug, NormFlowWithAugV2,
+                                NormFlowWithStidedAug,
+                                NormFlowWithStidedAugV2, norm_flow,
+                                rotate_flow)
 
 __all__ = [
     'Compose', 'Collect', 'ToTensor', 'to_tensor', 'batched_to_tensor',
@@ -36,5 +41,8 @@ __all__ = [
     'Normalize', 'ColorJitter', 'GPUNormalize', 'Flip', 'Fuse', 'Seg2T',
     'MCLRandomResizedCrop', 'motion_map_from_flow',
     'UniformSampleFrames', 'PoseDecode', 'GeneratePoseTarget',
-    'LoadKineticsPose', 'PoseCompact',
+    'LoadKineticsPose', 'PoseCompact', 'AlignIndex',
+    'TemporalShiftSampleFrames', 'FlowToGT', 'Flow2ImgWithAug',
+    'NormFlowWithStidedAugV2', 'NormFlowWithAugV2', 'NormFlowV2',
+    'MoCoNormalizeV2',
 ]

@@ -1,10 +1,12 @@
-"""MSCL sampling transforms: MatchFlow, Seg2T and the MDS samplers.
+"""MSCL sampling transforms: MatchFlow, AlignIndex, Seg2T, the MDS
+samplers, the temporal-shift sampler and FlowToGT.
 
 Port of ``mscl_tpu/datasets/pipelines/loading_mscl.py`` (reference
-loading_mscl.py:52-69 MatchFlow, :72-107 Seg2T, :110-176
-ChosenSampleFrames, :179-282 TemporalShiftChosenSampleFrames). Draws come
-from the global ``np.random`` in the JAX package's order, so the same seed
-gives the same clips.
+loading_mscl.py:52-69 MatchFlow, :9-35 AlignIndex, :72-107 Seg2T, :110-176
+ChosenSampleFrames, :179-282 TemporalShiftChosenSampleFrames, :286-375
+TemporalShiftSampleFrames; FlowToGT). Draws come from the global
+``np.random`` in the JAX package's order, so the same seed gives the same
+clips.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from .loading import (SampleFrames, _sample_train_offsets,
 # local-filesystem keys that track the frame timeline (the reference tracks
 # nori ids; we track file paths — same list semantics)
 _SEQ_KEY = 'img_paths'
+_FLOW_KEYS = ('flow_paths', 'flow_img_paths')
 
 
 @PIPELINES.register_module()
@@ -49,7 +52,33 @@ class MatchFlow:
                 f'adjacent={self.adjacent})')
 
 
+@PIPELINES.register_module()
+class AlignIndex:
+    """Check the RGB timeline against the flow's length and align it (every
+    ``gap``-th frame short of the last ``adjacent``; reference
+    loading_mscl.py:9-35)."""
 
+    def __init__(self, gap, adjacent):
+        self.gap = gap
+        self.adjacent = adjacent
+
+    def __call__(self, results):
+        len_flow = None
+        for k in _FLOW_KEYS:
+            if k in results:
+                if len_flow is not None:
+                    assert len(results[k]) == len_flow
+                else:
+                    len_flow = len(results[k])
+        seq = results[_SEQ_KEY]
+        len_img = len(seq)
+        assert len_flow == (len_img - self.adjacent) // self.gap, \
+            f'{len_flow} vs {len_img}'
+        seq = seq[0:len_img - self.adjacent:self.gap]
+        assert len(seq) == len_flow
+        results[_SEQ_KEY] = seq
+        results['total_frames'] = len(seq)
+        return results
 
 
 @PIPELINES.register_module()
@@ -173,3 +202,55 @@ class TemporalShiftChosenSampleFrames(_MSCLSampleBase):
             [clip_offsets, np.array([new_offset], dtype=np.int64)])
 
 
+@PIPELINES.register_module()
+class TemporalShiftSampleFrames(SampleFrames):
+    """A temporal-shift positive pair without MDS (reference
+    loading_mscl.py:286-375): the second offset is the first plus a uniform
+    shift in +-shift_range*clip_len*frame_interval, clamped in bounds."""
+
+    def __init__(self, clip_len, frame_interval=1, num_clips=1,
+                 temporal_jitter=False, twice_sample=False,
+                 out_of_bound_opt='loop', test_mode=False,
+                 start_index=None, keep_tail_frames=False, shift_range=1):
+        super().__init__(clip_len, frame_interval, num_clips,
+                         temporal_jitter, twice_sample, out_of_bound_opt,
+                         test_mode, start_index, keep_tail_frames)
+        assert self.num_clips == 1
+        self.shift_range = shift_range * clip_len * frame_interval
+
+    def _sample_clips(self, num_frames):
+        clip_offsets = super()._sample_clips(num_frames)
+        cur_shift = np.random.randint(-self.shift_range,
+                                      self.shift_range + 1)
+        tar_offset = int(clip_offsets[0]) + cur_shift
+        new_offset = max(
+            min(tar_offset,
+                num_frames - self.clip_len * self.frame_interval), 0)
+        return np.concatenate(
+            [clip_offsets, np.array([new_offset], dtype=np.int64)])
+
+    def __call__(self, results):
+        total_frames = results['total_frames']
+        clip_offsets = self._sample_clips(total_frames)
+        frame_inds = expand_offsets_to_inds(
+            clip_offsets, self.clip_len, self.frame_interval, total_frames,
+            self.out_of_bound_opt, self.temporal_jitter)
+        start_index = results['start_index']
+        results['frame_inds'] = (frame_inds + start_index).astype(np.int64)
+        results['clip_len'] = self.clip_len
+        results['frame_interval'] = self.frame_interval
+        results['num_clips'] = self.num_clips * 2
+        return results
+
+
+@PIPELINES.register_module()
+class FlowToGT:
+    """The flow-derived pseudo-boxes (``flow_prposals``, the key as the
+    reference spells it) become ``gt_bboxes``."""
+
+    def __call__(self, results):
+        if 'gt_bboxes' in results:
+            raise NotImplementedError(
+                'FlowToGT cannot merge with existing gt_bboxes')
+        results['gt_bboxes'] = results['flow_prposals']
+        return results

@@ -302,3 +302,19 @@ class MoCoNormalize:
     def __repr__(self):
         return f'{self.__class__.__name__}(ori_flow={self.ori_flow})'
 
+
+@PIPELINES.register_module()
+class MoCoNormalizeV2(MoCoNormalize):
+    """MoCoNormalize, and raw 'flows' of both branches stacked and
+    transposed to CTHW in float32 (reference moco_augmentations.py:396-423)."""
+
+    def __call__(self, results):
+        results = super().__call__(results)
+        if 'flows' in results:
+            for idx in range(2):
+                flows = np.stack(results['flows'][idx])
+                if flows.dtype != np.float32:
+                    flows = flows.astype(np.float32)
+                results['flows'][idx] = flows.transpose((3, 0, 1, 2))
+        return results
+

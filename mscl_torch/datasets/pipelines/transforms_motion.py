@@ -1,17 +1,20 @@
 """Flow Rotation Augmentation (FRA) and flow normalization.
 
-Port of the part of ``mscl_tpu/datasets/pipelines/transforms_motion.py``
-the flagship config runs (reference mmaction transforms_motion.py:7-146):
-``norm_flow``, ``rotate_flow``, their (T, H, W, 2) forms, and
-``NormFlowWithAug`` / ``NormFlowWithStidedAug``, which rotate every flow
-vector of a clip by one angle drawn from the global ``np.random`` and
-append the rotated, normalised flows after the originals.
+Port of ``mscl_tpu/datasets/pipelines/transforms_motion.py`` (reference
+mmaction transforms_motion.py:7-243): ``norm_flow``, ``rotate_flow``, their
+(T, H, W, 2) forms, and ``NormFlowWithAug`` / ``NormFlowWithStidedAug``,
+which rotate every flow vector of a clip by one angle drawn from the global
+``np.random`` and append the rotated, normalised flows after the originals
+(the V2s write them under 'flows'); ``NormFlowV2`` normalises only;
+``Flow2ImgWithAug`` draws an angle a frame and writes colour-wheel images
+(``utils/flow_viz.flow_to_image``) of the flows and of their rotations.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from ..builder import PIPELINES
+from ...utils.flow_viz import flow_to_image
 
 
 def norm_flow(flow_uv: np.ndarray, clip_flow=None) -> np.ndarray:
@@ -73,6 +76,34 @@ def _rotate_flow_frames(flows: np.ndarray, beta: float) -> np.ndarray:
     sin_b, cos_b = np.sin(beta), np.cos(beta)
     return np.stack((cos_b * u - sin_b * v, sin_b * u + cos_b * v),
                     axis=-1)
+
+
+@PIPELINES.register_module()
+class Flow2ImgWithAug:
+    """FRA with colour-wheel images out, an angle a frame (reference
+    transforms_motion.py:33-65)."""
+
+    def __init__(self, ratios, convert_to_bgr=False, merge_aug=True):
+        self.ratios = ratios
+        self.convert_to_bgr = convert_to_bgr
+        self.merge_aug = merge_aug
+
+    def __call__(self, results):
+        flow_imgs, rotated = [], []
+        for flow_uv in results['flows']:
+            beta = np.random.uniform(*self.ratios) * np.pi
+            new_flow_uv = rotate_flow(flow_uv, beta)
+            flow_imgs.append(
+                flow_to_image(flow_uv, convert_to_bgr=self.convert_to_bgr))
+            rotated.append(
+                flow_to_image(new_flow_uv,
+                              convert_to_bgr=self.convert_to_bgr))
+        if self.merge_aug:
+            results['flow_imgs'] = flow_imgs + rotated
+        else:
+            results['flow_imgs'] = flow_imgs
+            results['rotated_flow_imgs'] = rotated
+        return results
 
 
 class _NormFlowAugBase:
@@ -138,3 +169,28 @@ class NormFlowWithStidedAug(_NormFlowAugBase):
         results['ap_labels'] = cid
 
 
+@PIPELINES.register_module()
+class NormFlowWithStidedAugV2(NormFlowWithStidedAug):
+    """NormFlowWithStidedAug writing under 'flows' (reference
+    transforms_motion.py:149-190)."""
+    out_key = 'flows'
+    delete_flows = False
+
+
+@PIPELINES.register_module()
+class NormFlowWithAugV2(NormFlowWithAug):
+    """NormFlowWithAug writing under 'flows' (reference
+    transforms_motion.py:210-243)."""
+    out_key = 'flows'
+    delete_flows = False
+
+
+@PIPELINES.register_module()
+class NormFlowV2:
+    """Normalise only, no augmentation (reference
+    transforms_motion.py:193-207)."""
+
+    def __call__(self, results):
+        results['flows'] = list(
+            _norm_flow_frames(np.stack(results['flows'])))
+        return results

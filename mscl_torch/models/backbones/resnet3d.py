@@ -1,8 +1,12 @@
-"""MMAction-style 3D ResNets: ResNet3d and its SlowOnly pathway (NCTHW).
+"""MMAction-style 3D ResNets: ResNet3d, its SlowOnly pathway and the
+SlowOnly with two last stages (NCTHW).
 
 Port of ``mscl_tpu/models/backbones/resnet3d.py`` (``ARCH_SETTINGS``,
 ``BasicBlock3d``, ``Bottleneck3d`` in the 'pytorch' style, with the stride
-on conv2, ``ResNet3d`` and ``ResNet3dSlowOnly``). The module names are
+on conv2, ``ResNet3d``, ``ResNet3dSlowOnly`` and
+``ResNet3dSlowOnly_TwoR5``, whose last stage runs twice with its own
+weights, ``layer{n}`` and ``layer{n}_local``, the (global, local) pair of
+the TwoR5 necks). The module names are
 mmaction's ConvModule names (``conv1.conv``, ``conv1.bn``,
 ``layer{i}.{j}.conv{1,2,3}.conv/.bn``, ``...downsample.conv/.bn``), so a
 reference mmaction ``.pth`` loads as it is; ``mscl_torch/convert.py`` maps
@@ -23,6 +27,7 @@ takes either style).
 """
 from __future__ import annotations
 
+import copy
 from typing import Sequence, Tuple
 
 import torch
@@ -252,3 +257,36 @@ class ResNet3dSlowOnly(ResNet3d):
     conv1_kernel_default = (1, 7, 7)
     inflate_default = (0, 0, 1, 1)
     with_pool2_default = False
+
+
+@BACKBONES.register_module()
+class ResNet3dSlowOnly_TwoR5(ResNet3dSlowOnly):
+    """ResNet3dSlowOnly whose last stage is duplicated with independent
+    weights (``layer{n}_local``; reference resnet3d_slowonly.py:56-123).
+    Returns, as the JAX module does, the stages of ``out_indices`` before
+    the last and, if the last is among them, the (global, local) pair after
+    them; one element bare, several as a tuple. So with the default
+    ``out_indices=(3,)`` it returns the bare pair, which the TwoR5 neck
+    refuses: give it the last stage and at least one other."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        last = f'layer{self.num_stages}'
+        setattr(self, f'{last}_local', copy.deepcopy(getattr(self, last)))
+
+    def forward(self, x):
+        x = self.conv1(x)
+        if self.pool1 is not None:
+            x = self.pool1(x)
+        outs = []
+        last = self.num_stages - 1
+        for i in range(last):
+            x = getattr(self, f'layer{i + 1}')(x)
+            if i == 0 and self.pool2 is not None:
+                x = self.pool2(x)
+            if i in self.out_indices:
+                outs.append(x)
+        if last in self.out_indices:
+            outs.append((getattr(self, f'layer{last + 1}')(x),
+                         getattr(self, f'layer{last + 1}_local')(x)))
+        return outs[0] if len(outs) == 1 else tuple(outs)

@@ -9,6 +9,10 @@ from .local_align_heads import (FGMoDistPredHead, MAMSCLWithAugPosHead,
 from .local_cl_head import MSCLWithAugPosHeadV2
 from .moco_head import MoCoHead
 from .moco_head_v2 import MSCLWithAugMxHead
+from .moco_head_v3 import (MoCoHeadV2, MSCLWithAugDistillMxHead,
+                           MSCLWithAugMSFMxHead, MSFHead, NMSFHead)
+from .reid_distill_heads import (FGTSMReidSimpleHead, RcMoDistHead,
+                                 TSMHead3D, TSMReidSimpleHead)
 
 __all__ = ['BaseHead', 'I3DHead', 'topk_accuracy', 'MSCLWithAugPosHeadV2',
            'MoCoHead', 'MSCLWithAugMxHead', 'MoDistPredHead',
@@ -16,4 +20,7 @@ __all__ = ['BaseHead', 'I3DHead', 'topk_accuracy', 'MSCLWithAugPosHeadV2',
            'MTMoDistPredHead', 'MoDistv2PosHead', 'MSCLWithAugPosHead',
            'MSCLWithAugSimpleHead', 'MSCLWithAugAPPosHead',
            'MlvlMSCLWithAugPosHead', 'MAMSCLWithAugPosHead',
-           'frame_sim_scores']
+           'frame_sim_scores', 'MoCoHeadV2', 'MSFHead', 'NMSFHead',
+           'MSCLWithAugMSFMxHead', 'MSCLWithAugDistillMxHead',
+           'TSMReidSimpleHead', 'FGTSMReidSimpleHead', 'TSMHead3D',
+           'RcMoDistHead']

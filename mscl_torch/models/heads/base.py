@@ -1,12 +1,23 @@
-"""Top-k accuracy and the classification heads' shared loss (port of
-``mscl_tpu/models/heads/base.py``)."""
+"""Top-k accuracy, the classification heads' shared loss (port of
+``mscl_tpu/models/heads/base.py``) and their seeded dropout.
+
+``SeededDropout``: dropout draws its mask from the head's own
+``torch.Generator``, made on the batch's device from ``dropout_seed`` at
+first use, not from the global generator (in a process group: the global
+batch's mask, seeded alike on every rank, and the rank's rows of it, so n
+ranks drop what one device drops): its state is saved in checkpoints
+(``dropout_state``) so a resumed run draws the masks the uninterrupted run
+would. The mask keeps an element with probability 1 - p and scales it by
+1 / (1 - p), as flax's Dropout does; its bits are not JAX's.
+"""
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
 
+from ...parallel import dist
 from ..builder import build_loss
 
 
@@ -53,3 +64,45 @@ class BaseHead(nn.Module):
                       self.label_smooth_eps / self.num_classes)
         losses['loss_cls'] = self.loss_cls(cls_score, labels, **kwargs)
         return losses
+
+
+class SeededDropout:
+    """Dropout at ``self.dropout_ratio`` from the head's own generator (see
+    above); mixed into an ``nn.Module`` head."""
+    dropout_seed = 0
+    _dropout_gen: Optional[torch.Generator] = None
+
+    def seed_dropout(self, seed: int):
+        """Restart the dropout draws from seed (on the next batch's
+        device)."""
+        self.dropout_seed, self._dropout_gen = seed, None
+
+    def dropout_generator(self, device: torch.device) -> torch.Generator:
+        if self._dropout_gen is None or self._dropout_gen.device != device:
+            self._dropout_gen = torch.Generator(device=device).manual_seed(
+                self.dropout_seed)
+        return self._dropout_gen
+
+    def dropout_state(self) -> Optional[torch.Tensor]:
+        """The dropout generator's state (a CPU byte tensor), None before
+        the first training batch made it."""
+        return None if self._dropout_gen is None else \
+            self._dropout_gen.get_state()
+
+    def set_dropout_state(self, state) -> None:
+        """Put the generator back as ``dropout_state`` gave it, on the
+        head's device (None: made from dropout_seed at the next batch)."""
+        self._dropout_gen = None
+        if state is not None:
+            device = next(self.parameters()).device
+            self.dropout_generator(device).set_state(state)
+
+    def dropout(self, x: torch.Tensor) -> torch.Tensor:
+        p = self.dropout_ratio
+        if not self.training or p == 0:
+            return x
+        shape = (x.shape[0] * dist.world_size(),) + tuple(x.shape[1:])
+        u = dist.rank_rows(torch.rand(
+            shape, generator=self.dropout_generator(x.device),
+            device=x.device, dtype=torch.float32))
+        return torch.where(u >= p, x / (1 - p), torch.zeros_like(x))

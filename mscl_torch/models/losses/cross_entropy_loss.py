@@ -7,7 +7,8 @@ JAX function returns), ``CrossEntropyLoss`` (hard or soft labels, by
 the label's shape, with an optional class weight; the classification
 heads' default), ``BCELossWithLogits`` (multi-label, the mean over every
 entry), ``NLLLoss`` (on log-probabilities) and
-``WeightedCrossEntropyLoss_torch`` (a per-sample pool weight).
+``WeightedCrossEntropyLoss_torch`` (a per-sample pool weight), and the reid
+heads' ``TripletLoss`` (batch-hard, with a margin).
 
 In a process group (``parallel/dist.py``) a hard-label loss is the global
 batch's: its denominator (the non-ignored count, or the class weights'
@@ -146,3 +147,29 @@ class WeightedCrossEntropyLoss_torch:
                               reduction='none') * valid
         loss = (pool_weight * per).sum() / (pool_weight.sum() + self.eps)
         return self.loss_weight * loss
+
+
+@LOSSES.register_module()
+class TripletLoss:
+    """Batch-hard triplet loss: for each anchor its farthest positive and
+    nearest negative by Euclidean distance, hinged at ``margin`` and
+    averaged (the JAX package registers it for the reid heads, whose
+    reference names it and ships none). The hardest distances are taken
+    with amax / amin, which share the gradient among ties as JAX's max and
+    min do."""
+
+    def __init__(self, margin=0.3, loss_weight=1.0):
+        self.margin = margin
+        self.loss_weight = loss_weight
+
+    def __call__(self, feat, label, **kwargs):
+        sq = (feat ** 2).sum(dim=1)
+        d2 = sq[:, None] + sq[None, :] - 2.0 * feat @ feat.T
+        d = d2.clamp(min=1e-12).sqrt()
+        same = (label[:, None] == label[None, :]).to(feat.dtype)
+        eye = torch.eye(feat.shape[0], dtype=feat.dtype, device=feat.device)
+        hardest_pos = (d * (same - eye)).amax(dim=1)
+        hardest_neg = torch.where(same < 1, d,
+                                  torch.full_like(d, 1e9)).amin(dim=1)
+        per = (hardest_pos - hardest_neg + self.margin).clamp(min=0.0)
+        return self.loss_weight * per.mean()

@@ -57,7 +57,17 @@ class BaseMoCo_TwoR5(BaseMoCo):
     the global one, the local one passed on as the last feature."""
 
     def forward(self, x, mlvl: bool = True):
-        x_g, x_l = x[-1]
+        last = x[-1] if isinstance(x, (list, tuple)) else None
+        if not (isinstance(last, (list, tuple)) and len(last) == 2):
+            # JAX's neck unpacks whatever comes last: given the bare pair
+            # (the backbone's default out_indices=(3,)) it splits the local
+            # feature along its batch axis
+            raise ValueError(
+                'BaseMoCo_TwoR5 takes a backbone output whose last element '
+                'is the (global, local) pair of ResNet3dSlowOnly_TwoR5; give '
+                'the backbone out_indices with its last stage and at least '
+                'one other')
+        x_g, x_l = last
         return gap3d(x_g), list(x[:-1]) + [x_l] if mlvl else None
 
 

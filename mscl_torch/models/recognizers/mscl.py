@@ -17,7 +17,9 @@ LMCL against the base flow only. ``MoDist``: the two towers and the
 cross-modal InfoNCE, no LMCL. Either tower is a MoCo (fixed momentum) or a
 MoCoV2 (annealed), whose own aug must be IdentityAug: the composite runs
 the aug. A tower's ShuffleBN draws its permutation from the composite's aug
-generator, after the aug's draws.
+generator, after the aug's draws. The cross-modal head is
+``MSCLWithAugMxHead`` (InfoNCE) or ``MSCLWithAugMSFMxHead`` (mean shift);
+``MSCLWithAugDistillMxHead`` is refused by name (``check_mx_head``).
 
 The flow tower's stem takes 3 channels when the aug visualises the flow
 (the colour wheel: SyncMoCoAugmentV5 with visualize, V3, V4) and the raw 2
@@ -49,6 +51,21 @@ def check_identity_aug(aug):
             "composite runs its own aug)")
 
 
+def check_mx_head(cfg):
+    """MSCLWithAugDistillMxHead cannot run in the JAX recognizers: its
+    forward_moco_mx returns four values where they unpack three
+    (mscl_tpu/models/recognizers/mscl.py:139,145,222,279), and its loss
+    needs a loss_kl they do not pass; so there is nothing to hold it to
+    here."""
+    if dict(cfg).get('type') == 'MSCLWithAugDistillMxHead':
+        raise NotImplementedError(
+            'MSCLWithAugDistillMxHead is not a moco_mx_head of MSCLWithAug, '
+            'MSCL or MoDist: its forward_moco_mx returns four values (the '
+            'logits, the label and loss_kl) where the JAX recognizers unpack '
+            'three, and its loss needs loss_kl; use it as a head alone, or '
+            'MSCLWithAugMxHead / MSCLWithAugMSFMxHead')
+
+
 class _TwoTowers(AugGenerator, nn.Module):
     """The RGB and flow towers, the aug and the cross-modal head."""
 
@@ -63,6 +80,7 @@ class _TwoTowers(AugGenerator, nn.Module):
                                         3 if self.aug.visualize else 2)
         self.recognizer = self._tower(recognizer, self.dtype)
         self.recognizer_flow = self._tower(flow_cfg, self.dtype)
+        check_mx_head(moco_mx_head)
         self.moco_mx_head = build_head(dict(moco_mx_head))
         self.im_key = im_key
         self.aux_info = tuple(aux_info)

@@ -146,3 +146,52 @@ def test_the_datasets_are_registered():
     for name in ('RawframeDataset', 'PoseDataset', 'RepeatDataset',
                  'ConcatDataset'):
         assert name in DATASETS
+
+
+# the MSCL family's last slice: heads, losses, the TwoR5 backbone and the
+# host transforms no shipped config names, each registered in the port
+MSCL_FAMILY = {
+    'models': ('MoCoHeadV2', 'MSFHead', 'NMSFHead', 'MSCLWithAugMSFMxHead',
+               'MSCLWithAugDistillMxHead', 'MultiPositiveSumLoss',
+               'MultiPositiveUniLoss', 'MultiPositiveCircleLoss',
+               'TripletLoss', 'TSMReidSimpleHead', 'FGTSMReidSimpleHead',
+               'TSMHead3D', 'RcMoDistHead', 'ResNet3dSlowOnly_TwoR5'),
+    'pipelines': ('AlignIndex', 'TemporalShiftSampleFrames', 'FlowToGT',
+                  'Flow2ImgWithAug', 'NormFlowWithStidedAugV2',
+                  'NormFlowWithAugV2', 'NormFlowV2', 'MoCoNormalizeV2'),
+}
+# what the JAX registries hold that the port does not, yet (ROADMAP.md
+# Queue 1 items 3-5): a gate that later slices shrink and never grow
+MODELS_LEFT = 51
+PIPELINES_LEFT = 29
+
+
+def _registry(kind):
+    from mscl_torch.datasets.builder import PIPELINES
+    from mscl_torch.models import MODELS
+    return MODELS if kind == 'models' else PIPELINES
+
+
+@pytest.mark.parametrize('kind,name', [(k, n) for k, names in
+                                       sorted(MSCL_FAMILY.items())
+                                       for n in names])
+def test_the_mscl_family_is_registered(kind, name):
+    assert _registry(kind).get(name) is not None
+
+
+def test_the_jax_registries_left_to_port():
+    """Every type the JAX package registers is the port's too, but for
+    those the queues still hold; none of the MSCL family among them."""
+    import mscl_tpu.datasets  # noqa: F401  (registers the pipelines)
+    import mscl_tpu.models  # noqa: F401
+    from mscl_tpu.datasets.builder import PIPELINES as JAX_PIPELINES
+    from mscl_tpu.models import MODELS as JAX_MODELS
+    left = {}
+    for kind, jax_registry in (('models', JAX_MODELS),
+                               ('pipelines', JAX_PIPELINES)):
+        port = _registry(kind)
+        left[kind] = sorted(n for n in jax_registry.module_dict
+                            if port.get(n) is None)
+        assert not set(left[kind]) & set(MSCL_FAMILY[kind])
+    assert len(left['models']) <= MODELS_LEFT, left['models']
+    assert len(left['pipelines']) <= PIPELINES_LEFT, left['pipelines']
