@@ -105,13 +105,14 @@ the exit code is nonzero:
    at world 2; (c) the full-width steps at world 1 under NCCL, held as in
    (a); (b) the training CLI at world 2 through its launcher
    (``launch.run`` with ``--num-devices 2``: two ranks on the one card
-   talk over gloo), 16 rows a rank: 1 epoch of 8 global steps with
+   talk over gloo), 16 rows a rank, over the set's first 128 entries
+   (cut from 256, to pay for 14d): 1 epoch of 4 global steps with
    validation, then a resume to a second; one loss on both ranks every
    step, files written by rank 0 only, the state loaded at resume equal
    to the state saved, bitwise, on both ranks, queues and launches as the
-   steps imply. It logs each path's step times, the
-   collectives a step (BN calls, gradient buckets, key gathers, with their
-   bytes), peak memory and launches a rank, and the CLI's steady step;
+   steps imply. It logs each path's step times, the collectives a step (BN
+   calls, gradient buckets, key gathers, with their bytes), peak memory and
+   launches a rank, and the CLI's steady step;
 11. finetune_cli: README workload 2, the fine-tune config
    (configs/recognition/ssl_test/test_ssv2_r18.py: r3d_18 64 wide,
    I3DHead for 174 classes, dropout 0.5, batch 32, 16-frame 112x112
@@ -174,27 +175,51 @@ the exit code is nonzero:
    the lookup's launches, a 128x171 flow image's encode ms, flow2img
    videos/s of each run and inference_bboxs ms a video (3 passes over the
    8 videos), and its seconds;
-14c. recognition_configs: the I3D, SlowOnly and PoseC3D recipes of
-   configs/, each at its own model, batch, clip length and crop, float32:
-   a Kinetics-shaped rawframe set written with the port's JPEG encoder
-   (32 videos of 72 256x340 frames, and the same as grey x/y flow pairs)
-   and an NTU-shaped skeleton pickle (64 samples, 2 persons, 17 COCO
-   keypoints, 100 frames, heatmaps at img_shape 56x56: a cut, NTU's
-   1080x1920 would make 6.8 GB of heatmaps a sample); for each of the
-   seven trainable configs (i3d_r50_dense and _lazy, slowonly_r50_8x8x1,
-   the ImageNet 8x4x1 recipe, the flow recipe, PoseC3D NTU-60 and -120)
-   two train steps and forward_test of its narrowed model (base_channels
-   8, one block a stage) on the card against the CPU on a batch of its own
-   train pipeline, within 1e-3, then the training CLI on the file itself
-   (1 epoch of 4 steps at its batch, validation where its val pipeline is
-   NCTHW) and one more step profiled; the test CLI on i3d_r50_dense's
-   checkpoint (10 dense clips a video, 8 videos); and the refusals by
-   name: i3d_r50_32x2x1 and slowonly_r50_4x16x1_rgb (NTHWC clips) before
-   their first step, the PoseC3D limb config (left_kp) and the video
-   config (VideoDataset). It fails unless every loss is finite and no
-   decayed-InfoNCE or lookup kernel launched; it logs each config's steady
-   ms a step (steps 3-4), data-wait share, the profiled step's device ms
-   and idle share, peak memory, and the test CLI's videos/s;
+14c. recognition_configs: the I3D, SlowOnly and PoseC3D recipes of configs/,
+   each at its own model, batch, clip length and crop, float32: a
+   Kinetics-shaped rawframe set written with the port's JPEG encoder (32 videos
+   of 72 256x340 frames, and the same as grey x/y flow pairs) and an NTU-shaped
+   skeleton pickle (64 samples, 2 persons, 17 COCO keypoints, 100 frames,
+   heatmaps at img_shape 56x56: a cut, NTU's 1080x1920 would make 6.8 GB of
+   heatmaps a sample); for each of the seven trainable configs (i3d_r50_dense
+   and _lazy, slowonly_r50_8x8x1, the ImageNet 8x4x1 recipe, the flow recipe,
+   PoseC3D NTU-60 and -120) its narrowed model (base_channels 8, one block a
+   stage) on the card in float32 against the CPU in float64 on a batch of its
+   own train pipeline (forward_test's logits before any step within 1e-3 of
+   their spread from the CPU's float32; one train step: its loss within 1e-3
+   of float64's, each parameter's gradient and update, by relative norm, no
+   further from float64 than 8 times the CPU's own float32 (the parameter's,
+   or the median over the model's where larger), or than 1e-2 where that is
+   less; then the loss at the card's updated weights within 1e-3 of the
+   CPU's at the same weights;
+   ``recognition_card_vs_cpu``), then the training CLI on the file itself (1
+   epoch of 4 steps at its batch, validation where its val pipeline is NCTHW)
+   and one more step profiled; the test CLI on i3d_r50_dense's checkpoint (10
+   dense clips a video, 8 videos); and the refusals by name: i3d_r50_32x2x1 and
+   slowonly_r50_4x16x1_rgb (NTHWC clips) before their first step, the PoseC3D
+   limb config (left_kp) and the video config (VideoDataset). It fails unless
+   every loss is finite and no decayed-InfoNCE or lookup kernel launched; it
+   logs each config's steady ms a step (steps 3-4), data-wait share, the
+   profiled step's device ms and idle share, peak memory, and the test CLI's
+   videos/s;
+14d. recognition_2d: the frame-based recipes (Recognizer2D: TSN, TSM, TIN,
+   TANet, TRN, TSM on MobileNetV2, OmniSource's TSN) and C3D on 14c's sets,
+   each config at its own model, batch, segments, crop and in_channels,
+   float32: for each of the 16 configs the sweep builds in full, its model at
+   full width with dropout 0 on the card against the CPU on one clip of its own
+   train pipeline, held as in 14c (tsn_r101_mmit's forward_test only: its
+   multi-class target is refused), and tsm_r50_1x1x8 and tin_r50 again on the
+   card with the TSM shift or TIN's shift switched off, planted faults that
+   must fail that check; the training CLI on tsn_r50_1x1x3 (with validation),
+   tsm_r50_1x1x8 and tin_r50 (1 epoch: 4, 4 and 5 steps at their batches of 8,
+   8 and 6) and one more step profiled; the test CLI on the TSN checkpoint (9
+   views a video, 8 videos), its metrics in [0, 1]; and the refusals by name:
+   C3D (NTHWC clips) before its first step, the tsn and tsm video configs
+   (VideoDataset), tsn_r18_hvu (HVUDataset), tpn_tsm_r50 (the TPN neck), the
+   OmniSource config (its list of train sets) and tsn_r101_mmit (its
+   multi-class target). It fails unless every loss is finite and no kernel of
+   the port launched; it logs each trained config's steady ms, data-wait share,
+   profiled device ms and idle share and peak memory in a headline record;
 15. pretrain_configs: every config of configs/recognition/moco (MSCL r18,
    the flagship, as a control; MSCL r50; MoCo r18 with MoCoAugmentV2, with
    SyncMoCoAugmentV2 at 'params' and at 'batch'; MoCo r50): its own model
@@ -262,18 +287,21 @@ the result, well inside the 24 KB a caller may keep of it.
 Every kernel launch counter is set to 0 just before each of the paths 7
 (each dtype), 8, 9 (each of its two runs), 10, 10b (in each rank, before
 its steps and before each CLI run), 15 (each config's steps and each CLI
-run), 14b (each extraction run and each vis_flow run), 14c (each CLI run:
-none may launch a kernel), 11-14 (each CLI run; the fine-tune, test and
-retrieval paths must launch no decayed-InfoNCE kernel: r3d_18 goes to
-cuDNN), the probe tool's run in 4 and 16 (each arm's run of the tool, the
-A/B's two runs), 17 (the CLI run), and read just after. The kernel table's
-decayed-InfoNCE launches are the pretrain CLI's (both runs of 9). It needs
-a CUDA device: without one it exits nonzero before printing any result.
+run), 14b (each extraction run and each vis_flow run), 14c and 14d (each
+CLI run: none may launch a kernel), 11-14 (each CLI run; the fine-tune,
+test and retrieval paths must launch no decayed-InfoNCE kernel: r3d_18 goes
+to cuDNN), the probe tool's run in 4 and 16 (each arm's run of the tool,
+the A/B's two runs), 17 (the CLI run), and read just after. The kernel
+table's decayed-InfoNCE launches are the pretrain CLI's (both runs of 9).
+It needs a CUDA device: without one it exits nonzero before printing any
+result.
 """
 from __future__ import annotations
 
 import builtins
+import contextlib
 import hashlib
+import importlib
 import json
 import math
 import os
@@ -442,6 +470,10 @@ ENCODE_ITERS = 50
 # are held in full after the first step and at the narrow width
 # (DP_NARROW) for both steps
 DP_BATCH, DP_STEPS, DP_CLI_ROWS, DP_ULP_MULT = 32, 2, 16, 2.0
+# the CLI at world 2 over the first DP_CLI_STEPS global batches of the
+# pretrain set (cut from 8, to pay for recognition_2d), 1 epoch and a
+# resume to a second; its steady window each epoch's step 3
+DP_CLI_STEPS, DP_CLI_TAIL = 4, 1
 DP_TOL = dict(losses=(2e-4, 2e-4), params=(5e-3, 1e-4), queues=(0, 2e-5),
               ema=(1e-5, 1e-6), bn_stats=(1e-4, 1e-5))
 DP_ILL_CONDITIONED = ('bn_stats', 'params')
@@ -487,6 +519,17 @@ MF_LOSSES = ('loss_circle_mx', 'loss_circle_mx_r', 'loss_circle_mx_aug',
 RC_VIDEOS, RC_FRAMES, RC_HW, RC_VAL = 32, 72, (256, 340), 8
 RC_POSE, RC_POSE_FRAMES, RC_POSE_HW = 64, 100, (56, 56)
 RC_STEPS, RC_CHECK = 4, 2
+# card against CPU (recognition_card_vs_cpu): the card's float32 run
+# against the CPU's float32 and float64 runs. forward_test's logits before
+# any step within RC_LOGIT_TOL of their spread from the CPU's;
+# RC_CHECK_STEPS = 2: a train step, its loss within RC_LOSS_TOL of
+# float64's, each parameter's gradient and update (the norm of the
+# difference over the norm) no further from float64 than RC_F32_MULT
+# times the CPU's float32 (the tests' ULP_MULT), or than RC_GRAD_TOL where
+# that is less; then the loss at the card's updated weights within
+# RC_LOSS_TOL of the CPU's at the same weights
+RC_CHECK_STEPS, RC_LOGIT_TOL, RC_LOSS_TOL, RC_GRAD_TOL, RC_F32_MULT = \
+    2, 1e-3, 1e-3, 1e-2, 8.0
 RECOGNITION_CONFIGS = (   # (label, config, set, validate: val is NCTHW)
     ('i3d_dense', 'configs/recognition/i3d/'
      'i3d_r50_dense_32x2x1_100e_kinetics400_rgb.py', 'rgb', True),
@@ -511,6 +554,57 @@ RC_REFUSED = (('configs/skeleton/posec3d/'
               ('configs/recognition/i3d/'
                'i3d_r50_video_32x2x1_100e_kinetics400_rgb.py', 'VideoDataset',
                'rgb'))
+# recognition_2d: the frame-based recipes and C3D on recognition_configs'
+# sets. Card against CPU for each config the sweep builds in full
+# (tests/test_torch_configs.py), its own model at full width with dropout
+# 0 (the card's masks are not the CPU's; TRN's subsets drawn alike on
+# both), held as recognition_configs holds its models on RC2D_CHECK clips
+# of its own train pipeline (C3D's formatted NCTHW, as the port's
+# Recognizer3D reads clips); the training CLI on RC2D_TRAIN (RC_STEPS steps
+# at each config's batch); the test CLI on the first's checkpoint; the
+# refusals by name
+# (the first step of a config refused by the model; the rest before it)
+RC2D = 'configs/recognition/'
+RC2D_CHECK = 1
+RC2D_CONFIGS = (   # (label, config, set)
+    ('tsn_r50_1x1x3', 'tsn/tsn_r50_1x1x3_100e_kinetics400_rgb.py', 'rgb'),
+    ('tsn_r50_1x1x3_flow', 'tsn/tsn_r50_1x1x3_110e_kinetics400_flow.py',
+     'flow'),
+    ('tsn_r50_ucf101', 'tsn/tsn_r50_1x1x3_75e_ucf101_rgb.py', 'rgb'),
+    ('tsn_r50_1x1x8', 'tsn/tsn_r50_1x1x8_100e_kinetics400_rgb.py', 'rgb'),
+    ('tsn_r50_sthv1', 'tsn/tsn_r50_1x1x8_50e_sthv1_rgb.py', 'rgb'),
+    ('tsn_r101_mmit', 'tsn/tsn_r101_1x1x5_50e_mmit_rgb.py', 'rgb'),
+    ('tsm_r50_1x1x16', 'tsm/tsm_r50_1x1x16_50e_kinetics400_rgb.py', 'rgb'),
+    ('tsm_r50_1x1x8', 'tsm/tsm_r50_1x1x8_50e_kinetics400_rgb.py', 'rgb'),
+    ('tsm_r50_sthv2', 'tsm/tsm_r50_1x1x8_50e_sthv2_rgb.py', 'rgb'),
+    ('tsm_r50_dense', 'tsm/tsm_r50_dense_1x1x8_100e_kinetics400_rgb.py',
+     'rgb'),
+    ('tin_r50', 'tin/tin_r50_1x1x8_40e_sthv1_rgb.py', 'rgb'),
+    ('tanet_r50', 'tanet/tanet_r50_1x1x8_100e_kinetics400_rgb.py', 'rgb'),
+    ('tsm_mobilenetv2', 'mobilenet_v2/tsm_mobilenetv2_1x1x8_50e_'
+     'kinetics400_rgb.py', 'rgb'),
+    ('trn_r50', 'trn/trn_r50_1x1x8_50e_sthv1_rgb.py', 'rgb'),
+    ('c3d', 'c3d/c3d_sports1m_16x1x1_45e_ucf101_rgb.py', 'rgb'),
+    ('omnisource_tsn_r50', 'omnisource/tsn_r50_1x1x8_100e_minikinetics_'
+     'rgb.py', 'rgb'))
+# the planted-fault controls: a config again on the card with its shift
+# switched off (module, function made the identity on its input); its
+# card-vs-CPU check must fail
+RC2D_FAULTS = {'tsm_r50_1x1x8': ('resnet2d', 'temporal_shift'),
+               'tin_r50': ('resnet_tin', 'tin_shift')}
+RC2D_TRAIN = (   # (label, validate)
+    ('tsn_r50_1x1x3', True), ('tsm_r50_1x1x8', False), ('tin_r50', False))
+RC2D_NTHWC = (RC2D + 'c3d/c3d_sports1m_16x1x1_45e_ucf101_rgb.py',)
+RC2D_REFUSED = (
+    (RC2D + 'tsn/tsn_r50_video_1x1x8_100e_kinetics400_rgb.py',
+     'VideoDataset', 'rgb'),
+    (RC2D + 'tsm/tsm_r50_video_1x1x8_50e_kinetics400_rgb.py', 'VideoDataset',
+     'rgb'),
+    (RC2D + 'tsn/tsn_r18_1x1x8_100e_hvu_action_rgb.py', 'HVUDataset', 'rgb'),
+    (RC2D + 'tpn/tpn_tsm_r50_1x1x8_150e_sthv1_rgb.py', 'TPN', 'rgb'),
+    (RC2D + 'omnisource/tsn_r50_1x1x8_100e_minikinetics_rgb.py',
+     'OmniSource', None),
+    (RC2D + 'tsn/tsn_r101_1x1x5_50e_mmit_rgb.py', 'multi_class', 'rgb'))
 ABL_JSON_KEYS = {'arm', 'scale', 'seed', 'steps', 'batch', 'K', 'hw', 'T',
                  'n_videos', 'platform', 'init', 'final', 'losses'}
 
@@ -2175,10 +2269,10 @@ def phase_pretrain_dp(root, pkls):
     steps; every rank's state the same bitwise; (c) the full-width steps
     at world 1 under NCCL, the launcher's path; (b) the training CLI
     through its launcher with ``--num-devices 2`` (two gloo ranks on the
-    card, a global batch of 32) for 1 epoch of 8 steps, then a resume to a
-    second: one loss on both ranks every step, files from rank 0 only, the
-    state loaded at resume equal to the state saved, bitwise, on both
-    ranks."""
+    card, a global batch of 32) for 1 epoch of DP_CLI_STEPS steps, then a
+    resume to a second: one loss on both ranks every step, files from rank
+    0 only, the state loaded at resume equal to the state saved, bitwise,
+    on both ranks."""
     t_phase = time.perf_counter()
     train_pkl, val_pkl = pkls
     batch_path = osp.join(root, 'dp_batch.pkl')
@@ -2214,9 +2308,14 @@ def phase_pretrain_dp(root, pkls):
     t0 = time.perf_counter()
     work = osp.join(root, 'work_dp')
     opts = [f'data.videos_per_gpu={DP_CLI_ROWS}']
+    cli_pkl = osp.join(root, 'dp_cli_train.pkl')
+    with open(train_pkl, 'rb') as f:
+        annos = pickle.load(f)
+    with open(cli_pkl, 'wb') as f:
+        pickle.dump(annos[:DP_CLI_STEPS * DP_BATCH], f)
     cli_runs = []
     for epochs, resume in ((1, None), (2, osp.join(work, 'epoch_1.pth'))):
-        argv = pretrain_argv(train_pkl, val_pkl, work, epochs, resume,
+        argv = pretrain_argv(cli_pkl, val_pkl, work, epochs, resume,
                              options=opts) + ['--num-devices', '2']
         # local rank 0's value: every rank's, gathered in rank order
         cli_runs.append(launch.run(dp_cli_rank, train_cli.parse_args(argv),
@@ -2224,7 +2323,7 @@ def phase_pretrain_dp(root, pkls):
     first, second = cli_runs
     cli_s = time.perf_counter() - t0
     per_epoch, bs = first[0]['per_epoch'], first[0]['batch']
-    if (per_epoch, bs) != (CLI_VIDEOS * CLI_REPEAT // DP_BATCH, DP_BATCH):
+    if (per_epoch, bs) != (DP_CLI_STEPS, DP_BATCH):
         raise AssertionError(f'{per_epoch} steps an epoch of {bs}')
     problems = []
     for run, epochs, runs in ((1, 1, first), (2, 2, second)):
@@ -2261,7 +2360,7 @@ def phase_pretrain_dp(root, pkls):
         raise AssertionError(f'pretrain_dp CLI: {problems[:10]}')
     train = [r for r in first[0]['records'] + second[0]['records']
              if r['mode'] == 'train']
-    window = steady_window(train, per_epoch, CLI_TAIL)
+    window = steady_window(train, per_epoch, DP_CLI_TAIL)
     log(phase='pretrain_dp_cli', world=2, backend='gloo',
         rows_a_rank=DP_CLI_ROWS, batch=bs, steps_per_epoch=per_epoch,
         train_steps=len(train), steady_step_s=window['steady_step_s'],
@@ -3339,50 +3438,184 @@ def narrow_recognizer(model_cfg):
     return cfg
 
 
-def recognition_card_vs_cpu(cfg, sets, kind):
-    """Two train steps and forward_test of a config's narrowed model on the
-    card and on the CPU from the same weights, on one batch of RC_CHECK
-    clips from the config's own train pipeline."""
+def _recognition_run(model_cfg, cfg, batch, dev, steps, fault=None,
+                     dtype=torch.float32, logits=True, at=None):
+    """forward_test's logits (eval mode, before any step; with
+    ``logits``), then with ``steps`` >= 1 one train step: its loss, each
+    parameter's gradient and update (the weights after it less those
+    before, as ``state``), in ``dtype`` (float32 without TF32, as the
+    port's train_model runs); with ``steps`` 2 the loss in train mode (no
+    backward, no update) at the weights after the step, or at ``at`` (a
+    state dict) where given. Under ``fault`` (a context manager, or None)
+    the whole run."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = build_model_from_cfg(dict(model_cfg, dtype=dtype), device=dev,
+                                 seed=1).to(dtype)
+    model.test_cfg['average_clips'] = None          # logits, not softmaxes
+    head = model.cls_head
+    if hasattr(head, 'relation_picks'):
+        # TRN's subsets in training from one CPU stream on both devices
+        gen = torch.Generator().manual_seed(3)
+        head.relation_picks = lambda n, k, device: (
+            torch.randperm(n, generator=gen)[:k] if head.training and n > k
+            else torch.arange(k)).to(device)
+    on_dev = to_torch(batch, dev)
+    on_dev['imgs'] = on_dev['imgs'].to(dtype)
+    opt = build_optimizer(
+        model, cfg.optimizer.to_dict(),
+        build_lr_schedule({}, cfg.optimizer['lr'], 1, 2),
+        grad_clip=(cfg.get('optimizer_config') or {}).get('grad_clip'))
+    out = dict(losses=[], grads={}, updates={})
+    with fault or contextlib.nullcontext():
+        if logits:
+            model.eval()
+            with torch.no_grad():
+                out['logits'] = model.forward_test(on_dev['imgs']).cpu() \
+                    .double()
+        if steps:
+            before = {n: q.detach().clone()
+                      for n, q in model.named_parameters()}
+            out['losses'].append(
+                make_train_step(model, opt)(on_dev)['loss'].item())
+            for n, q in model.named_parameters():
+                if q.grad is not None:
+                    out['grads'][n] = q.grad.cpu().double()
+                    out['updates'][n] = (q.detach() - before[n]).cpu() \
+                        .double()
+            out['state'] = {k: v.cpu() for k, v in model.state_dict().items()}
+        if steps > 1:
+            if at is not None:
+                model.load_state_dict(at)
+            out['losses'].append(make_train_step(model, update=False)(
+                on_dev)['loss'].item())
+    return out
+
+
+def _rel_errors(got, ref):
+    """Each parameter's tensor in ``got`` (a dict by name): the norm of its
+    gap from ``ref``'s over the norm of ``ref``'s."""
+    return {n: ((got[n] - r).norm() / r.norm()).item() if r.norm() > 0
+            else (0.0 if got[n].norm() == 0 else math.inf)
+            for n, r in ref.items() if n in got}
+
+
+def _leaf_shares(card, cpu, ref, key):
+    """Each parameter's ``key`` tensor (gradient or update): the card's
+    gap from float64 (``_rel_errors``) as a share of what it may be:
+    RC_F32_MULT times the CPU's float32 gap, that of the parameter or the
+    median over the model's parameters where that is larger (a parameter
+    of one or two numbers can land near float64 by chance in one
+    rounding), and at least RC_GRAD_TOL. Returns (shares, card's gaps,
+    CPU's gaps)."""
+    card_rel, cpu_rel = _rel_errors(card[key], ref[key]), \
+        _rel_errors(cpu[key], ref[key])
+    rels = sorted(cpu_rel.values())
+    typical = rels[len(rels) // 2] if rels else 0.0
+    return {n: e / max(RC_GRAD_TOL, RC_F32_MULT * max(cpu_rel[n], typical))
+            for n, e in card_rel.items()}, card_rel, cpu_rel
+
+
+def _recognition_errors(card, cpu, ref):
+    """The card's float32 run against the CPU's float32 run ``cpu`` and
+    float64 run ``ref``: the logits' largest gap from the CPU's as a share
+    of their spread (max - min); the losses' largest gap, the step's from
+    ref's and the second from the CPU's at the card's updated weights, as
+    a share of RC_LOSS_TOL; each gradient's and update's as
+    ``_leaf_shares`` bounds it, the largest of each."""
+    spread = (cpu['logits'].max() - cpu['logits'].min()).item()
+    loss_diff = max((abs(a - r) for a, r in
+                     list(zip(card['losses'][:1], ref['losses'])) +
+                     list(zip(card['losses'][1:], cpu['losses'][1:]))),
+                    default=None)
+    share, card_rel, cpu_rel = _leaf_shares(card, cpu, ref, 'grads')
+    upd_share = _leaf_shares(card, cpu, ref, 'updates')[0]
+    worst = max(share, key=share.get, default=None)
+    upd_worst = max(upd_share, key=upd_share.get, default=None)
+    rels = sorted(card_rel.values())
+    return dict(
+        logit_share=(card['logits'] - cpu['logits']).abs().max().item() /
+        spread,
+        logit_spread=spread, loss_diff=loss_diff,
+        loss_share=None if loss_diff is None else loss_diff / RC_LOSS_TOL,
+        grad_share=share.get(worst), grad_worst=worst,
+        grad_rel=card_rel.get(worst), cpu_grad_rel=cpu_rel.get(worst),
+        grad_rel_median=rels[len(rels) // 2] if rels else None,
+        grads_held=len(share),
+        update_share=upd_share.get(upd_worst), update_worst=upd_worst,
+        same_leaves=sorted(card['grads']) == sorted(ref['grads']))
+
+
+def _recognition_held(err):
+    return err['logit_share'] <= RC_LOGIT_TOL and err['same_leaves'] and \
+        all(err[k] is None or err[k] <= 1
+            for k in ('loss_share', 'grad_share', 'update_share'))
+
+
+def recognition_card_vs_cpu(cfg, sets, kind, model_cfg, clips, steps,
+                            fault=None):
+    """A config's model (``model_cfg``) on the card in float32 and on the
+    CPU in float32 and float64 from the same weights, on one batch of
+    ``clips`` clips from the config's own train pipeline
+    (``_recognition_batch``): forward_test's logits before any step, then
+    ``steps`` (0 or RC_CHECK_STEPS) as ``_recognition_run`` takes them,
+    the CPU's second loss at the card's updated weights; the float64 run
+    to the first step alone; all held as ``_recognition_errors`` measures
+    and RC_CHECK_STEPS' note bounds. At full width one clip's first
+    gradients are ill-conditioned: the CPU's own float32 lies percents
+    from its float64 (cpu_grad_rel), and so does the loss after an update
+    made with them. So the gradients and updates are held against float64
+    with an allowance of the CPU's float32 gap, and the second loss at one
+    set of weights. The logits and the second loss, well-conditioned, are
+    held against the CPU's float32 (its gap from float64, about 1e-6,
+    lies far under their bounds). With ``fault`` (a context manager that
+    breaks the model: the planted-fault control) the card's run, to its
+    first step, is made again under it and must fail."""
+    batch = _recognition_batch(cfg, sets, kind, clips)
+    card = _recognition_run(model_cfg, cfg, batch, 'cuda', steps)
+    cpu = _recognition_run(model_cfg, cfg, batch, 'cpu', steps,
+                           at=card.get('state'))
+    ref = _recognition_run(model_cfg, cfg, batch, 'cpu', min(steps, 1),
+                           dtype=torch.float64, logits=False)
+    err = _recognition_errors(card, cpu, ref)
+    if not _recognition_held(err):
+        raise AssertionError(f'{cfg.filename}: card vs CPU: {err}')
+    out = dict(imgs=list(batch['imgs'].shape), **err)
+    if fault is not None:
+        out['fault'] = _recognition_errors(_recognition_run(
+            model_cfg, cfg, batch, 'cuda', min(steps, 1), fault), cpu, ref)
+        if _recognition_held(out['fault']):
+            raise AssertionError(f'the planted fault passed: {out}')
+    return out
+
+
+def _recognition_batch(cfg, sets, kind, clips):
+    """One batch of ``clips`` clips from the config's own train pipeline
+    over the phase's set (the first set of a list; NTHWC clips formatted
+    NCTHW)."""
     from mscl_torch.datasets import build_dataset
     from mscl_torch.datasets.loader import default_collate
     prefix, train, _ = sets[kind]
-    ds_cfg = cfg.data.train.to_dict()
+    ds_cfg = cfg.data.train
+    ds_cfg = (ds_cfg[0] if isinstance(ds_cfg, list) else ds_cfg).to_dict()
     ds_cfg['ann_file'] = train
     if prefix:
         ds_cfg['data_prefix'] = prefix
+    for step_cfg in ds_cfg['pipeline']:
+        if step_cfg.get('input_format') == 'NTHWC':
+            step_cfg['input_format'] = 'NCTHW'
     random.seed(0)
     np.random.seed(0)
     dataset = build_dataset(ds_cfg)
-    batch = default_collate([dataset[i] for i in range(RC_CHECK)])
-    model_cfg = narrow_recognizer(cfg.model.to_dict())
-    losses, scores = {}, {}
-    for dev in ('cpu', 'cuda'):
-        model = build_model_from_cfg(model_cfg, device=dev, seed=1)
-        opt = build_optimizer(
-            model, cfg.optimizer.to_dict(),
-            build_lr_schedule({}, cfg.optimizer['lr'], 1, 2),
-            grad_clip=cfg.optimizer_config['grad_clip'])
-        step = make_train_step(model, opt)
-        on_dev = to_torch(batch, dev)
-        losses[dev] = [step(on_dev)['loss'].item() for _ in range(2)]
-        model.eval()
-        with torch.no_grad():
-            scores[dev] = model.forward_test(on_dev['imgs']).cpu()
-    torch.testing.assert_close(torch.tensor(losses['cuda']),
-                               torch.tensor(losses['cpu']), **STEP_TOL)
-    torch.testing.assert_close(scores['cuda'], scores['cpu'], **STEP_TOL)
-    return dict(
-        imgs=list(batch['imgs'].shape),
-        loss_diff=max(abs(a - b) for a, b in zip(losses['cuda'],
-                                                 losses['cpu'])),
-        score_diff=(scores['cuda'] - scores['cpu']).abs().max().item())
+    return default_collate([dataset[i] for i in range(clips)])
 
 
 def recognition_train(cfg_path, sets, kind, validate, work):
-    """The training CLI on a config file over the phase's set: 1 epoch of
-    RC_STEPS steps at the config's batch (validation where asked), then
-    one more step profiled. Fails unless every loss is finite and neither
-    decayed InfoNCE nor the lookup launched."""
+    """The training CLI on a config file over the phase's set: 1 epoch at
+    the config's batch (RC_STEPS steps at a batch of 8; TIN's 6 takes 5),
+    validation where asked, then one more step profiled. Fails unless
+    every loss is finite and neither decayed InfoNCE nor the lookup
+    launched."""
     argv = [cfg_path, '--seed', '0', '--cfg-options',
             *recognition_options(sets, kind, work)]
     if validate:
@@ -3397,8 +3630,9 @@ def recognition_train(cfg_path, sets, kind, validate, work):
     records = read_log(work)
     train = [r for r in records if r['mode'] == 'train']
     val = [r for r in records if r['mode'] == 'val']
-    if len(train) != RC_STEPS or len(val) != int(validate) or not all(
-            math.isfinite(r['loss']) for r in train):
+    if len(train) != len(runner.train_loader) or len(train) < RC_STEPS or \
+            len(val) != int(validate) or not all(
+                math.isfinite(r['loss']) for r in train):
         raise AssertionError(f'{cfg_path}: {len(train)} train lines, '
                              f'{len(val)} val lines, losses '
                              f'{[r["loss"] for r in train]}')
@@ -3427,12 +3661,13 @@ def recognition_train(cfg_path, sets, kind, validate, work):
     return row
 
 
-def recognition_refusals(sets, root):
+def recognition_refusals(sets, root, nthwc=RC_NTHWC, refused=RC_REFUSED):
     """The configs the port refuses by name: the NTHWC ones stop before
-    their first step with Recognizer3D's message; the PoseC3D limb config
-    names left_kp; the video config names its video reader."""
+    their first step with Recognizer3D's message; each of ``refused``
+    names its word (the PoseC3D limb config left_kp, a video config its
+    video reader)."""
     out = {}
-    for name in RC_NTHWC:
+    for name in nthwc:
         work = osp.join(root, 'refused_' + name.split('/')[-1])
         try:
             cli_run(train_cli.main, [name, '--seed', '0', '--cfg-options',
@@ -3447,12 +3682,14 @@ def recognition_refusals(sets, root):
         logged = osp.join(work, 'log.json')
         if osp.exists(logged) and open(logged).read().strip():
             raise AssertionError(f'{name} logged a step before refusing')
-    for name, word, kind in RC_REFUSED:
+    for name, word, kind in refused:
+        work = osp.join(root, 'x')
+        # kind None: no set (an option on data.train would replace a list)
+        options = recognition_options(sets, kind, work) if kind else \
+            [f'work_dir={work}']
         try:
-            cli_run(train_cli.main, [name, '--cfg-options',
-                                     *recognition_options(
-                                         sets, kind, osp.join(root, 'x'))])
-        except (TypeError, NotImplementedError) as e:
+            cli_run(train_cli.main, [name, '--cfg-options', *options])
+        except (TypeError, NotImplementedError, KeyError) as e:
             if word not in str(e):
                 raise
             out[name] = str(e)[:60]
@@ -3475,7 +3712,9 @@ def phase_recognition_configs(root):
     rows = {}
     for name, cfg_path, kind, validate in RECOGNITION_CONFIGS:
         cfg = Config.fromfile(cfg_path)
-        check = recognition_card_vs_cpu(cfg, sets, kind)
+        check = recognition_card_vs_cpu(
+            cfg, sets, kind, narrow_recognizer(cfg.model.to_dict()),
+            RC_CHECK, RC_CHECK_STEPS)
         rows[name] = dict(card_vs_cpu=check, **recognition_train(
             cfg_path, sets, kind, validate, osp.join(root, name)))
         log(phase='recognition_config', config=cfg_path, **rows[name])
@@ -3503,8 +3742,8 @@ def phase_recognition_configs(root):
             f'the configs have no PoseCompact/Resize, so heatmaps come out '
             f'at img_shape')
     log(phase='recognition_configs', headline=dict(
-        checks='card_vs_cpu 1e-3, finite losses, 0 kernel launches, '
-               'test metrics, 4 refusals',
+        checks='card_vs_cpu against float64, finite losses, 0 kernel '
+               'launches, test metrics, 4 refusals',
         seconds=round(seconds, 1), test_videos_per_s=round(
             test['videos_per_s'], 2),
         configs={k: [round(r['steady_ms'], 1),
@@ -3512,6 +3751,102 @@ def phase_recognition_configs(root):
                           round(r['device_ms'], 1),
                           round(r['idle_share'], 3),
                           round(r['peak_bytes'] / 2 ** 30, 2)]
+                 for k, r in rows.items()},
+        keys='steady_ms, data_wait_share, device_ms, idle_share, '
+             'peak_GiB'))
+    return root, sets
+
+
+def full_width_check_cfg(model_cfg):
+    """A config's own model, dropout 0 (the card's masks are not the
+    CPU's)."""
+    cfg = json.loads(json.dumps(model_cfg))
+    cfg['cls_head']['dropout_ratio'] = 0.0
+    return cfg
+
+
+def phase_recognition_2d(root, sets):
+    """The frame-based recipes (TSN, TSM, TIN, TANet, TRN, MobileNetV2-TSM,
+    OmniSource's TSN) and C3D on recognition_configs' sets: card against
+    CPU for every config of RC2D_CONFIGS, the training CLI on RC2D_TRAIN,
+    the test CLI on the first one's checkpoint, and the refusals. Each
+    config runs its own model, batch, segments, crop and in_channels,
+    float32; none launches a kernel of the port."""
+    from unittest import mock
+    from mscl_torch.apis import inference
+    t_phase = time.perf_counter()
+    root = osp.join(root, 'recognition_2d')
+    os.makedirs(root)
+    paths = {label: RC2D + path for label, path, _ in RC2D_CONFIGS}
+    kinds = {label: kind for label, _, kind in RC2D_CONFIGS}
+    checks = {}
+    t0 = time.perf_counter()
+    for label, path in paths.items():
+        cfg = Config.fromfile(path)
+        fault = mock.patch.object(
+            importlib.import_module('mscl_torch.models.backbones.' +
+                                    RC2D_FAULTS[label][0]),
+            RC2D_FAULTS[label][1], lambda x, *_: x) \
+            if label in RC2D_FAULTS else None
+        # tsn_r101_mmit's multi-class target is refused in training, as
+        # the JAX Recognizer2D fails on it (ROADMAP.md Queue 3): no steps
+        checks[label] = recognition_card_vs_cpu(
+            cfg, sets, kinds[label],
+            full_width_check_cfg(cfg.model.to_dict()), RC2D_CHECK,
+            0 if label == 'tsn_r101_mmit' else RC_CHECK_STEPS, fault)
+        log(phase='recognition_2d_card_vs_cpu', config=path,
+            **checks[label])
+        torch.cuda.empty_cache()
+    check_s = time.perf_counter() - t0
+    rows = {}
+    for label, validate in RC2D_TRAIN:
+        rows[label] = recognition_train(paths[label], sets, kinds[label],
+                                        validate, osp.join(root, label))
+        log(phase='recognition_2d_config', config=paths[label],
+            **rows[label])
+    label = RC2D_TRAIN[0][0]
+    work = osp.join(root, label)
+    loop_s, restore = timed_calls(inference, 'run_test')
+    try:
+        metrics, launches, test_s = cli_run(test_cli.main, [
+            paths[label], osp.join(work, 'epoch_1.pth'), '--out',
+            osp.join(work, 'test.json'), '--cfg-options',
+            *recognition_options(sets, kinds[label], work)])
+    finally:
+        restore()
+    if any(launches.values()) or not all(0 <= v <= 1
+                                         for v in metrics.values()):
+        raise AssertionError(f'test CLI: {metrics}, {launches}')
+    refusals = recognition_refusals(sets, root, RC2D_NTHWC, RC2D_REFUSED)
+    seconds = time.perf_counter() - t_phase
+    # the TSN test pipeline: 3 clips of 1 frame, ThreeCrop: 9 views a video
+    test = dict(videos=RC_VAL, views_a_video=9, metrics=metrics,
+                videos_per_s=RC_VAL / test_s,
+                loop_videos_per_s=RC_VAL / sum(loop_s))
+    worst = {key: max(checks, key=lambda k: checks[k][key] or 0)
+             for key in ('logit_share', 'loss_share', 'grad_share',
+                         'update_share')}
+    log(phase='recognition_2d', test_cli=test, refusals=refusals,
+        card_vs_cpu_s=check_s, seconds=seconds)
+    log(phase='recognition_2d', headline=dict(
+        checks=f'card_vs_cpu ({len(checks)} configs at full width: logits, '
+               f'losses, gradients, updates against float64; the planted '
+               f'faults '
+               f'failed it), finite '
+               f'losses, 0 kernel launches, test metrics, '
+               f'{len(refusals)} refusals',
+        seconds=round(seconds, 1), card_vs_cpu_s=round(check_s, 1),
+        worst_card_vs_cpu={key: [k, _short(checks[k][key])]
+                           for key, k in worst.items()},
+        faults={label: {key: _short(v) for key, v in
+                        checks[label]['fault'].items()}
+                for label in RC2D_FAULTS},
+        test_videos_per_s=round(test['videos_per_s'], 2),
+        configs={k: [round(r['steady_ms'], 1),
+                     round(r['data_wait_share'], 3),
+                     round(r['device_ms'], 1),
+                     round(r['idle_share'], 3),
+                     round(r['peak_bytes'] / 2 ** 30, 2)]
                  for k, r in rows.items()},
         keys='steady_ms, data_wait_share, device_ms, idle_share, '
              'peak_GiB'))
@@ -4251,7 +4586,9 @@ def run_phases(out):
             pretrain_ckpt)
         run('readme_jpeg', phase_readme_jpeg, root)
         run('flow_tooling', phase_flow_tooling, root)
-        run('recognition_configs', phase_recognition_configs, root)
+        rc_root, rc_sets = run('recognition_configs',
+                               phase_recognition_configs, root)
+        run('recognition_2d', phase_recognition_2d, rc_root, rc_sets)
         run('pretrain_configs', phase_pretrain_configs, dev, root, pkls)
         run('ablation_arms', phase_ablation_arms, dev, root)
         run('mscl_family', phase_mscl_family, dev, root, pkls, ft_pkls,

@@ -99,13 +99,22 @@ def train_model(cfg, validate: bool = True, resume_from: Optional[str] = None,
     None), which also seeds the epoch order and the device aug's and the
     head's dropout generators; then ``model.train_cfg.ssl_pretrain``, if
     set, loads its backbone. The loaders' decode processes are stopped
-    when the run ends. In a process group the world is the group's, and
+    when the run ends. A list of train sets (OmniSource) is refused before
+    anything is built. In a process group the world is the group's, and
     'cuda' is the rank's card (the current device ``init_distributed``
     set).
     """
     device = resolve_device(device)
     world, rank = dist.world_size(), dist.rank()
     data = cfg.data
+    if isinstance(data['train'], (list, tuple)):
+        # the JAX train_model builds data.train with dict(), which fails on
+        # a list of sources, and nothing there picks OmniSourceRunner
+        raise NotImplementedError(
+            f'data.train is a list of {len(data["train"])} sources (an '
+            f'OmniSource config): train_model takes one train set, as '
+            f'mscl_tpu.apis.train_model does, whose dict() of the list '
+            f'fails; OmniSourceRunner is the runner such a list needs')
     simple_eval = (cfg.get('evaluation') or {}).get('simple', False)
     train_dataset = build_dataset(_plain(data['train']))
     train_loader = build_dataloader(

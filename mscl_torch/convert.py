@@ -14,9 +14,12 @@ time:
                           they keep mmaction's names
   ``conv2_conv`` / ``conv2_bn`` -> ``conv2.conv`` / ``conv2.bn`` (ResNet3d's
                           Bottleneck3d names its conv2 pair bare)
-  params ``kernel``    -> ``weight``: conv (T,H,W,Cin,Cout) ->
-                          (Cout,Cin,T,H,W),
-                          Dense (in,out) -> (out,in)
+  params ``kernel``    -> ``weight``: conv3d (T,H,W,Cin,Cout) ->
+                          (Cout,Cin,T,H,W), conv2d (H,W,Cin,Cout) ->
+                          (Cout,Cin,H,W), conv1d (K,Cin,Cout) ->
+                          (Cout,Cin,K) (a grouped conv's Cin is its
+                          group's, as torch lays it), Dense (in,out) ->
+                          (out,in)
   params ``scale``     -> ``weight``;  ``bias`` -> ``bias``
   batch_stats ``mean`` / ``var`` -> ``running_mean`` / ``running_var``
   moco_state ``queue``, ``count``, ``queue_ptr``, ``iters`` as they are
@@ -30,6 +33,17 @@ cover them: the alignment heads' Dense projections ``trans_rgb``,
 torch's grouped layout); SEPC's integrated BN ``sepc/pconv3d_{j}/ibn``;
 TPNProjMoCo's convs ``proj{i}_0`` / ``proj{i}_1``; the reid heads' raw
 ``fc_cls_kernel`` (in, classes) and ``fc_cls_bias``, kept as they are.
+
+So do the frame-based recognizers: the 2D ResNets' ``ConvBN2d`` keeps
+mmaction's ``conv`` / ``bn`` (``layer{i}.{j}.conv1.conv``), a non-local
+block ``layer{i}_{j}_nonlocal`` (``g``, ``theta``, ``phi``, ``conv_out``,
+``bn_out``) keeps its name; MobileNetV2's ``expand`` / ``depthwise``
+(``conv``, ``bn``) and ``project`` / ``project_bn``, the depthwise kernel
+(3,3,1,C) -> (C,1,3,3); TIN's ``tin/offset_net`` (``conv`` (3,C,1) ->
+(1,C,3), ``fc1``, ``fc2``) and ``tin/weight_net/conv``; TANet's
+``tam`` (``g_fc1``, ``g_bn``, ``g_fc2``, ``l_conv1``, ``l_bn``,
+``l_conv2``); C3D's ``conv1a`` .. ``conv5b`` (with biases); the TRN head's
+``fc_cls``, ``scale{k}_fc1`` / ``_fc2`` and ``fusion_fc1`` / ``_fc2``.
 
 Leaves are read with ``np.asarray``, so JAX arrays work without importing
 JAX here. RAFT has its own mapping onto the official RAFT names:
@@ -49,6 +63,13 @@ _LEAF = {'params': {'kernel': 'weight', 'scale': 'weight', 'bias': 'bias',
                     'fc_cls_kernel': 'fc_cls_kernel',
                     'fc_cls_bias': 'fc_cls_bias'},
          'batch_stats': {'mean': 'running_mean', 'var': 'running_var'}}
+
+
+# a flax kernel's axes in torch's order: conv3d (T,H,W,Cin,Cout), conv2d
+# (H,W,Cin,Cout), conv1d (K,Cin,Cout) -> (Cout,Cin,...); Dense (in,out) ->
+# (out,in). A grouped conv's Cin is the group's, in both.
+_KERNEL_AXES = {5: (4, 3, 0, 1, 2), 4: (3, 2, 0, 1), 3: (2, 1, 0),
+                2: (1, 0)}
 
 
 def _segment(seg: str, convbn: bool = False) -> str:
@@ -72,8 +93,7 @@ def _leaf(collection: str, name: str, value: np.ndarray):
     if name not in _LEAF[collection]:
         raise KeyError(f'unknown {collection} leaf {name!r}')
     if name == 'kernel':
-        value = np.transpose(value, (4, 3, 0, 1, 2) if value.ndim == 5
-                             else (1, 0))
+        value = np.transpose(value, _KERNEL_AXES[value.ndim])
     return _LEAF[collection][name], value
 
 

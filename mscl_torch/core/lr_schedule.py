@@ -1,9 +1,11 @@
 """LR schedules with mmcv LrUpdaterHook semantics.
 
-Port of ``mscl_tpu/core/lr_schedule.py`` for the 'fixed', 'step' and
-'CosineAnnealing' policies with optional linear/constant/exp warmup
-(``warmup_by_epoch`` converts warmup_iters from epochs). Warmup applies only
-when the ``warmup`` key is set, as in the JAX package. Returns a
+Port of ``mscl_tpu/core/lr_schedule.py``: the 'fixed', 'step',
+'CosineAnnealing' and 'TIN' policies with optional linear/constant/exp
+warmup (``warmup_by_epoch`` converts warmup_iters from epochs). 'TIN' (the
+TIN recipe's updater) anneals over the progress past the warmup, and its
+linear warmup is its own: lr x (frac (1 - ratio) + ratio). Warmup applies
+only when the ``warmup`` key is set, as in the JAX package. Returns a
 step -> lr function of python floats.
 """
 from __future__ import annotations
@@ -48,6 +50,33 @@ def build_lr_schedule(lr_config: Dict, base_lr: float, total_epochs: int,
             frac = min(max(progress / max_progress, 0.0), 1.0)
             return min_lr + (base_lr - min_lr) * 0.5 * (
                 math.cos(math.pi * frac) + 1.0)
+    elif policy == 'TIN':
+        # the TIN recipe's updater: cosine to min_lr over the progress past
+        # the warmup, and its own linear warmup k = frac (1 - ratio) + ratio
+        min_lr = cfg.get('min_lr', 0.0)
+        max_progress = total_epochs if by_epoch else \
+            total_epochs * steps_per_epoch
+        w_prog = 0.0
+        if warmup is not None:
+            w_prog = warmup_iters / steps_per_epoch if by_epoch \
+                else warmup_iters
+
+        def regular(step):
+            progress = step / steps_per_epoch if by_epoch else step
+            span = max(max_progress - w_prog, 1e-8) if warmup is not None \
+                else max_progress
+            frac = min(max((progress - w_prog) / span, 0.0), 1.0)
+            return min_lr + (base_lr - min_lr) * 0.5 * (
+                math.cos(math.pi * frac) + 1.0)
+
+        if warmup == 'linear':
+            def tin_warmup(step):
+                reg = regular(step)
+                if step >= warmup_iters:
+                    return reg
+                frac = min(max(step / max(warmup_iters, 1), 0.0), 1.0)
+                return reg * (frac * (1 - warmup_ratio) + warmup_ratio)
+            return tin_warmup
     else:
         raise NotImplementedError(f'lr policy {policy}')
 

@@ -232,6 +232,7 @@ class Runner:
                                   iter=i + 1, total_iters=n_batches, lr=lr,
                                   time=time.time() - t_end,
                                   data_time=data_time, **log_vars))
+                self.after_step(i)
                 signum = self._preempt_signum
                 if dist.is_distributed():   # every rank stops together
                     signum = dist.all_reduce_max(signum or 0,
@@ -253,6 +254,9 @@ class Runner:
                 t_end = time.time()
         finally:
             it.close()  # stop the prefetch producer on an early exit
+
+    def after_step(self, i: int) -> None:
+        """Runs after the epoch's step i (0-based) and its log line."""
 
     def validate(self) -> None:
         """Validation by loss (``evaluation.simple``: the mean of each loss
@@ -297,3 +301,52 @@ class Runner:
                     prefix=f'best_{self.save_best}_'.replace('/', '_'))
                 self.log(dict(mode='val', epoch=self.epoch, best_score=score,
                               best_ckpt=self.best_ckpt_path))
+
+
+class OmniSourceRunner(Runner):
+    """The multi-source runner (the JAX package's ``OmniSourceRunner``,
+    reference core/runner/omnisource_runner.py): the main loader sets the
+    epoch; every ``train_ratio[0]``-th main step (counted over the run) is
+    followed by ``train_ratio[1 + k]`` optimizer steps on auxiliary loader
+    k, each cycled without end, their values logged as ``{key}/aux{k}``
+    on the main step's log interval."""
+
+    def __init__(self, *args, aux_loaders=(), train_ratio=None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.aux_loaders = list(aux_loaders)
+        self.train_ratio = list(train_ratio or
+                                [1] + [1] * len(self.aux_loaders))
+        self._iter = 0
+        self._aux_iters = []
+
+    @staticmethod
+    def _cycle(loader):
+        while True:
+            it = iter(loader)
+            try:
+                yield from it
+            finally:
+                it.close()
+
+    def train_epoch(self) -> None:
+        for loader in self.aux_loaders:
+            loader.set_epoch(self.epoch)
+        self._aux_iters = [self._cycle(ld) for ld in self.aux_loaders]
+        try:
+            super().train_epoch()
+        finally:
+            for it in self._aux_iters:
+                it.close()
+
+    def after_step(self, i: int) -> None:
+        if self._iter % self.train_ratio[0] == 0:
+            for k, times in enumerate(self.train_ratio[1:]):
+                for _ in range(times):
+                    log_vars = self._train_step(to_torch(
+                        next(self._aux_iters[k]), self.device))
+                    if (i + 1) % self.log_interval == 0:
+                        self.log(dict(mode='train', epoch=self.epoch + 1,
+                                      iter=i + 1,
+                                      **{f'{key}/aux{k}': v.item()
+                                         for key, v in log_vars.items()}))
+        self._iter += 1

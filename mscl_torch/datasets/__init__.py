@@ -12,11 +12,11 @@ from .file_dataset import (DataTransfer, FileRawframe2BranchDataset,
                            FileRawframeDataset)
 from .loader import NumpyLoader, default_collate
 from .misc_datasets import PoseDataset
-from .rawframe_dataset import RawframeDataset
+from .rawframe_dataset import ImageDataset, RawframeDataset
 
 __all__ = ['BaseDataset', 'DATASETS', 'PIPELINES', 'BLENDINGS',
            'build_dataset', 'build_dataloader', 'DataTransfer',
            'FileRawframeDataset', 'FileRawframe2BranchDataset',
-           'RawframeDataset', 'PoseDataset', 'RepeatDataset',
+           'RawframeDataset', 'ImageDataset', 'PoseDataset', 'RepeatDataset',
            'ConcatDataset', 'MixupBlending', 'CutmixBlending',
            'NumpyLoader', 'default_collate']

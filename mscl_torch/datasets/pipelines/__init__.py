@@ -9,8 +9,9 @@ from .compose import Compose
 from .formatting import (Collect, FormatShape, ImageToTensor, Rename,
                          ToDataContainer, ToTensor, Transpose,
                          batched_to_tensor, to_tensor)
-from .loading import (ArrayDecode, DenseSampleFrames, LocalDecode,
-                      RawFrameDecode, SampleFrames, UntrimmedSampleFrames)
+from .loading import (ArrayDecode, BuildPseudoClip, DenseSampleFrames,
+                      ImageDecode, LocalDecode, RawFrameDecode, SampleFrames,
+                      UntrimmedSampleFrames)
 from .mcl_augmentations import MCLRandomResizedCrop, motion_map_from_flow
 from .loading_mscl import (AlignIndex, ChosenSampleFrames, FlowToGT,
                            MatchFlow, Seg2T, TemporalShiftChosenSampleFrames,
@@ -30,6 +31,7 @@ __all__ = [
     'Compose', 'Collect', 'ToTensor', 'to_tensor', 'batched_to_tensor',
     'Rename', 'FormatShape', 'Transpose', 'ImageToTensor', 'ToDataContainer',
     'SampleFrames', 'DenseSampleFrames', 'UntrimmedSampleFrames',
+    'ImageDecode', 'BuildPseudoClip',
     'RawFrameDecode', 'LocalDecode', 'ArrayDecode', 'MatchFlow',
     'ChosenSampleFrames', 'TemporalShiftChosenSampleFrames',
     'MoCoDecodePlan', 'MoCoRandomResizedCrop', 'MoCoResize', 'MoCoNormalize',

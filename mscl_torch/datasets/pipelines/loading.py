@@ -5,12 +5,13 @@ configs' pipelines run: the clip-offset samplers, ``SampleFrames``
 (reference mmaction loading.py:83-270), ``DenseSampleFrames``,
 ``UntrimmedSampleFrames``, ``RawFrameDecode`` (a frame directory's
 ``filename_tmpl`` files: RGB frames, or a flow's x and y grey frames
-interleaved), ``LocalDecode`` (the reference's NoriDecode,
-loading.py:1812-1914, re-targeted at the local filesystem; ``NoriDecode`` is
-an alias) and ``ArrayDecode``. Frames are decoded by
-``mscl_torch.utils.image_io`` (PNG and JPEG without cv2); flows are ``.npy``
-or ``.np4`` (``mscl_torch.utils.np4``, without msgpack). The samplers draw
-from the global ``np.random`` in the JAX package's order.
+interleaved), ``ImageDecode`` and ``BuildPseudoClip`` (an image as a
+one-frame clip, repeated ``clip_len`` times), ``LocalDecode`` (the
+reference's NoriDecode, loading.py:1812-1914, re-targeted at the local
+filesystem; ``NoriDecode`` is an alias) and ``ArrayDecode``. Frames are
+decoded by ``mscl_torch.utils.image_io`` (PNG and JPEG without cv2); flows
+are ``.npy`` or ``.np4`` (``mscl_torch.utils.np4``, without msgpack). The
+samplers draw from the global ``np.random`` in the JAX package's order.
 """
 from __future__ import annotations
 
@@ -380,3 +381,37 @@ class ArrayDecode:
         return results
 
 
+@PIPELINES.register_module()
+class ImageDecode:
+    """Decode the image at ``filename`` to RGB as a one-frame list
+    (mmaction ImageDecode, the OmniSource image sources; the JAX package's
+    ``cv2.imread`` then BGR -> RGB, here ``image_io.imread_rgb``)."""
+
+    def __init__(self, io_backend='disk', decoding_backend='cv2', **kwargs):
+        self.io_backend = io_backend
+        self.decoding_backend = decoding_backend
+
+    def __call__(self, results):
+        img = imread_rgb(results['filename'])
+        results['imgs'] = [img]
+        results['original_shape'] = img.shape[:2]
+        results['img_shape'] = img.shape[:2]
+        return results
+
+
+@PIPELINES.register_module()
+class BuildPseudoClip:
+    """Repeat the single frame into a ``clip_len``-frame clip (one clip)."""
+
+    def __init__(self, clip_len):
+        self.clip_len = clip_len
+
+    def __call__(self, results):
+        im = results['imgs'][0]
+        results['imgs'] = [np.copy(im) for _ in range(self.clip_len)]
+        results['clip_len'] = self.clip_len
+        results['num_clips'] = 1
+        return results
+
+    def __repr__(self):
+        return f'{self.__class__.__name__}(clip_len={self.clip_len})'

@@ -8,6 +8,11 @@ frames' file names are ``filename_tmpl`` (``'img_{:05}.jpg'``; a flow set
 names ``'{}_{:05d}.jpg'`` with 'x' and 'y'), numbered from
 ``start_index``. ``VideoDataset`` is refused by name: its videos need a
 video codec, which the port does not have.
+
+``ImageDataset`` (the OmniSource web images) lists "path label..." lines,
+as the JAX one, which subclasses the JAX ``VideoDataset`` for its list
+reader; the port's reads the list itself and needs no codec (its pipeline
+decodes each image with ``ImageDecode``).
 """
 from __future__ import annotations
 
@@ -91,3 +96,32 @@ class VideoDataset:
             'VideoDataset reads video files, which need a video codec '
             '(decord, PyAV, PIMS or OpenCV) that the port does not have; '
             'extract the frames and use RawframeDataset')
+
+
+@DATASETS.register_module()
+class ImageDataset(BaseDataset):
+    """"filename label..." lines of images (``multi_class``: several
+    labels), ``data_prefix`` joined to each; ``start_index`` is always 0."""
+
+    def __init__(self, ann_file, pipeline, **kwargs):
+        kwargs.pop('start_index', None)
+        super().__init__(ann_file, pipeline, start_index=0, **kwargs)
+
+    def load_annotations(self):
+        video_infos = []
+        with open(self.ann_file, 'r') as fin:
+            for line in fin:
+                line_split = line.strip().split()
+                if not line_split:
+                    continue
+                if self.multi_class:
+                    assert self.num_classes is not None
+                    filename = line_split[0]
+                    label = list(map(int, line_split[1:]))
+                else:
+                    filename, label = line_split
+                    label = int(label)
+                if self.data_prefix is not None:
+                    filename = osp.join(self.data_prefix, filename)
+                video_infos.append(dict(filename=filename, label=label))
+        return video_infos

@@ -17,8 +17,13 @@ variance), in the compute ``dtype`` as ``video_resnet.ConvBN``'s.
 The init is the JAX package's: kaiming-normal fan_out convs, BN 1/0 (its
 ``zero_init_residual`` is accepted and, as there, not applied).
 
-What no shipped config uses is refused by name: a non-zero ``non_local``,
-``lateral=True``, ``frozen_stages >= 0``, ``norm_eval=True``,
+``non_local`` puts a ``NonLocal3d`` after each flagged block
+(``layer{i}_{b}_nonlocal``, the JAX tree's name, which ``convert.py``
+keeps), in ResNet3d and ResNet3dSlowOnly; ResNet3dSlowOnly_TwoR5 refuses it,
+as the JAX module accepts it and builds none.
+
+What no shipped config uses is refused by name: ``lateral=True``,
+``frozen_stages >= 0``, ``norm_eval=True``,
 ``with_cp=True``, ``return_stem=True`` and a style other than 'pytorch'.
 So is ``inflate_style='3x3x3'`` with Bottleneck blocks: the reference
 passes the style to its blocks and the JAX ResNet3d does not (its blocks
@@ -134,6 +139,102 @@ class Bottleneck3d(nn.Module):
         return F.relu(out + res, inplace=True)
 
 
+class NonLocal3d(nn.Module):
+    """The embedded-gaussian non-local block (mmcv NonLocal3d as the
+    reference nl configs set it) over NCTHW: attention over every (t, h, w)
+    position, y = softmax(theta . phi^T) g (``use_scale``: the logits over
+    sqrt of the inner width; 'dot_product': over the key count, no softmax;
+    'gaussian': on the raw features), ``sub_sample`` a (1, 2, 2) max-pool
+    on the phi and g inputs; out = x + BN(conv_out(y)), the BN's scale
+    initialised to 0, so the block starts as the identity. 1x1x1 convs with
+    a bias, named as the JAX module's: ``g``, ``theta``, ``phi``,
+    ``conv_out``, ``bn_out``."""
+
+    def __init__(self, in_channels: int, reduction: int = 2,
+                 use_scale: bool = True, sub_sample: bool = False,
+                 mode: str = 'embedded_gaussian',
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if mode not in ('embedded_gaussian', 'gaussian', 'dot_product'):
+            raise ValueError(f'NonLocal3d mode {mode!r}')
+        ic = max(in_channels // reduction, 1)
+        self.mode, self.use_scale, self.sub_sample = mode, use_scale, \
+            sub_sample
+        self.inter, self.dtype = ic, dtype
+        self.g = nn.Conv3d(in_channels, ic, 1)
+        if mode != 'gaussian':
+            self.theta = nn.Conv3d(in_channels, ic, 1)
+            self.phi = nn.Conv3d(in_channels, ic, 1)
+        self.conv_out = nn.Conv3d(ic, in_channels, 1)
+        self.bn_out = make_bn(in_channels, dtype)
+
+    @torch.no_grad()
+    def init_weights(self, gen: torch.Generator):
+        """kaiming-normal fan_out kernels, zero biases, BN scale 0."""
+        for m in self.modules():
+            if isinstance(m, nn.Conv3d):
+                nn.init.kaiming_normal_(m.weight, mode='fan_out',
+                                        nonlinearity='relu', generator=gen)
+                m.bias.zero_()
+        self.bn_out.weight.zero_()
+        self.bn_out.bias.zero_()
+
+    def forward(self, x):
+        n, c, t, h, w = x.shape
+        kv_in = F.max_pool3d(x, (1, 2, 2), (1, 2, 2)) if self.sub_sample \
+            else x
+
+        def flat(v):                        # (n, c', ...) -> (n, pos, c')
+            return v.reshape(n, v.shape[1], -1).transpose(1, 2)
+        v = flat(compute_dtype.conv(self.g, kv_in, self.dtype))
+        if self.mode == 'gaussian':
+            q, k = flat(x), flat(kv_in)
+        else:
+            q = flat(compute_dtype.conv(self.theta, x, self.dtype))
+            k = flat(compute_dtype.conv(self.phi, kv_in, self.dtype))
+        attn = q @ k.transpose(1, 2)
+        if self.mode == 'dot_product':
+            attn = attn / attn.shape[-1]
+        else:
+            if self.mode == 'embedded_gaussian' and self.use_scale:
+                attn = attn / torch.sqrt(attn.new_tensor(float(self.inter)))
+            attn = attn.softmax(dim=-1)
+        y = (attn @ v).transpose(1, 2).reshape(n, self.inter, t, h, w)
+        return x + self.bn_out(compute_dtype.conv(self.conv_out, y,
+                                                  self.dtype))
+
+
+def _non_local_flag(spec, stage: int, block: int) -> bool:
+    """Whether block ``block`` of stage ``stage`` is followed by a non-local
+    block: ``spec`` a flag a stage or a list of flags a block."""
+    if not spec:
+        return False
+    stage_spec = spec[stage] if stage < len(spec) else 0
+    if isinstance(stage_spec, (list, tuple)):
+        return bool(stage_spec[block]) if block < len(stage_spec) else False
+    return bool(stage_spec)
+
+
+def _non_local(channels: int, cfg, dtype) -> NonLocal3d:
+    cfg = dict(cfg or {})
+    cfg.pop('norm_cfg', None)           # BN is the block's default
+    return NonLocal3d(channels, dtype=dtype, **cfg)
+
+
+def init_convs_bn(module: nn.Module, gen: torch.Generator) -> None:
+    """The JAX package's init: kaiming-normal fan_out conv kernels, zero
+    conv biases, BN 1/0."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Conv3d)):
+            nn.init.kaiming_normal_(m.weight, mode='fan_out',
+                                    nonlinearity='relu', generator=gen)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, BatchNorm3d):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+
+
 def _refuse(name, value, default):
     if value != default:
         raise NotImplementedError(
@@ -170,10 +271,6 @@ class ResNet3d(nn.Module):
                  conv_cfg=None, norm_cfg=None, act_cfg=None,
                  return_stem: bool = False, dtype=None):
         super().__init__()
-        if any(any(s) if isinstance(s, (list, tuple)) else s
-               for s in (non_local or ())):
-            raise NotImplementedError(
-                'ResNet3d non_local (NonLocal3d) is not ported')
         for name, value, default in (
                 ('lateral', lateral, False), ('frozen_stages', frozen_stages,
                                               -1),
@@ -223,18 +320,28 @@ class ResNet3d(nn.Module):
                     dilation=dilations[i], inflate=bool(inf),
                     inflate_style=inflate_style, dtype=dtype))
                 cin = planes * block_cls.expansion
+                if _non_local_flag(non_local, i, b):
+                    setattr(self, f'layer{i + 1}_{b}_nonlocal',
+                            _non_local(cin, non_local_cfg, dtype))
             setattr(self, f'layer{i + 1}', nn.Sequential(*blocks))
 
     @torch.no_grad()
     def init_weights(self, gen: torch.Generator):
-        """kaiming-normal fan_out convs, BN 1/0 (the JAX package's init)."""
+        """``init_convs_bn``, then a non-local block's own init."""
+        init_convs_bn(self, gen)
         for m in self.modules():
-            if isinstance(m, nn.Conv3d):
-                nn.init.kaiming_normal_(m.weight, mode='fan_out',
-                                        nonlinearity='relu', generator=gen)
-            elif isinstance(m, BatchNorm3d):
-                m.weight.fill_(1.0)
-                m.bias.zero_()
+            if isinstance(m, NonLocal3d):
+                m.init_weights(gen)
+
+    def _stage(self, x, i: int):
+        """Stage i's blocks, each followed by its non-local block if it has
+        one (``layer{i}_{b}_nonlocal``)."""
+        for b, block in enumerate(getattr(self, f'layer{i + 1}')):
+            x = block(x)
+            nl = getattr(self, f'layer{i + 1}_{b}_nonlocal', None)
+            if nl is not None:
+                x = nl(x)
+        return x
 
     def forward(self, x):
         x = self.conv1(x)
@@ -242,7 +349,7 @@ class ResNet3d(nn.Module):
             x = self.pool1(x)
         outs = []
         for i in range(self.num_stages):
-            x = getattr(self, f'layer{i + 1}')(x)
+            x = self._stage(x, i)
             if i == 0 and self.pool2 is not None:
                 x = self.pool2(x)
             outs.append(x)
@@ -270,6 +377,11 @@ class ResNet3dSlowOnly_TwoR5(ResNet3dSlowOnly):
     refuses: give it the last stage and at least one other."""
 
     def __init__(self, *args, **kwargs):
+        if any(any(s) if isinstance(s, (list, tuple)) else s
+               for s in (kwargs.pop('non_local', None) or ())):
+            raise NotImplementedError(
+                'ResNet3dSlowOnly_TwoR5 non_local: the JAX module accepts '
+                'it and builds no non-local block; leave it unset')
         super().__init__(*args, **kwargs)
         last = f'layer{self.num_stages}'
         setattr(self, f'{last}_local', copy.deepcopy(getattr(self, last)))

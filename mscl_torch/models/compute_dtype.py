@@ -45,3 +45,14 @@ def conv3d(conv: nn.Conv3d, x: torch.Tensor,
                  conv.padding, conv.dilation, conv.groups)
     return y if conv.bias is None else \
         y + conv.bias.to(dtype)[None, :, None, None, None]
+
+
+def conv(layer: nn.modules.conv._ConvNd, x: torch.Tensor,
+         dtype: torch.dtype) -> torch.Tensor:
+    """Any Conv1d/2d/3d in dtype: x and the kernel cast, the bias added
+    after (the layer's own call in float32)."""
+    if dtype == torch.float32:
+        return layer._conv_forward(x, layer.weight, layer.bias)
+    y = layer._conv_forward(x.to(dtype), layer.weight.to(dtype), None)
+    return y if layer.bias is None else \
+        y + layer.bias.to(dtype).reshape((1, -1) + (1,) * (y.dim() - 2))

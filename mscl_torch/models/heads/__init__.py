@@ -9,6 +9,8 @@ from .local_align_heads import (FGMoDistPredHead, MAMSCLWithAugPosHead,
 from .local_cl_head import MSCLWithAugPosHeadV2
 from .moco_head import MoCoHead
 from .moco_head_v2 import MSCLWithAugMxHead
+from .recognition_heads import (AudioTSNHead, SlowFastHead, TimeSformerHead,
+                                TPNHead, TRNHead, TSMHead, TSNHead, X3DHead)
 from .moco_head_v3 import (MoCoHeadV2, MSCLWithAugDistillMxHead,
                            MSCLWithAugMSFMxHead, MSFHead, NMSFHead)
 from .reid_distill_heads import (FGTSMReidSimpleHead, RcMoDistHead,
@@ -23,4 +25,5 @@ __all__ = ['BaseHead', 'I3DHead', 'topk_accuracy', 'MSCLWithAugPosHeadV2',
            'frame_sim_scores', 'MoCoHeadV2', 'MSFHead', 'NMSFHead',
            'MSCLWithAugMSFMxHead', 'MSCLWithAugDistillMxHead',
            'TSMReidSimpleHead', 'FGTSMReidSimpleHead', 'TSMHead3D',
-           'RcMoDistHead']
+           'RcMoDistHead', 'TSNHead', 'TSMHead', 'TPNHead', 'AudioTSNHead',
+           'TimeSformerHead', 'X3DHead', 'SlowFastHead', 'TRNHead']

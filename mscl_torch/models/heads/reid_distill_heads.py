@@ -34,9 +34,9 @@ What the JAX modules make that torch's defaults would not:
   ``num_levels`` of them up front, to twice ``flow_channels``, their input
   width taken at the first call (``local_align_heads.Dense``).
 
-Dropout is ``base.SeededDropout`` (the head's own generator). Recognizer2D,
-which would wire the reid heads into training, is not ported yet: they are
-heads alone here, with the labels passed in.
+Dropout is ``base.SeededDropout`` (the head's own generator).
+``Recognizer2D`` trains the reid heads: it passes them the labels and
+hands the feature they return to their triplet loss.
 """
 from __future__ import annotations
 

@@ -1,9 +1,12 @@
-"""The shipped I3D, SlowOnly and PoseC3D configs, narrowed, through
-``train_model`` in the port and in mscl_tpu on the same synthetic files and
-the same initial weights (the port's, carried across through
-``mscl_torch/convert.py``'s map): every logged loss within 2e-4, the validation
-metrics equal, and each parameter's and BN statistic's change over the run
-within 5e-3 of JAX's (relative to the largest change of that tensor).
+"""The shipped recognition configs (I3D, SlowOnly, PoseC3D; the
+frame-based TSN, TSM, TIN, TANet, TRN, TSM on MobileNetV2; C3D), narrowed,
+through ``train_model`` in the port and in mscl_tpu on the same synthetic
+files and the same initial weights (the port's, carried across through
+``mscl_torch/convert.py``'s map): every logged loss within 2e-4, the
+validation metrics equal, and each parameter's and BN statistic's change
+over the run within 5e-3 of JAX's (relative to the largest change of that
+tensor). TRN's training subsets are JAX's, recorded from its jitted step
+and replayed into the port's ``TRNHead.relation_picks``.
 
 The depth-50 stacks are too ill-conditioned in float32 for that (at 32x32
 crops and a batch of 2 the stem's change after two steps lies 6.8e-3 from
@@ -20,16 +23,20 @@ import json
 import os.path as osp
 import pickle
 import random
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec
 import numpy as np
 import pytest
+import torch
 
 import mscl_tpu.apis.train as jax_train
 from mscl_tpu import Config as JaxConfig
 from mscl_tpu.core.train_loop import TrainState
+from mscl_tpu.models.backbones import mobilenet_v2 as jax_mobilenet_v2
+from mscl_tpu.models.backbones import resnet2d as jax_resnet2d
 from mscl_tpu.parallel.mesh import create_mesh
 from mscl_torch.apis import build_model_from_cfg, train_model
 from mscl_torch.config import Config
@@ -37,6 +44,8 @@ from mscl_torch.convert import jax_to_state_dict
 from mscl_torch.core import (build_lr_schedule, build_optimizer,
                              save_checkpoint, train_loop, train_state)
 from mscl_torch.datasets import build_dataset
+from mscl_torch.models.backbones import mobilenet_v2, resnet2d
+from mscl_torch.models.heads import TRNHead
 
 from _torch_step_util import jax_float64
 from test_torch_pose_data import skeletons
@@ -72,16 +81,19 @@ def skeleton_set(root):
     return ann
 
 
-SIZES = {256: 40, 224: 32}
+SIZES = {256: 40, 224: 32, 128: 40, 112: 32}
 
 
-def _small(pipeline):
-    """The pipeline with its sizes scaled down (short edge 256 -> 40, crops
-    224 -> 32); tests/test_torch_rawframe_data.py holds the pipelines at
-    their own sizes."""
+def _small(pipeline, ncthw=False):
+    """The pipeline with its sizes scaled down (short edge 256 or 128 ->
+    40, crops 224 or 112 -> 32), with ``ncthw`` NTHWC clips formatted
+    NCTHW; tests/test_torch_rawframe_data.py holds the pipelines at their
+    own sizes."""
     out = []
     for step in pipeline:
         step = dict(step)
+        if ncthw and step.get('input_format') == 'NTHWC':
+            step['input_format'] = 'NCTHW'
         for key in ('scale', 'input_size', 'crop_size'):
             v = step.get(key)
             if isinstance(v, int):
@@ -92,22 +104,61 @@ def _small(pipeline):
     return out
 
 
-def narrow_cfg(name, root, ann, work_dir, validate):
-    """The config file as a dict: base_channels 8 and one block a stage,
-    dropout 0, a batch of 2, one epoch of 2 steps over ``ann`` (the flow
-    set's grey x/y files) with the pipelines' sizes scaled down, validation
-    every epoch on the same list."""
+# the 2D tables cut while a test runs (cut_tables): ResNet's Basic and
+# Bottleneck stacks with one block a stage, and MobileNetV2's table with
+# one block a stage but the second (a shifted residual block), in both
+# packages' tables (mscl_tpu's TIN and TANet read resnet2d.ARCH)
+ONE_BASIC = 'basic, one block a stage'
+ONE_BOTTLENECK = 'bottleneck, one block a stage'
+MBV2_ARCH = [(1, 16, 1, 1), (6, 24, 2, 2), (6, 32, 1, 2), (6, 64, 1, 2),
+             (6, 96, 1, 1), (6, 160, 1, 2), (6, 320, 1, 1)]
+
+
+@contextlib.contextmanager
+def cut_tables():
+    arch = {ONE_BASIC: ('basic', (1, 1, 1, 1)),
+            ONE_BOTTLENECK: ('bottleneck', (1, 1, 1, 1))}
+    with mock.patch.dict(jax_resnet2d.ARCH, arch), \
+            mock.patch.dict(resnet2d.ARCH, arch), \
+            mock.patch.object(jax_mobilenet_v2, 'ARCH', MBV2_ARCH), \
+            mock.patch.object(mobilenet_v2, 'ARCH', MBV2_ARCH):
+        yield
+
+
+def narrow_model(model):
+    """A recognition config's model narrowed in place, dropout 0: a 3D
+    ResNet to base_channels 8 and one block a stage; a frame-based ResNet
+    (TSN, TSM, TIN, TANet, TRN; 64 wide, the 2D ResNets have no width
+    option) to Basic blocks, one a stage, and MobileNetV2 to widen_factor
+    0.5 (its last conv stays 1280 wide) and the cut table, under
+    ``cut_tables``; C3D as it is."""
+    bb, head = model['backbone'], model['cls_head']
+    head['dropout_ratio'] = 0.0
+    if bb['type'].startswith('MobileNetV2'):
+        bb['widen_factor'] = 0.5
+    elif model['type'] == 'Recognizer2D':
+        bb['depth'] = ONE_BASIC
+        head['in_channels'] = 512
+    elif bb['type'] != 'C3D':
+        stages = bb.get('num_stages', 4)
+        bb.update(base_channels=8, stage_blocks=(1,) * stages)
+        head['in_channels'] = 8 * 2 ** (stages - 1) * 4
+    return model
+
+
+def narrow_cfg(name, root, ann, work_dir, validate, ncthw=False):
+    """The config file as a dict: its model narrowed (``narrow_model``), a
+    batch of 2, one epoch of 2 steps over ``ann`` (the flow set's grey x/y
+    files) with the pipelines' sizes scaled down (with ``ncthw`` NTHWC
+    clips formatted NCTHW, as the port's Recognizer3D reads clips: C3D's
+    recipe formats NTHWC), validation every epoch on the same list."""
     cfg = Config.fromfile(osp.join(ROOT, 'configs', name)).to_dict()
-    bb = cfg['model']['backbone']
-    stages = bb.get('num_stages', 4)
-    bb.update(base_channels=8, stage_blocks=(1,) * stages)
-    cfg['model']['cls_head'].update(in_channels=8 * 2 ** (stages - 1) * 4,
-                                    dropout_ratio=0.0)
+    narrow_model(cfg['model'])
     data = cfg['data']
     data.update(videos_per_gpu=B, workers_per_gpu=0)
     for split in ('train', 'val', 'test'):
         data[split]['ann_file'] = ann
-        data[split]['pipeline'] = _small(data[split]['pipeline'])
+        data[split]['pipeline'] = _small(data[split]['pipeline'], ncthw)
         if data[split]['type'] == 'RawframeDataset':
             data[split]['data_prefix'] = root
             data[split]['filename_tmpl'] = '{}_{:05d}.jpg' \
@@ -143,13 +194,13 @@ def port_to_jax(shapes, state_dict, dtype):
         for a, n, leaf in zip(starts, sizes, leaves)])
 
 
-def run_both(name, root, ann, tmp, validate, x64):
+def run_both(name, root, ann, tmp, validate, x64, ncthw=False):
     """``train_model`` of mscl_tpu (in float64 with ``x64``) and of the
     port from the port's initial weights; returns the two logs, the port's
     run (a function of a work dir and an input scale), the initial and
     JAX's final variables as state dicts."""
     jdir, tdir, t0dir = (osp.join(tmp, n) for n in ('jax', 'port', 'p0'))
-    cfg = narrow_cfg(name, root, ann, tdir, validate)
+    cfg = narrow_cfg(name, root, ann, tdir, validate, ncthw)
     model = build_model_from_cfg(cfg['model'], device='cpu')
     init = {k: v.numpy().copy() for k, v in model.state_dict().items()}
     real = jax_train.init_state
@@ -176,17 +227,21 @@ def run_both(name, root, ann, tmp, validate, x64):
         return jax.device_put(state, NamedSharding(mesh, PartitionSpec()))
     mesh = create_mesh(1)
     jax_train.init_state = init_state
-    jcfg = narrow_cfg(name, root, ann, jdir, validate)
+    jcfg = narrow_cfg(name, root, ann, jdir, validate, ncthw)
     if x64:
         jcfg['model']['dtype'] = jnp.float64
+    picks = []
     try:
-        with jax_float64() if x64 else contextlib.nullcontext():
+        with jax_float64() if x64 else contextlib.nullcontext(), \
+                _recorded_choice(picks):
             _seed()
             _, jstate = jax_train.train_model(
                 JaxConfig.fromdict(jcfg), validate=validate, seed=0,
                 mesh=mesh)
     finally:
         jax_train.init_state = real
+    # TRN's multi-scale head drew its subsets in each training step
+    assert bool(picks) == (cfg['model']['cls_head']['type'] == 'TRNHead')
     jax_final = {k: np.asarray(v, np.float32) for k, v in jax_to_state_dict(
         {'params': jstate.params, 'batch_stats': jstate.batch_stats}).items()}
 
@@ -205,7 +260,12 @@ def run_both(name, root, ann, tmp, validate, x64):
                 out['imgs'] = out['imgs'] * scale
             return out
         train_loop.to_torch = to_torch
+        replay = iter(picks)
         try:
+            if picks:                # TRN's subsets, as JAX drew them
+                TRNHead.relation_picks = lambda self, n, k, device: \
+                    torch.from_numpy(next(replay)).to(device) \
+                    if self.training else real_picks(self, n, k, device)
             _seed()
             example = build_dataset(copy.deepcopy(cfg['data']['train']))
             for i in range(B):               # JAX's example_batch_from draws
@@ -215,7 +275,28 @@ def run_both(name, root, ann, tmp, validate, x64):
                                resume_from=ckpt0)[0]
         finally:
             train_loop.to_torch = real_to
+            TRNHead.relation_picks = real_picks
+    real_picks = TRNHead.relation_picks
     return _log(jdir), port_run, init, jax_final
+
+
+@contextlib.contextmanager
+def _recorded_choice(picks):
+    """jax.random.choice (TRNHead's subset draws, inside the jitted step)
+    also appending each draw to ``picks`` as the step runs, in order."""
+    real = jax.random.choice
+
+    def choice(*args, **kwargs):
+        out = real(*args, **kwargs)
+        jax.debug.callback(
+            lambda v: picks.append(np.asarray(v, np.int64)), out,
+            ordered=True)
+        return out
+    jax.random.choice = choice
+    try:
+        yield
+    finally:
+        jax.random.choice = real
 
 
 def _changes(runner, init):
@@ -223,9 +304,21 @@ def _changes(runner, init):
             runner.model.state_dict().items()}
 
 
-def check(name, root, ann, tmp, validate, x64=False):
+def check(name, root, ann, tmp, validate, x64=False, ncthw=False,
+          spacing_floor=False):
+    """``spacing_floor`` (TSM's, TIN's and TANet's recipes alone) also
+    passes a tensor whose gap from JAX's float64 change lies within two
+    float32 spacings of the port's parameter: a change the float32
+    parameter cannot record (TIN's offset-net biases near 0.51 and BN
+    scales near 1 in TANet and TSM move by about 1e-6 in two steps, one
+    spacing 6e-8-1.2e-7)."""
+    with cut_tables():
+        _check(name, root, ann, tmp, validate, x64, ncthw, spacing_floor)
+
+
+def _check(name, root, ann, tmp, validate, x64, ncthw, spacing_floor):
     jlog, port_run, init, final = run_both(name, root, ann, tmp, validate,
-                                           x64)
+                                           x64, ncthw)
     runner = port_run(osp.join(tmp, 'port'))
     tlog = _log(osp.join(tmp, 'port'))
     modes = ['train', 'train'] + (['val'] if validate else [])
@@ -247,6 +340,11 @@ def check(name, root, ann, tmp, validate, x64=False):
     scale = {k: max(np.abs(v).max(), 1e-12) for k, v in want.items()}
     errs = {k: np.abs(got[k] - v).max() / scale[k] for k, v in want.items()}
     missed = {k: e for k, e in errs.items() if e > GRAD_TOL}
+    if spacing_floor:
+        final = {k: v.numpy() for k, v in runner.model.state_dict().items()}
+        missed = {k: e for k, e in missed.items() if np.any(
+            np.abs(got[k] - want[k]) > 2 * np.spacing(
+                np.abs(final[k]).astype(np.float32)))}
     if missed:
         # the float32 conditioning, not a fault: one ulp on the input moves
         # the port's own float32 run as far (ULP_MULT, as

@@ -44,11 +44,32 @@ FULL = {
     'slowonly/slowonly_r50_8x8x1_256e_kinetics400_rgb.py',
     'posec3d/slowonly_r50_u48_240e_ntu120_xsub_keypoint.py',
     'posec3d/slowonly_r50_u48_240e_ntu60_xsub_keypoint.py',
+    # the frame-based family and C3D
+    'tsn/tsn_r50_1x1x3_100e_kinetics400_rgb.py',
+    'tsn/tsn_r50_1x1x3_110e_kinetics400_flow.py',
+    'tsn/tsn_r50_1x1x3_75e_ucf101_rgb.py',
+    'tsn/tsn_r50_1x1x8_100e_kinetics400_rgb.py',
+    'tsn/tsn_r50_1x1x8_50e_sthv1_rgb.py',
+    'tsn/tsn_r101_1x1x5_50e_mmit_rgb.py',
+    'tsm/tsm_r50_1x1x16_50e_kinetics400_rgb.py',
+    'tsm/tsm_r50_1x1x8_50e_kinetics400_rgb.py',
+    'tsm/tsm_r50_1x1x8_50e_sthv2_rgb.py',
+    'tsm/tsm_r50_dense_1x1x8_100e_kinetics400_rgb.py',
+    'tin/tin_r50_1x1x8_40e_sthv1_rgb.py',
+    'tanet/tanet_r50_1x1x8_100e_kinetics400_rgb.py',
+    'mobilenet_v2/tsm_mobilenetv2_1x1x8_50e_kinetics400_rgb.py',
+    'trn/trn_r50_1x1x8_50e_sthv1_rgb.py',
+    'c3d/c3d_sports1m_16x1x1_45e_ucf101_rgb.py',
+    # its two train sets build; train_model refuses the list
+    # (tests/test_torch_omnisource.py)
+    'omnisource/tsn_r50_1x1x8_100e_minikinetics_rgb.py',
 }
 # model builds, data refused by name
 REFUSED = {
     'i3d/i3d_r50_video_32x2x1_100e_kinetics400_rgb.py': 'VideoDataset',
     'posec3d/slowonly_r50_u48_240e_ntu60_xsub_limb.py': 'left_kp',
+    'tsn/tsn_r50_video_1x1x8_100e_kinetics400_rgb.py': 'VideoDataset',
+    'tsm/tsm_r50_video_1x1x8_50e_kinetics400_rgb.py': 'VideoDataset',
 }
 
 
@@ -67,15 +88,21 @@ def _types(node):
             yield from _types(v)
 
 
+def _split_cfgs(cfg):
+    """Each split's dataset config; a list-valued split (OmniSource's
+    train sets) gives each of its sets."""
+    for split in ('train', 'val', 'test'):
+        node = (cfg.get('data') or {}).get(split)
+        for ds_cfg in node if isinstance(node, (list, tuple)) else [node]:
+            if ds_cfg is not None:
+                yield ds_cfg.to_dict() if hasattr(ds_cfg, 'to_dict') \
+                    else dict(ds_cfg)
+
+
 def _build_data(cfg):
     """Construct each split's dataset (its annotation file unread) and its
     pipeline's steps."""
-    for split in ('train', 'val', 'test'):
-        ds_cfg = (cfg.get('data') or {}).get(split)
-        if ds_cfg is None:
-            continue
-        ds_cfg = ds_cfg.to_dict() if hasattr(ds_cfg, 'to_dict') \
-            else dict(ds_cfg)
+    for ds_cfg in _split_cfgs(cfg):
         with contextlib.ExitStack() as stack:
             for cls in DATASETS.module_dict.values():
                 if 'load_annotations' in vars(cls):
@@ -132,19 +159,20 @@ def test_every_config_builds_or_is_refused_by_name(sweep):
 def test_the_counts(sweep):
     models = {n for n, (stage, _, _) in sweep.items() if stage != 'model'}
     full = {n for n, (stage, _, _) in sweep.items() if stage == 'full'}
-    assert len(models) == 19
+    assert len(models) == 37
     assert full == FULL
     assert models == FULL | set(REFUSED)
     for name, word in REFUSED.items():
         stage, msg, _ = sweep[name]
         assert stage == 'data' and word in msg, (name, msg)
-    assert 'codec' in sweep[
-        'i3d/i3d_r50_video_32x2x1_100e_kinetics400_rgb.py'][1]
+    for name, word in REFUSED.items():
+        if word == 'VideoDataset':
+            assert 'codec' in sweep[name][1]
 
 
 def test_the_datasets_are_registered():
     for name in ('RawframeDataset', 'PoseDataset', 'RepeatDataset',
-                 'ConcatDataset'):
+                 'ConcatDataset', 'ImageDataset'):
         assert name in DATASETS
 
 
@@ -160,22 +188,40 @@ MSCL_FAMILY = {
                   'Flow2ImgWithAug', 'NormFlowWithStidedAugV2',
                   'NormFlowWithAugV2', 'NormFlowV2', 'MoCoNormalizeV2'),
 }
+# the frame-based family and the OmniSource parts, each registered in the
+# port (every head of recognition_heads.py, whether a shipped config names
+# it or not)
+FRAME_FAMILY = {
+    'models': ('Recognizer2D', 'ResNet', 'ResNetTSM', 'C3D', 'MobileNetV2',
+               'MobileNetV2TSM', 'ResNetTIN', 'TANet', 'TSNHead', 'TSMHead',
+               'TPNHead', 'AudioTSNHead', 'TimeSformerHead', 'X3DHead',
+               'SlowFastHead', 'TRNHead'),
+    'pipelines': ('ImageDecode', 'BuildPseudoClip'),
+    'datasets': ('ImageDataset',),
+}
 # what the JAX registries hold that the port does not, yet (ROADMAP.md
 # Queue 1 items 3-5): a gate that later slices shrink and never grow
-MODELS_LEFT = 51
-PIPELINES_LEFT = 29
+MODELS_LEFT = 35
+PIPELINES_LEFT = 27
 
 
 def _registry(kind):
     from mscl_torch.datasets.builder import PIPELINES
     from mscl_torch.models import MODELS
-    return MODELS if kind == 'models' else PIPELINES
+    return dict(models=MODELS, pipelines=PIPELINES, datasets=DATASETS)[kind]
 
 
 @pytest.mark.parametrize('kind,name', [(k, n) for k, names in
                                        sorted(MSCL_FAMILY.items())
                                        for n in names])
 def test_the_mscl_family_is_registered(kind, name):
+    assert _registry(kind).get(name) is not None
+
+
+@pytest.mark.parametrize('kind,name', [(k, n) for k, names in
+                                       sorted(FRAME_FAMILY.items())
+                                       for n in names])
+def test_the_frame_family_is_registered(kind, name):
     assert _registry(kind).get(name) is not None
 
 
@@ -190,8 +236,12 @@ def test_the_jax_registries_left_to_port():
     for kind, jax_registry in (('models', JAX_MODELS),
                                ('pipelines', JAX_PIPELINES)):
         port = _registry(kind)
+        # 'test.*' names are the test files' own modules, put into the
+        # JAX registries by whichever files a worker ran before this one
         left[kind] = sorted(n for n in jax_registry.module_dict
-                            if port.get(n) is None)
+                            if port.get(n) is None and
+                            not n.startswith('test.'))
         assert not set(left[kind]) & set(MSCL_FAMILY[kind])
+        assert not set(left[kind]) & set(FRAME_FAMILY[kind])
     assert len(left['models']) <= MODELS_LEFT, left['models']
     assert len(left['pipelines']) <= PIPELINES_LEFT, left['pipelines']

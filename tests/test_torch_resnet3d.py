@@ -278,6 +278,11 @@ def test_slowonly_r50_geometry():
     dict(norm_eval=True), dict(with_cp=True), dict(return_stem=True),
     dict(style='caffe'), dict(inflate_style='3x3x3')])
 def test_refuses_by_name(kwargs):
+    """ResNet3d builds non-local blocks (tests/test_torch_recognizer2d.py
+    holds them); the TwoR5 pathway, which the JAX module builds without
+    them, refuses non_local."""
     name = next(iter(kwargs))
+    cls = resnet3d.ResNet3dSlowOnly_TwoR5 if name == 'non_local' \
+        else resnet3d.ResNet3d
     with pytest.raises(NotImplementedError, match=name):
-        resnet3d.ResNet3d(depth=50, base_channels=4, **kwargs)
+        cls(depth=50, base_channels=4, **kwargs)
