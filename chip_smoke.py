@@ -192,10 +192,12 @@ the exit code is nonzero:
    or the median over the model's where larger), or than 1e-2 where that is
    less; then the loss at the card's updated weights within 1e-3 of the
    CPU's at the same weights;
-   ``recognition_card_vs_cpu``), then the training CLI on the file itself (1
+   ``recognition_card_vs_cpu``; the seven checks first, their CPU runs side
+   by side in spawned workers), then the training CLI on the file itself (1
    epoch of 4 steps at its batch, validation where its val pipeline is NCTHW)
    and one more step profiled; the test CLI on i3d_r50_dense's checkpoint (10
-   dense clips a video, 8 videos); and the refusals by name: i3d_r50_32x2x1 and
+   dense clips a video, 4 videos, cut from 8 to pay for 14e); and the
+   refusals by name: i3d_r50_32x2x1 and
    slowonly_r50_4x16x1_rgb (NTHWC clips) before their first step, the PoseC3D
    limb config (left_kp) and the video config (VideoDataset). It fails unless
    every loss is finite and no decayed-InfoNCE or lookup kernel launched; it
@@ -208,18 +210,45 @@ the exit code is nonzero:
    float32: for each of the 16 configs the sweep builds in full, its model at
    full width with dropout 0 on the card against the CPU on one clip of its own
    train pipeline, held as in 14c (tsn_r101_mmit's forward_test only: its
-   multi-class target is refused), and tsm_r50_1x1x8 and tin_r50 again on the
+   multi-class target is refused; the CPU's float32 and float64 runs in
+   RC_POOL spawned workers while the card runs the next configs; configs
+   whose models differ only in their class count and dropout and whose clips
+   agree in shape, RC2D_STEP_GROUPS, hold their logits and share one step
+   check, after a check that their configs and state dicts agree), and
+   tsm_r50_1x1x8 and tin_r50 again on the
    card with the TSM shift or TIN's shift switched off, planted faults that
    must fail that check; the training CLI on tsn_r50_1x1x3 (with validation),
    tsm_r50_1x1x8 and tin_r50 (1 epoch: 4, 4 and 5 steps at their batches of 8,
    8 and 6) and one more step profiled; the test CLI on the TSN checkpoint (9
-   views a video, 8 videos), its metrics in [0, 1]; and the refusals by name:
+   views a video, 4 videos), its metrics in [0, 1]; and the refusals by name:
    C3D (NTHWC clips) before its first step, the tsn and tsm video configs
-   (VideoDataset), tsn_r18_hvu (HVUDataset), tpn_tsm_r50 (the TPN neck), the
-   OmniSource config (its list of train sets) and tsn_r101_mmit (its
-   multi-class target). It fails unless every loss is finite and no kernel of
-   the port launched; it logs each trained config's steady ms, data-wait share,
-   profiled device ms and idle share and peak memory in a headline record;
+   (VideoDataset), tsn_r18_hvu (HVUDataset), the OmniSource config (its list
+   of train sets) and tsn_r101_mmit (its multi-class target). It fails unless
+   every loss is finite and no kernel of the port launched; it logs each
+   trained config's steady ms, data-wait share, profiled device ms and idle
+   share and peak memory in a headline record;
+14e. recognition_3d_zoo: the 3D recognition zoo and the TPN neck on 14c's
+   sets: card against CPU (as 14d, the CPU's runs in a pool) for the 11
+   configs the sweep builds in full (SlowFast r50 4x16 and 8x8 and r101,
+   R(2+1)D r18 and r34, X3D-M, ir-CSN r152, S3D, TimeSformer divST, TPN over
+   SlowOnly and over TSM), each its own model at full width and depth with
+   dropout 0 in the head (TPN's fixed aux dropout drawn from one CPU stream
+   on both devices), clips formatted NCTHW; the logits at the config's own
+   clip, the step check on a clip cut in frames and crop (ZOO_CONFIGS'
+   cuts: the CPU's float64 step on the own clip takes 9-85 s,
+   zoo_step_costs; widths, depth and SlowFast's ratios stay; TimeSformer's
+   step model takes the cut clip's size; X3D-M on two clips, ZOO_CLIPS),
+   and
+   SlowFast with its lateral convs' outputs zeroed and TimeSformer with its
+   temporal attention made the identity, planted faults that must fail it;
+   the training CLI on tpn_tsm_r50 as shipped (loss_aux logged and finite)
+   and on slowfast_r50_4x16x1 from a config derived from the shipped file
+   with every FormatShape NCTHW (with validation; then the test CLI on its
+   checkpoint, metrics in [0, 1]); the refusals by name: the other NTHWC
+   configs and SlowFast's as shipped before their first step (at one clip
+   a batch, as every phase's NTHWC refusals), x3d_s at its
+   data (a codec). No kernel of the port launches; a headline record as
+   14d's;
 15. pretrain_configs: every config of configs/recognition/moco (MSCL r18,
    the flagship, as a control; MSCL r50; MoCo r18 with MoCoAugmentV2, with
    SyncMoCoAugmentV2 at 'params' and at 'batch'; MoCo r50): its own model
@@ -492,7 +521,7 @@ PC_STEPS, PC_CLI_STEPS = 3, 8
 # each kernel a train step (2 towers or 1, and 2 or 4 in the Mx head)
 ABL_KERNEL_SHAPES = ((32, 128, 2048), (16, 32, 256))
 ABL_LAUNCHES = dict(moco=1, modist=4, mscl_nofra=4, mscl=7, mscl_nomds=7)
-ABL_STEPS, ABL_PROFILED = 5, 3      # the tool's steps; the one profiled
+ABL_STEPS, ABL_PROFILED = 4, 3      # the tool's steps; the one profiled
 ABL_AB_STEPS = 10                   # shufflebn_ab's steps a run
 # mscl_family: the flagship config with the MSF cross-modal head through
 # the training CLI (MF_STEPS steps over pretrain_cli's set, no validation),
@@ -511,13 +540,15 @@ MF_LOSSES = ('loss_circle_mx', 'loss_circle_mx_r', 'loss_circle_mx_aug',
              'loss_circle_mx_r_aug')
 # recognition_configs: a Kinetics-shaped rawframe set (RC_VIDEOS videos of
 # RC_FRAMES 256x340 JPEG frames, and the same as grey flow pairs; the
-# first RC_VAL the val and test set) and an NTU-shaped skeleton set
+# first RC_VAL the val and test set, cut from 8 to pay for
+# recognition_3d_zoo) and an NTU-shaped skeleton set
 # (RC_POSE samples of RC_POSE_FRAMES frames; heatmaps at RC_POSE_HW, a cut:
 # NTU's 1080x1920 would make 17 x 48 x 1080 x 1920 x 4 B = 6.8 GB of
 # heatmaps a sample); RC_STEPS steps of each trainable config at its own
 # batch (8, PoseC3D 16); card against CPU on RC_CHECK clips
-RC_VIDEOS, RC_FRAMES, RC_HW, RC_VAL = 32, 72, (256, 340), 8
+RC_VIDEOS, RC_FRAMES, RC_HW, RC_VAL = 32, 72, (256, 340), 4
 RC_POSE, RC_POSE_FRAMES, RC_POSE_HW = 64, 100, (56, 56)
+RC_RGB_TMPL = 'img_{:05}.jpg'       # the set's RGB frames
 RC_STEPS, RC_CHECK = 4, 2
 # card against CPU (recognition_card_vs_cpu): the card's float32 run
 # against the CPU's float32 and float64 runs. forward_test's logits before
@@ -566,25 +597,25 @@ RC_REFUSED = (('configs/skeleton/posec3d/'
 # (the first step of a config refused by the model; the rest before it)
 RC2D = 'configs/recognition/'
 RC2D_CHECK = 1
-RC2D_CONFIGS = (   # (label, config, set)
+RC2D_CONFIGS = (   # (label, config, set), the CPU's heaviest checks first
+    ('tsm_r50_1x1x16', 'tsm/tsm_r50_1x1x16_50e_kinetics400_rgb.py', 'rgb'),
+    ('tsn_r50_1x1x8', 'tsn/tsn_r50_1x1x8_100e_kinetics400_rgb.py', 'rgb'),
     ('tsn_r50_1x1x3', 'tsn/tsn_r50_1x1x3_100e_kinetics400_rgb.py', 'rgb'),
     ('tsn_r50_1x1x3_flow', 'tsn/tsn_r50_1x1x3_110e_kinetics400_flow.py',
      'flow'),
+    ('tsm_r50_1x1x8', 'tsm/tsm_r50_1x1x8_50e_kinetics400_rgb.py', 'rgb'),
+    ('tin_r50', 'tin/tin_r50_1x1x8_40e_sthv1_rgb.py', 'rgb'),
+    ('tanet_r50', 'tanet/tanet_r50_1x1x8_100e_kinetics400_rgb.py', 'rgb'),
+    ('trn_r50', 'trn/trn_r50_1x1x8_50e_sthv1_rgb.py', 'rgb'),
+    ('c3d', 'c3d/c3d_sports1m_16x1x1_45e_ucf101_rgb.py', 'rgb'),
+    ('tsm_mobilenetv2', 'mobilenet_v2/tsm_mobilenetv2_1x1x8_50e_'
+     'kinetics400_rgb.py', 'rgb'),
     ('tsn_r50_ucf101', 'tsn/tsn_r50_1x1x3_75e_ucf101_rgb.py', 'rgb'),
-    ('tsn_r50_1x1x8', 'tsn/tsn_r50_1x1x8_100e_kinetics400_rgb.py', 'rgb'),
     ('tsn_r50_sthv1', 'tsn/tsn_r50_1x1x8_50e_sthv1_rgb.py', 'rgb'),
     ('tsn_r101_mmit', 'tsn/tsn_r101_1x1x5_50e_mmit_rgb.py', 'rgb'),
-    ('tsm_r50_1x1x16', 'tsm/tsm_r50_1x1x16_50e_kinetics400_rgb.py', 'rgb'),
-    ('tsm_r50_1x1x8', 'tsm/tsm_r50_1x1x8_50e_kinetics400_rgb.py', 'rgb'),
     ('tsm_r50_sthv2', 'tsm/tsm_r50_1x1x8_50e_sthv2_rgb.py', 'rgb'),
     ('tsm_r50_dense', 'tsm/tsm_r50_dense_1x1x8_100e_kinetics400_rgb.py',
      'rgb'),
-    ('tin_r50', 'tin/tin_r50_1x1x8_40e_sthv1_rgb.py', 'rgb'),
-    ('tanet_r50', 'tanet/tanet_r50_1x1x8_100e_kinetics400_rgb.py', 'rgb'),
-    ('tsm_mobilenetv2', 'mobilenet_v2/tsm_mobilenetv2_1x1x8_50e_'
-     'kinetics400_rgb.py', 'rgb'),
-    ('trn_r50', 'trn/trn_r50_1x1x8_50e_sthv1_rgb.py', 'rgb'),
-    ('c3d', 'c3d/c3d_sports1m_16x1x1_45e_ucf101_rgb.py', 'rgb'),
     ('omnisource_tsn_r50', 'omnisource/tsn_r50_1x1x8_100e_minikinetics_'
      'rgb.py', 'rgb'))
 # the planted-fault controls: a config again on the card with its shift
@@ -592,6 +623,16 @@ RC2D_CONFIGS = (   # (label, config, set)
 # card-vs-CPU check must fail
 RC2D_FAULTS = {'tsm_r50_1x1x8': ('resnet2d', 'temporal_shift'),
                'tin_r50': ('resnet_tin', 'tin_shift')}
+# configs whose models differ only in cls_head.num_classes and dropout
+# (and test_cfg) and whose train clips agree in shape share one step check,
+# the first one's (rc2d_step_groups checks that); the others' logits are
+# held as every config's are
+RC2D_STEP_GROUPS = (('tsn_r50_1x1x3', 'tsn_r50_ucf101', 'tsn_r50_sthv1'),
+                    ('tsn_r50_1x1x8', 'omnisource_tsn_r50'),
+                    ('tsm_r50_1x1x8', 'tsm_r50_sthv2', 'tsm_r50_dense'))
+# the CPU's float32 and float64 runs of card_vs_cpu in RC_POOL spawned
+# workers of RC_POOL_THREADS threads (reference_pool)
+RC_POOL, RC_POOL_THREADS = 4, 2
 RC2D_TRAIN = (   # (label, validate)
     ('tsn_r50_1x1x3', True), ('tsm_r50_1x1x8', False), ('tin_r50', False))
 RC2D_NTHWC = (RC2D + 'c3d/c3d_sports1m_16x1x1_45e_ucf101_rgb.py',)
@@ -601,10 +642,56 @@ RC2D_REFUSED = (
     (RC2D + 'tsm/tsm_r50_video_1x1x8_50e_kinetics400_rgb.py', 'VideoDataset',
      'rgb'),
     (RC2D + 'tsn/tsn_r18_1x1x8_100e_hvu_action_rgb.py', 'HVUDataset', 'rgb'),
-    (RC2D + 'tpn/tpn_tsm_r50_1x1x8_150e_sthv1_rgb.py', 'TPN', 'rgb'),
     (RC2D + 'omnisource/tsn_r50_1x1x8_100e_minikinetics_rgb.py',
      'OmniSource', None),
     (RC2D + 'tsn/tsn_r101_1x1x5_50e_mmit_rgb.py', 'multi_class', 'rgb'))
+# recognition_3d_zoo: (label, config under configs/recognition/, the step
+# check's clip cut as (frames, crop) or None; a cut keeps SlowFast's
+# resample_rate and speed_ratio dividing the frames)
+ZOO = 'configs/recognition/'
+ZOO_CONFIGS = (   # the CPU's heaviest checks first
+    ('slowfast_r101_8x8x1', 'slowfast/slowfast_r101_8x8x1_256e_kinetics400_'
+     'rgb.py', (8, 128)),
+    ('timesformer_divST', 'timesformer/timesformer_divST_8x32x1_15e_'
+     'kinetics400_rgb.py', (4, 96)),
+    ('r2plus1d_r18', 'r2plus1d/r2plus1d_r18_8x8x1_180e_kinetics400_rgb.py',
+     (8, 112)),
+    ('slowfast_r50_8x8x1', 'slowfast/slowfast_r50_8x8x1_256e_kinetics400_'
+     'rgb.py', (16, 128)),
+    ('slowfast_r50_4x16x1', 'slowfast/slowfast_r50_4x16x1_256e_kinetics400_'
+     'rgb.py', (16, 128)),
+    ('ircsn_r152', 'csn/ircsn_r152_32x2x1_180e_kinetics400_rgb.py',
+     (8, 128)),
+    ('r2plus1d_r34', 'r2plus1d/r2plus1d_r34_8x8x1_180e_kinetics400_rgb.py',
+     (8, 96)),
+    ('tpn_slowonly_r50', 'tpn/tpn_slowonly_r50_8x8x1_150e_kinetics400_rgb.py',
+     (8, 128)),
+    ('tpn_tsm_r50', 'tpn/tpn_tsm_r50_1x1x8_150e_sthv1_rgb.py', (8, 128)),
+    ('s3d', 's3d/s3d_64x1x1_100e_kinetics400_rgb.py', (32, 128)),
+    ('x3d_m', 'x3d/x3d_m_16x5x1_facebook_kinetics400_rgb.py', (16, 160)))
+# the planted faults: a config again on the card with (module, class,
+# method) patched to break it; its card-vs-CPU check must fail
+ZOO_FAULTS = {
+    'slowfast_r50_4x16x1': ('resnet3d', 'ResNet3dSlowFast', '_laterals'),
+    'timesformer_divST': ('timesformer', 'DividedBlock', '_temporal')}
+# zoo_step_costs: a step check is cut where the CPU's float64 step on the
+# config's own clip takes over ZOO_STEP_S seconds; ZOO_WITNESS, the check
+# nearest its bound on one clip, gets a second witness (the card's float64)
+ZOO_STEP_S = 8.0
+ZOO_WITNESS = ('x3d_m', 'backbone.layer2.0.bn2.bias')
+# configs checked on more than RC2D_CHECK clips: X3D's SE squeezes a
+# train-mode BN's output, whose mean over one clip is the BN's bias
+# exactly, so on one clip its ReLU gates (and the SE and BN gradients)
+# are decided by rounding, on the card and on the CPU alike
+ZOO_CLIPS = {'x3d_m': 2}
+ZOO_PATHS = {label: ZOO + path for label, path, _ in ZOO_CONFIGS}
+ZOO_SLOWFAST = ZOO_PATHS['slowfast_r50_4x16x1']
+ZOO_TPN_TSM = ZOO_PATHS['tpn_tsm_r50']
+ZOO_NTHWC = tuple(ZOO + path for label, path, _ in ZOO_CONFIGS
+                  if label != 'tpn_tsm_r50')
+# a test-only config (data.test alone) refused at its data by the test CLI
+ZOO_TEST_REFUSED = (ZOO + 'x3d/x3d_s_13x6x1_facebook_kinetics400_rgb.py',
+                    'VideoDataset')
 ABL_JSON_KEYS = {'arm', 'scale', 'seed', 'steps', 'batch', 'K', 'hw', 'T',
                  'n_videos', 'platform', 'init', 'final', 'losses'}
 
@@ -2121,6 +2208,14 @@ def dp_steps(batch_path, ref_path=None, width='full', img_scale=None):
     return out
 
 
+def dp_steps_both(batch_path, ref_path, narrow_path):
+    """``dp_steps`` at full width against ``ref_path``, then narrowed
+    against ``narrow_path``, in one rank: the world-2 paths share one
+    spawn."""
+    return (dp_steps(batch_path, ref_path),
+            dp_steps(batch_path, narrow_path, 'narrow'))
+
+
 def dp_cli_rank(argv):
     """The training CLI's work on this rank (``tools.train._train``, what
     its launcher runs on each rank), instrumented: the records it logs,
@@ -2266,7 +2361,8 @@ def phase_pretrain_dp(root, pkls):
     the second step is ill-conditioned within DP_ULP_MULT times the ulp
     controls (world 1 with its images one ulp smaller and larger;
     ``dp_step_line``), and at the narrow width within DP_TOL for both
-    steps; every rank's state the same bitwise; (c) the full-width steps
+    steps (in the same two spawned ranks, after the full-width steps);
+    every rank's state the same bitwise; (c) the full-width steps
     at world 1 under NCCL, the launcher's path; (b) the training CLI
     through its launcher with ``--num-devices 2`` (two gloo ranks on the
     card, a global batch of 32) for 1 epoch of DP_CLI_STEPS steps, then a
@@ -2294,16 +2390,15 @@ def phase_pretrain_dp(root, pkls):
                       device='cuda', join_timeout_s=600)
     nccl_s = time.perf_counter() - t0
     dp_step_line('nccl_world1', nccl, ref_s, floor)
-    t0 = time.perf_counter()
-    gloo = dist.spawn(dp_steps, 2, (batch_path, ref_path), backend='gloo',
-                      device='cuda', join_timeout_s=600)
-    gloo_s = time.perf_counter() - t0
-    collectives = dp_step_line('gloo_world2', gloo, ref_s, floor)
     narrow_path = osp.join(root, 'dp_world1_narrow.pth')
     narrow_s = dp_reference(batch_path, narrow_path, 'narrow')['step_s'][-1]
-    dp_step_line('gloo_world2', dist.spawn(
-        dp_steps, 2, (batch_path, narrow_path, 'narrow'), backend='gloo',
-        device='cuda', join_timeout_s=600), narrow_s)
+    t0 = time.perf_counter()
+    both = dist.spawn(dp_steps_both, 2, (batch_path, ref_path, narrow_path),
+                      backend='gloo', device='cuda', join_timeout_s=600)
+    gloo_s = time.perf_counter() - t0
+    collectives = dp_step_line('gloo_world2', [b[0] for b in both], ref_s,
+                               floor)
+    dp_step_line('gloo_world2', [b[1] for b in both], narrow_s)
 
     t0 = time.perf_counter()
     work = osp.join(root, 'work_dp')
@@ -3438,16 +3533,11 @@ def narrow_recognizer(model_cfg):
     return cfg
 
 
-def _recognition_run(model_cfg, cfg, batch, dev, steps, fault=None,
-                     dtype=torch.float32, logits=True, at=None):
-    """forward_test's logits (eval mode, before any step; with
-    ``logits``), then with ``steps`` >= 1 one train step: its loss, each
-    parameter's gradient and update (the weights after it less those
-    before, as ``state``), in ``dtype`` (float32 without TF32, as the
-    port's train_model runs); with ``steps`` 2 the loss in train mode (no
-    backward, no update) at the weights after the step, or at ``at`` (a
-    state dict) where given. Under ``fault`` (a context manager, or None)
-    the whole run."""
+def _recognition_model(model_cfg, dev, dtype):
+    """A config's model on ``dev`` in ``dtype`` from seed 1 (float32
+    without TF32, as the port's train_model runs), logits from
+    forward_test; TRN's training subsets drawn from one CPU stream on every
+    device."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     model = build_model_from_cfg(dict(model_cfg, dtype=dtype), device=dev,
@@ -3455,35 +3545,71 @@ def _recognition_run(model_cfg, cfg, batch, dev, steps, fault=None,
     model.test_cfg['average_clips'] = None          # logits, not softmaxes
     head = model.cls_head
     if hasattr(head, 'relation_picks'):
-        # TRN's subsets in training from one CPU stream on both devices
         gen = torch.Generator().manual_seed(3)
         head.relation_picks = lambda n, k, device: (
             torch.randperm(n, generator=gen)[:k] if head.training and n > k
             else torch.arange(k)).to(device)
+    neck = getattr(model, 'neck', None)
+    if hasattr(neck, 'dropout_ratio'):
+        # TPN's fixed aux dropout: its masks from one CPU stream everywhere
+        ngen = torch.Generator().manual_seed(4)
+
+        def dropout(x, p=neck.dropout_ratio):
+            if not neck.training:
+                return x
+            keep = torch.rand(x.shape, generator=ngen) >= p
+            return torch.where(keep.to(x.device), x / (1 - p),
+                               torch.zeros_like(x))
+        neck.dropout = dropout
+    return model
+
+
+def _on(batch, dev, dtype):
     on_dev = to_torch(batch, dev)
     on_dev['imgs'] = on_dev['imgs'].to(dtype)
-    opt = build_optimizer(
-        model, cfg.optimizer.to_dict(),
-        build_lr_schedule({}, cfg.optimizer['lr'], 1, 2),
-        grad_clip=(cfg.get('optimizer_config') or {}).get('grad_clip'))
+    return on_dev
+
+
+def _recognition_run(model_cfg, cfg, batch, dev, steps, fault=None,
+                     dtype=torch.float32, logits=True, at=None,
+                     step_batch=None, step_cfg=None):
+    """forward_test's logits (eval mode, before any step; with
+    ``logits``), then with ``steps`` >= 1 one train step: its loss, each
+    parameter's gradient and update (the weights after it less those
+    before, as ``state``), in ``dtype``; with ``steps`` 2 the loss in
+    train mode (no backward, no update) at the weights after the step, or
+    at ``at`` (a state dict) where given. The steps take ``step_batch``
+    (the batch cut, or None: ``batch``) through the model of ``step_cfg``
+    (None: ``model_cfg``'s). Under ``fault`` (a context manager, or None)
+    the whole run. Gradients and updates stay in ``dtype``, on the CPU."""
+    model = _recognition_model(model_cfg, dev, dtype)
     out = dict(losses=[], grads={}, updates={})
     with fault or contextlib.nullcontext():
         if logits:
             model.eval()
             with torch.no_grad():
-                out['logits'] = model.forward_test(on_dev['imgs']).cpu() \
-                    .double()
-        if steps:
-            before = {n: q.detach().clone()
-                      for n, q in model.named_parameters()}
-            out['losses'].append(
-                make_train_step(model, opt)(on_dev)['loss'].item())
-            for n, q in model.named_parameters():
-                if q.grad is not None:
-                    out['grads'][n] = q.grad.cpu().double()
-                    out['updates'][n] = (q.detach() - before[n]).cpu() \
-                        .double()
-            out['state'] = {k: v.cpu() for k, v in model.state_dict().items()}
+                out['logits'] = model.forward_test(
+                    _on(batch, dev, dtype)['imgs']).cpu().double()
+        if not steps:
+            return out
+        if step_cfg is not None:
+            del model
+            model = _recognition_model(step_cfg, dev, dtype)
+        on_dev = _on(batch if step_batch is None else step_batch, dev,
+                     dtype)
+        opt = build_optimizer(
+            model, cfg.optimizer.to_dict(),
+            build_lr_schedule({}, cfg.optimizer['lr'], 1, 2),
+            grad_clip=(cfg.get('optimizer_config') or {}).get('grad_clip'))
+        before = {n: q.detach().clone()
+                  for n, q in model.named_parameters()}
+        out['losses'].append(
+            make_train_step(model, opt)(on_dev)['loss'].item())
+        for n, q in model.named_parameters():
+            if q.grad is not None:
+                out['grads'][n] = q.grad.cpu()
+                out['updates'][n] = (q.detach() - before[n]).cpu()
+        out['state'] = {k: v.cpu() for k, v in model.state_dict().items()}
         if steps > 1:
             if at is not None:
                 model.load_state_dict(at)
@@ -3495,9 +3621,13 @@ def _recognition_run(model_cfg, cfg, batch, dev, steps, fault=None,
 def _rel_errors(got, ref):
     """Each parameter's tensor in ``got`` (a dict by name): the norm of its
     gap from ``ref``'s over the norm of ``ref``'s."""
-    return {n: ((got[n] - r).norm() / r.norm()).item() if r.norm() > 0
-            else (0.0 if got[n].norm() == 0 else math.inf)
-            for n, r in ref.items() if n in got}
+    out = {}
+    for n, r in ref.items():
+        if n in got:
+            r, g = r.double(), got[n].double()
+            out[n] = ((g - r).norm() / r.norm()).item() if r.norm() > 0 \
+                else (0.0 if g.norm() == 0 else math.inf)
+    return out
 
 
 def _leaf_shares(card, cpu, ref, key):
@@ -3552,8 +3682,8 @@ def _recognition_held(err):
             for k in ('loss_share', 'grad_share', 'update_share'))
 
 
-def recognition_card_vs_cpu(cfg, sets, kind, model_cfg, clips, steps,
-                            fault=None):
+def recognition_card_vs_cpu(pool, cfg, sets, kind, model_cfg, clips, steps,
+                            fault=None, cut=None):
     """A config's model (``model_cfg``) on the card in float32 and on the
     CPU in float32 and float64 from the same weights, on one batch of
     ``clips`` clips from the config's own train pipeline
@@ -3570,29 +3700,114 @@ def recognition_card_vs_cpu(cfg, sets, kind, model_cfg, clips, steps,
     held against the CPU's float32 (its gap from float64, about 1e-6,
     lies far under their bounds). With ``fault`` (a context manager that
     breaks the model: the planted-fault control) the card's run, to its
-    first step, is made again under it and must fail."""
+    first step, is made again under it and must fail.
+
+    ``cut`` (or None), a function of the batch and ``model_cfg``, gives
+    the steps' batch and model config (a clip cut in frames and crop, and
+    for TimeSformer the model of that clip; ``recognition_3d_zoo``); the
+    logits stay at the config's own clip. The card runs here and the
+    CPU's runs in a worker of ``pool`` (a ``reference_pool``); the
+    returned function waits for them and raises if the check fails."""
     batch = _recognition_batch(cfg, sets, kind, clips)
-    card = _recognition_run(model_cfg, cfg, batch, 'cuda', steps)
-    cpu = _recognition_run(model_cfg, cfg, batch, 'cpu', steps,
-                           at=card.get('state'))
-    ref = _recognition_run(model_cfg, cfg, batch, 'cpu', min(steps, 1),
-                           dtype=torch.float64, logits=False)
+    step_batch, step_cfg = cut(batch, model_cfg) if cut else (None, None)
+    task = dict(cfg=cfg.filename, model_cfg=model_cfg, batch=batch,
+                steps=steps, step_batch=step_batch, step_cfg=step_cfg)
+    t0 = time.perf_counter()
+    task['card'] = _recognition_run(model_cfg, cfg, batch, 'cuda', steps,
+                                    step_batch=step_batch, step_cfg=step_cfg)
+    if fault is not None:
+        task['fault'] = _recognition_run(
+            model_cfg, cfg, batch, 'cuda', min(steps, 1), fault,
+            step_batch=step_batch, step_cfg=step_cfg)
+    card_s = time.perf_counter() - t0
+    shape = list(batch['imgs'].shape)
+    step_shape = None if step_batch is None else \
+        list(step_batch['imgs'].shape)
+    future = pool.submit(_cpu_reference, task)
+    return lambda: _recognition_held_or_raise(cfg, shape, step_shape,
+                                              card_s, *future.result())
+
+
+def _cpu_reference(task):
+    """The CPU's side of ``recognition_card_vs_cpu`` for one config, in a
+    ``reference_pool`` worker: its float32 run (the second loss at the
+    card's updated weights) and its float64 run, and the card's errors
+    against them (and the planted fault's). Returns (errors, the fault's
+    errors or None, the seconds of the CPU's float32 and float64 runs)."""
+    t0 = time.perf_counter()
+    cfg = Config.fromfile(task['cfg'])
+    card, steps = task['card'], task['steps']
+    kw = dict(step_batch=task['step_batch'], step_cfg=task['step_cfg'])
+    cpu = _recognition_run(task['model_cfg'], cfg, task['batch'], 'cpu',
+                           steps, at=card.get('state'), **kw)
+    t1 = time.perf_counter()
+    ref = _recognition_run(task['model_cfg'], cfg, task['batch'], 'cpu',
+                           min(steps, 1), dtype=torch.float64, logits=False,
+                           **kw)
     err = _recognition_errors(card, cpu, ref)
+    fault = _recognition_errors(task['fault'], cpu, ref) \
+        if task.get('fault') is not None else None
+    return err, fault, dict(float32=t1 - t0,
+                            float64=time.perf_counter() - t1)
+
+
+def _recognition_held_or_raise(cfg, shape, step_shape, card_s, err, fault,
+                               cpu_s):
     if not _recognition_held(err):
         raise AssertionError(f'{cfg.filename}: card vs CPU: {err}')
-    out = dict(imgs=list(batch['imgs'].shape), **err)
+    out = dict(imgs=shape, **err, card_s=card_s,
+               cpu_s=sum(cpu_s.values()), cpu_float64_s=cpu_s['float64'])
+    if step_shape is not None:
+        out['step_imgs'] = step_shape
     if fault is not None:
-        out['fault'] = _recognition_errors(_recognition_run(
-            model_cfg, cfg, batch, 'cuda', min(steps, 1), fault), cpu, ref)
-        if _recognition_held(out['fault']):
+        out['fault'] = fault
+        if _recognition_held(fault):
             raise AssertionError(f'the planted fault passed: {out}')
     return out
+
+
+def _pool_task(fn, path):
+    """A reference_pool worker's call: fn of the task in the file ``path``
+    (removed here) on RC_POOL_THREADS threads."""
+    torch.set_num_threads(RC_POOL_THREADS)
+    task = torch.load(path, weights_only=False)
+    os.remove(path)
+    return fn(task)
+
+
+class reference_pool(contextlib.AbstractContextManager):
+    """RC_POOL spawned CPU workers of RC_POOL_THREADS torch threads each
+    for ``_cpu_reference`` (a float64 convolution on one clip runs on one
+    thread, so the configs' CPU runs go side by side), and a directory for
+    their tasks. Only the card's side of the same phase runs beside them,
+    never a CLI or a decode phase; on exit every worker is stopped."""
+
+    def __init__(self, root):
+        import concurrent.futures
+        import multiprocessing
+        self.dir = tempfile.mkdtemp(prefix='cpu_refs_', dir=root)
+        self._tasks = 0
+        self._pool = concurrent.futures.ProcessPoolExecutor(
+            RC_POOL, mp_context=multiprocessing.get_context('spawn'))
+
+    def submit(self, fn, task):
+        """fn(task) in a worker (a module-level function of a dict), the
+        task passed through a file."""
+        path = osp.join(self.dir, f'task_{self._tasks}.pt')
+        self._tasks += 1
+        torch.save(task, path)
+        return self._pool.submit(_pool_task, fn, path)
+
+    def __exit__(self, *exc):
+        self._pool.shutdown(wait=True, cancel_futures=True)
+        shutil.rmtree(self.dir, ignore_errors=True)
+        return False
 
 
 def _recognition_batch(cfg, sets, kind, clips):
     """One batch of ``clips`` clips from the config's own train pipeline
     over the phase's set (the first set of a list; NTHWC clips formatted
-    NCTHW)."""
+    NCTHW; RGB frames named as the set names them)."""
     from mscl_torch.datasets import build_dataset
     from mscl_torch.datasets.loader import default_collate
     prefix, train, _ = sets[kind]
@@ -3601,6 +3816,8 @@ def _recognition_batch(cfg, sets, kind, clips):
     ds_cfg['ann_file'] = train
     if prefix:
         ds_cfg['data_prefix'] = prefix
+    if kind == 'rgb' and 'filename_tmpl' in ds_cfg:
+        ds_cfg['filename_tmpl'] = RC_RGB_TMPL      # the set's frame names
     for step_cfg in ds_cfg['pipeline']:
         if step_cfg.get('input_format') == 'NTHWC':
             step_cfg['input_format'] = 'NCTHW'
@@ -3610,14 +3827,14 @@ def _recognition_batch(cfg, sets, kind, clips):
     return default_collate([dataset[i] for i in range(clips)])
 
 
-def recognition_train(cfg_path, sets, kind, validate, work):
+def recognition_train(cfg_path, sets, kind, validate, work, options=()):
     """The training CLI on a config file over the phase's set: 1 epoch at
     the config's batch (RC_STEPS steps at a batch of 8; TIN's 6 takes 5),
     validation where asked, then one more step profiled. Fails unless
     every loss is finite and neither decayed InfoNCE nor the lookup
     launched."""
     argv = [cfg_path, '--seed', '0', '--cfg-options',
-            *recognition_options(sets, kind, work)]
+            *recognition_options(sets, kind, work), *options]
     if validate:
         argv.insert(1, '--validate')
     torch.cuda.synchronize()
@@ -3663,16 +3880,17 @@ def recognition_train(cfg_path, sets, kind, validate, work):
 
 def recognition_refusals(sets, root, nthwc=RC_NTHWC, refused=RC_REFUSED):
     """The configs the port refuses by name: the NTHWC ones stop before
-    their first step with Recognizer3D's message; each of ``refused``
-    names its word (the PoseC3D limb config left_kp, a video config its
-    video reader)."""
+    their first step with Recognizer3D's message (at one clip a batch: the
+    channel check reads the clip's shape, not the batch's size); each of
+    ``refused`` names its word (the PoseC3D limb config left_kp, a video
+    config its video reader)."""
     out = {}
     for name in nthwc:
         work = osp.join(root, 'refused_' + name.split('/')[-1])
         try:
             cli_run(train_cli.main, [name, '--seed', '0', '--cfg-options',
-                                     *recognition_options(sets, 'rgb',
-                                                          work)])
+                                     *recognition_options(sets, 'rgb', work),
+                                     'data.videos_per_gpu=1'])
         except ValueError as e:
             if "FormatShape('NTHWC')" not in str(e):
                 raise
@@ -3709,13 +3927,18 @@ def phase_recognition_configs(root):
     t0 = time.perf_counter()
     sets = write_recognition_sets(root)
     write_s = time.perf_counter() - t0
+    pending = {}
+    with reference_pool(root) as pool:      # stopped before the CLI runs
+        for name, cfg_path, kind, _ in RECOGNITION_CONFIGS:
+            cfg = Config.fromfile(cfg_path)
+            pending[name] = recognition_card_vs_cpu(
+                pool, cfg, sets, kind,
+                narrow_recognizer(cfg.model.to_dict()), RC_CHECK,
+                RC_CHECK_STEPS)
+        checks = {name: finish() for name, finish in pending.items()}
     rows = {}
     for name, cfg_path, kind, validate in RECOGNITION_CONFIGS:
-        cfg = Config.fromfile(cfg_path)
-        check = recognition_card_vs_cpu(
-            cfg, sets, kind, narrow_recognizer(cfg.model.to_dict()),
-            RC_CHECK, RC_CHECK_STEPS)
-        rows[name] = dict(card_vs_cpu=check, **recognition_train(
+        rows[name] = dict(card_vs_cpu=checks[name], **recognition_train(
             cfg_path, sets, kind, validate, osp.join(root, name)))
         log(phase='recognition_config', config=cfg_path, **rows[name])
     dense = RECOGNITION_CONFIGS[0][1]
@@ -3765,13 +3988,53 @@ def full_width_check_cfg(model_cfg):
     return cfg
 
 
+def rc2d_step_groups(paths):
+    """Each config of RC2D_STEP_GROUPS -> its group's first (the one whose
+    step check it shares), after checking that the group's model configs
+    differ only in cls_head.num_classes and dropout_ratio, test_cfg and an
+    empty train_cfg, and that their models, built on the meta device,
+    have the same state dict keys and shapes but for the classifier's.
+    The optimizer settings may differ (tsn_r50_ucf101's lr is 0.00128,
+    its leader's 0.01): the shared step's update holds the leader's
+    optimizer and grad_clip only; a follower's own are not held."""
+    from mscl_torch.models import RECOGNIZERS
+
+    def plain(label):
+        cfg = Config.fromfile(paths[label]).model.to_dict()
+        cfg.pop('test_cfg', None)
+        if cfg.get('train_cfg') is None:
+            cfg.pop('train_cfg', None)
+        for key in ('num_classes', 'dropout_ratio'):
+            cfg['cls_head'].pop(key, None)
+        return cfg
+
+    def shapes(label):
+        cfg = Config.fromfile(paths[label]).model.to_dict()
+        with torch.device('meta'):
+            model = RECOGNIZERS.get(cfg.pop('type'))(**cfg)
+        return {k: tuple(v.shape) for k, v in model.state_dict().items()
+                if not k.startswith('cls_head.fc_cls')}
+    leader = {}
+    for group in RC2D_STEP_GROUPS:
+        first = group[0]
+        for label in group[1:]:
+            if plain(label) != plain(first) or shapes(label) != \
+                    shapes(first):
+                raise AssertionError(f'{label} does not build {first}\'s '
+                                     f'model: no shared step check')
+            leader[label] = first
+    return leader
+
+
 def phase_recognition_2d(root, sets):
     """The frame-based recipes (TSN, TSM, TIN, TANet, TRN, MobileNetV2-TSM,
     OmniSource's TSN) and C3D on recognition_configs' sets: card against
-    CPU for every config of RC2D_CONFIGS, the training CLI on RC2D_TRAIN,
-    the test CLI on the first one's checkpoint, and the refusals. Each
-    config runs its own model, batch, segments, crop and in_channels,
-    float32; none launches a kernel of the port."""
+    CPU for every config of RC2D_CONFIGS (the CPU's runs in a
+    reference_pool; a config of RC2D_STEP_GROUPS holds its logits and
+    shares its group's first's step check), the training CLI on
+    RC2D_TRAIN, the test CLI on the first one's checkpoint, and the
+    refusals. Each config runs its own model, batch, segments, crop and
+    in_channels, float32; none launches a kernel of the port."""
     from unittest import mock
     from mscl_torch.apis import inference
     t_phase = time.perf_counter()
@@ -3779,24 +4042,36 @@ def phase_recognition_2d(root, sets):
     os.makedirs(root)
     paths = {label: RC2D + path for label, path, _ in RC2D_CONFIGS}
     kinds = {label: kind for label, _, kind in RC2D_CONFIGS}
-    checks = {}
+    leader = rc2d_step_groups(paths)
+    pending = {}
     t0 = time.perf_counter()
-    for label, path in paths.items():
-        cfg = Config.fromfile(path)
-        fault = mock.patch.object(
-            importlib.import_module('mscl_torch.models.backbones.' +
-                                    RC2D_FAULTS[label][0]),
-            RC2D_FAULTS[label][1], lambda x, *_: x) \
-            if label in RC2D_FAULTS else None
-        # tsn_r101_mmit's multi-class target is refused in training, as
-        # the JAX Recognizer2D fails on it (ROADMAP.md Queue 3): no steps
-        checks[label] = recognition_card_vs_cpu(
-            cfg, sets, kinds[label],
-            full_width_check_cfg(cfg.model.to_dict()), RC2D_CHECK,
-            0 if label == 'tsn_r101_mmit' else RC_CHECK_STEPS, fault)
-        log(phase='recognition_2d_card_vs_cpu', config=path,
-            **checks[label])
-        torch.cuda.empty_cache()
+    with reference_pool(root) as pool:
+        for label, path in paths.items():
+            cfg = Config.fromfile(path)
+            fault = mock.patch.object(
+                importlib.import_module('mscl_torch.models.backbones.' +
+                                        RC2D_FAULTS[label][0]),
+                RC2D_FAULTS[label][1], lambda x, *_: x) \
+                if label in RC2D_FAULTS else None
+            # tsn_r101_mmit's multi-class target is refused in training,
+            # as the JAX Recognizer2D fails on it (ROADMAP.md Queue 3): no
+            # steps; a config of a step group but its first: its logits
+            steps = 0 if label == 'tsn_r101_mmit' or label in leader \
+                else RC_CHECK_STEPS
+            pending[label] = recognition_card_vs_cpu(
+                pool, cfg, sets, kinds[label],
+                full_width_check_cfg(cfg.model.to_dict()), RC2D_CHECK,
+                steps, fault)
+            torch.cuda.empty_cache()
+        checks = {}
+        for label, finish in pending.items():
+            checks[label] = finish()
+            log(phase='recognition_2d_card_vs_cpu', config=paths[label],
+                step_check_of=leader.get(label, label), **checks[label])
+    for label, first in leader.items():
+        if checks[label]['imgs'] != checks[first]['imgs']:
+            raise AssertionError(f'{label}\'s clips are not {first}\'s: '
+                                 f'{checks[label]["imgs"]}')
     check_s = time.perf_counter() - t0
     rows = {}
     for label, validate in RC2D_TRAIN:
@@ -3830,11 +4105,11 @@ def phase_recognition_2d(root, sets):
         card_vs_cpu_s=check_s, seconds=seconds)
     log(phase='recognition_2d', headline=dict(
         checks=f'card_vs_cpu ({len(checks)} configs at full width: logits, '
-               f'losses, gradients, updates against float64; the planted '
-               f'faults '
-               f'failed it), finite '
-               f'losses, 0 kernel launches, test metrics, '
-               f'{len(refusals)} refusals',
+               f'losses, gradients, updates against float64, '
+               f'{len(checks) - len(leader) - 1} step checks; the planted '
+               f'faults failed it), finite losses, 0 kernel launches, test '
+               f'metrics, {len(refusals)} refusals',
+        cpu_refs_s=round(sum(c['cpu_s'] for c in checks.values()), 1),
         seconds=round(seconds, 1), card_vs_cpu_s=round(check_s, 1),
         worst_card_vs_cpu={key: [k, _short(checks[k][key])]
                            for key, k in worst.items()},
@@ -3850,6 +4125,243 @@ def phase_recognition_2d(root, sets):
                  for k, r in rows.items()},
         keys='steady_ms, data_wait_share, device_ms, idle_share, '
              'peak_GiB'))
+
+
+def zoo_cut(frames, crop):
+    """``recognition_card_vs_cpu``'s cut: the first ``frames`` frames of
+    each clip (T is dim -3 of (..., C, T, H, W); a Recognizer2D batch
+    (B, segments, C, H, W) keeps its segments) and its centre
+    ``crop`` x ``crop``; for TimeSformer the step model of that clip
+    (img_size, num_frames)."""
+    def cut(batch, model_cfg):
+        imgs = batch['imgs']
+        if imgs.ndim == 6:
+            imgs = imgs[..., :frames, :, :]
+        h, w = imgs.shape[-2:]
+        top, left = (h - crop) // 2, (w - crop) // 2
+        imgs = np.ascontiguousarray(
+            imgs[..., top:top + crop, left:left + crop])
+        step_cfg = None
+        if model_cfg['backbone']['type'] == 'TimeSformer':
+            step_cfg = json.loads(json.dumps(model_cfg))
+            step_cfg['backbone'].update(img_size=crop, num_frames=frames)
+        return dict(batch, imgs=imgs), step_cfg
+    return cut
+
+
+def zoo_slowfast_ncthw(root):
+    """slowfast_r50_4x16x1 derived from the shipped file, every
+    FormatShape NCTHW, written as a config file under ``root``."""
+    cfg = Config.fromfile(ZOO_SLOWFAST).to_dict()
+    for split in ('train', 'val', 'test'):
+        for step in cfg['data'][split]['pipeline']:
+            if step['type'] == 'FormatShape':
+                step['input_format'] = 'NCTHW'
+    path = osp.join(root, 'slowfast_r50_4x16x1_ncthw.py')
+    with open(path, 'w') as f:
+        f.write('# slowfast_r50_4x16x1_256e_kinetics400_rgb.py, every '
+                'FormatShape NCTHW\n')
+        for key, value in cfg.items():
+            f.write(f'{key} = {value!r}\n')
+    return path
+
+
+def zoo_test_refusal(root):
+    """x3d_s, a test-only config, refused by the test CLI at its data (a
+    video codec): its model from seed 0 saved as a checkpoint, then the
+    test CLI on the file and that checkpoint."""
+    from mscl_torch.core import save_checkpoint, train_state
+    path, word = ZOO_TEST_REFUSED
+    work = osp.join(root, 'refused_' + osp.basename(path))
+    model = build_model_from_cfg(Config.fromfile(path).model.to_dict(),
+                                 device='cpu')
+    opt = build_optimizer(model, dict(type='SGD', lr=0.0),
+                          build_lr_schedule({}, 0.0, 1, 1))
+    ckpt = save_checkpoint(train_state(model, opt), work, 0)
+    try:
+        cli_run(test_cli.main, [path, ckpt, '--cfg-options',
+                                f'work_dir={work}'])
+    except NotImplementedError as e:
+        if word not in str(e):
+            raise
+        return {path: str(e)[:60]}
+    raise AssertionError(f'{path} was not refused')
+
+
+def phase_recognition_3d_zoo(root, sets):
+    """The 3D recognition zoo and the TPN neck on recognition_configs'
+    sets: card against CPU for every config of ZOO_CONFIGS (the CPU's runs
+    in a reference_pool, the step checks on the clips ZOO_CONFIGS cuts) with the
+    planted faults of ZOO_FAULTS, the training CLI on tpn_tsm_r50 as
+    shipped and on the NCTHW-derived slowfast_r50_4x16x1 (with validation)
+    and the test CLI on its checkpoint, and the refusals. Float32; no
+    kernel of the port launches."""
+    from unittest import mock
+    from mscl_torch.apis import inference
+    t_phase = time.perf_counter()
+    root = osp.join(root, 'recognition_3d_zoo')
+    os.makedirs(root)
+    reset_launch_counts()
+    pending = {}
+    t0 = time.perf_counter()
+    with reference_pool(root) as pool:
+        for label, path, frames_crop in ZOO_CONFIGS:
+            cfg = Config.fromfile(ZOO + path)
+            fault = None
+            if label in ZOO_FAULTS:
+                module, cls, method = ZOO_FAULTS[label]
+                owner = getattr(importlib.import_module(
+                    'mscl_torch.models.backbones.' + module), cls)
+                real = getattr(owner, method)
+                broken = (lambda self, srcs, real=real:
+                          [0 * y for y in real(self, srcs)]) \
+                    if method == '_laterals' else (lambda self, xt: xt)
+                fault = mock.patch.object(owner, method, broken)
+            pending[label] = recognition_card_vs_cpu(
+                pool, cfg, sets, 'rgb',
+                full_width_check_cfg(cfg.model.to_dict()),
+                ZOO_CLIPS.get(label, RC2D_CHECK), RC_CHECK_STEPS, fault,
+                cut=zoo_cut(*frames_crop) if frames_crop else None)
+            torch.cuda.empty_cache()
+        checks = {}
+        for label, finish in pending.items():
+            checks[label] = finish()
+            log(phase='recognition_3d_zoo_card_vs_cpu', config=label,
+                **checks[label])
+    check_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows = {}
+    tsm_work = osp.join(root, 'tpn_tsm_r50')
+    rows['tpn_tsm_r50'] = recognition_train(
+        ZOO_TPN_TSM, sets, 'rgb', False, tsm_work,
+        [f'data.train.filename_tmpl={RC_RGB_TMPL}'])
+    aux = [r.get('loss_aux') for r in read_log(tsm_work)
+           if r['mode'] == 'train']
+    if not aux or not all(a is not None and math.isfinite(a) for a in aux):
+        raise AssertionError(f'tpn_tsm_r50: loss_aux {aux}')
+    rows['tpn_tsm_r50']['loss_aux'] = aux
+    slowfast = zoo_slowfast_ncthw(root)
+    sf_work = osp.join(root, 'slowfast_r50_4x16x1')
+    rows['slowfast_r50_4x16x1'] = recognition_train(
+        slowfast, sets, 'rgb', True, sf_work)
+    for label in rows:
+        log(phase='recognition_3d_zoo_config', config=label, **rows[label])
+    loop_s, restore = timed_calls(inference, 'run_test')
+    try:
+        metrics, launches, test_s = cli_run(test_cli.main, [
+            slowfast, osp.join(sf_work, 'epoch_1.pth'), '--out',
+            osp.join(sf_work, 'test.json'), '--cfg-options',
+            *recognition_options(sets, 'rgb', sf_work)])
+    finally:
+        restore()
+    if any(launches.values()) or not all(0 <= v <= 1
+                                         for v in metrics.values()):
+        raise AssertionError(f'test CLI: {metrics}, {launches}')
+    cli_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    refusals = recognition_refusals(sets, root, ZOO_NTHWC, ())
+    refusals.update(zoo_test_refusal(root))
+    refusals_s = time.perf_counter() - t0
+    launched = dict(l_neg=di.l_neg.launches, dq=di.dq.launches,
+                    corr_lookup=cl.corr_lookup.launches)
+    if any(launched.values()):
+        raise AssertionError(f'recognition_3d_zoo launched {launched}')
+    seconds = time.perf_counter() - t_phase
+    # the SlowFast test pipeline: 1 clip of 32 frames, ThreeCrop 256
+    test = dict(videos=RC_VAL, views_a_video=3, metrics=metrics,
+                videos_per_s=RC_VAL / test_s,
+                loop_videos_per_s=RC_VAL / sum(loop_s))
+    worst = {key: max(checks, key=lambda k: checks[k][key] or 0)
+             for key in ('logit_share', 'loss_share', 'grad_share',
+                         'update_share')}
+    log(phase='recognition_3d_zoo', test_cli=test, refusals=refusals,
+        card_vs_cpu_s=check_s, cli_s=cli_s, refusals_s=refusals_s,
+        seconds=seconds, launches=launched)
+    log(phase='recognition_3d_zoo', headline=dict(
+        checks=f'card_vs_cpu ({len(checks)} configs at full width: logits '
+               f'at their own clip, losses, gradients, updates against '
+               f'float64 on the cut clips; the planted faults failed it), '
+               f'finite losses and loss_aux, 0 kernel launches, test '
+               f'metrics, {len(refusals)} refusals',
+        seconds=round(seconds, 1), card_vs_cpu_s=round(check_s, 1),
+        cli_s=round(cli_s, 1), refusals_s=round(refusals_s, 1),
+        cpu_refs_s=round(sum(c['cpu_s'] for c in checks.values()), 1),
+        worst_card_vs_cpu={key: [k, _short(checks[k][key])]
+                           for key, k in worst.items()},
+        faults={label: {key: _short(v) for key, v in
+                        checks[label]['fault'].items()}
+                for label in ZOO_FAULTS},
+        test_videos_per_s=round(test['videos_per_s'], 2),
+        configs={k: [round(r['steady_ms'], 1),
+                     round(r['data_wait_share'], 3),
+                     round(r['device_ms'], 1),
+                     round(r['idle_share'], 3),
+                     round(r['peak_bytes'] / 2 ** 30, 2)]
+                 for k, r in rows.items()},
+        keys='steady_ms, data_wait_share, device_ms, idle_share, '
+             'peak_GiB'))
+
+
+def _float64_step_seconds(task):
+    """A reference_pool worker's float64 train step of a config's model
+    on its own clip (``_recognition_run``): its seconds."""
+    t0 = time.perf_counter()
+    _recognition_run(task['model_cfg'], Config.fromfile(task['cfg']),
+                     task['batch'], 'cpu', 1, dtype=torch.float64,
+                     logits=False)
+    return time.perf_counter() - t0
+
+
+def zoo_step_costs(root, sets):
+    """The measurement behind ZOO_CONFIGS' cuts, not part of the smoke
+    run: each config's CPU float64 train step on its own (uncut) clip, in
+    a reference_pool with every worker busy, as recognition_3d_zoo's
+    checks run; a config whose step takes over ZOO_STEP_S is cut. Then
+    for ZOO_WITNESS (config, parameter) on one clip, its own and cut: the
+    card's float64 gradients against the CPU's float64, and the card's
+    float32 check at the own clip (ZOO_CLIPS' note). Logs
+    ``zoo_step_cost`` lines. On the
+    card: python3 -c "import os.path as osp, tempfile, chip_smoke as c;
+    r = osp.join(tempfile.mkdtemp(), 'recognition');
+    c.zoo_step_costs(r, c.write_recognition_sets(r))"."""
+    os.makedirs(root, exist_ok=True)
+    cfgs = {label: Config.fromfile(ZOO + path)
+            for label, path, _ in ZOO_CONFIGS}
+    models = {label: full_width_check_cfg(cfg.model.to_dict())
+              for label, cfg in cfgs.items()}
+    with reference_pool(root) as pool:
+        pending = {label: pool.submit(_float64_step_seconds, dict(
+            cfg=cfg.filename, model_cfg=models[label],
+            batch=_recognition_batch(cfg, sets, 'rgb', RC2D_CHECK)))
+            for label, cfg in cfgs.items()}
+        for label, future in pending.items():
+            seconds = future.result()
+            log(phase='zoo_step_cost', config=label,
+                own_clip_float64_s=seconds, cut=seconds > ZOO_STEP_S)
+        label, leaf = ZOO_WITNESS
+        cfg, frames_crop = cfgs[label], dict(
+            (c[0], c[2]) for c in ZOO_CONFIGS)[label]
+        batch = _recognition_batch(cfg, sets, 'rgb', RC2D_CHECK)
+        for clip, (step_batch, step_cfg) in (
+                ('own', (batch, None)),
+                ('cut', zoo_cut(*frames_crop)(batch, models[label]))):
+            card, cpu = (_recognition_run(
+                models[label], cfg, batch, dev, 1, dtype=torch.float64,
+                logits=False, step_batch=step_batch, step_cfg=step_cfg)
+                for dev in ('cuda', 'cpu'))
+            rel = _rel_errors(card['grads'], cpu['grads'])
+            worst = max(rel, key=rel.get)
+            log(phase='zoo_step_cost', witness=label, clip=clip,
+                imgs=list(step_batch['imgs'].shape), leaf=leaf,
+                card64_rel=rel[leaf], worst=worst, worst_rel=rel[worst])
+        try:
+            check = recognition_card_vs_cpu(
+                pool, cfg, sets, 'rgb', models[label], RC2D_CHECK,
+                RC_CHECK_STEPS)()
+        except AssertionError as e:
+            check = dict(failed=str(e))
+        log(phase='zoo_step_cost', witness=label, clip='own',
+            float32_check=check)
 
 
 def phase_pretrain_configs(dev, root, pkls):
@@ -4589,6 +5101,8 @@ def run_phases(out):
         rc_root, rc_sets = run('recognition_configs',
                                phase_recognition_configs, root)
         run('recognition_2d', phase_recognition_2d, rc_root, rc_sets)
+        run('recognition_3d_zoo', phase_recognition_3d_zoo, rc_root,
+            rc_sets)
         run('pretrain_configs', phase_pretrain_configs, dev, root, pkls)
         run('ablation_arms', phase_ablation_arms, dev, root)
         run('mscl_family', phase_mscl_family, dev, root, pkls, ft_pkls,

@@ -45,6 +45,23 @@ block ``layer{i}_{j}_nonlocal`` (``g``, ``theta``, ``phi``, ``conv_out``,
 ``l_conv2``); C3D's ``conv1a`` .. ``conv5b`` (with biases); the TRN head's
 ``fc_cls``, ``scale{k}_fc1`` / ``_fc2`` and ``fusion_fc1`` / ``_fc2``.
 
+So does the 3D zoo: SlowFast's ``fast_path`` / ``slow_path`` (ResNet3d
+names) and its bias-free ``lateral_{i}`` convs; CSN's ``conv2_ip`` and
+depthwise ``conv2_dw`` ((3,3,3,1,C) -> (C,1,3,3,3)) with its bare
+``conv2_bn`` (-> ``conv2.bn``, as Bottleneck3d's); ResNet3dLayer's
+``layer{n}_{j}``; R(2+1)D's ``stem_s`` / ``stem_t`` and each block's
+``conv{n}_s`` (``conv``, ``bn``), ``conv{n}_t`` and ``bn{n}``; the R3D
+adapter's VideoResNet (``stem.0`` / ``stem.1``); X3D's ``conv1_s``,
+depthwise ``conv1_t`` and ``conv2``, the SE convs ``se.fc1`` / ``se.fc2``
+with their biases, ``downsample`` / ``downsample_bn``, ``conv5`` and
+``bn5``; S3D's ``conv_s`` / ``conv_t`` and Inception branches; TimeSformer's
+``patch_embed`` (a conv2d with a bias), its Dense kernels transposed,
+LayerNorm ``scale`` -> ``weight`` and the raw ``pos_embed``,
+``cls_token`` and ``time_embed`` kept as they are; TPN's
+``spatial_{i}_{j}``, ``tm_{i}``, ``level_fusion_td`` / ``_bu``
+(``downsample_{i}``, ``fusion``), ``downsample_op_{i}``,
+``pyramid_fusion``, ``aux_conv``, ``aux_bn`` and ``aux_fc``.
+
 Leaves are read with ``np.asarray``, so JAX arrays work without importing
 JAX here. RAFT has its own mapping onto the official RAFT names:
 ``raft_jax_to_state_dict``; PWC-Lite, whose modules keep the flax names,
@@ -61,7 +78,8 @@ from torch import nn
 
 _LEAF = {'params': {'kernel': 'weight', 'scale': 'weight', 'bias': 'bias',
                     'fc_cls_kernel': 'fc_cls_kernel',
-                    'fc_cls_bias': 'fc_cls_bias'},
+                    'fc_cls_bias': 'fc_cls_bias', 'pos_embed': 'pos_embed',
+                    'cls_token': 'cls_token', 'time_embed': 'time_embed'},
          'batch_stats': {'mean': 'running_mean', 'var': 'running_var'}}
 
 

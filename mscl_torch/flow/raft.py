@@ -16,7 +16,6 @@ iteration, and the all-pairs volume is never materialised.
 """
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
@@ -25,6 +24,7 @@ from torch import nn
 
 from ..ops.corr_lookup import corr_lookup, corr_pyramid
 from ..utils.device import resolve_device
+from ..models.weight_init import lecun_normal_
 
 
 def instance_norm(x, eps=1e-5):
@@ -223,10 +223,7 @@ class RAFT(nn.Module):
                         m.reset_parameters()
             for m in self.update_block.modules():
                 if isinstance(m, nn.Conv2d):
-                    fan_in = m.weight[0].numel()
-                    std = math.sqrt(1.0 / fan_in) / .87962566103423978
-                    nn.init.trunc_normal_(m.weight, std=std, a=-2 * std,
-                                          b=2 * std, generator=gen)
+                    lecun_normal_(m.weight, gen)
             for m in self.modules():
                 if isinstance(m, nn.Conv2d):
                     m.bias.zero_()

@@ -17,7 +17,6 @@ bias, drawn from a seed that ``init_weights`` takes from its generator.
 """
 from __future__ import annotations
 
-import math
 from typing import Dict, Sequence, Tuple
 
 import torch
@@ -27,6 +26,7 @@ from torch import nn
 from .. import compute_dtype
 from ..builder import HEADS, build_loss
 from .base import topk_accuracy
+from ..weight_init import lecun_normal_
 
 
 class Dense(nn.LazyLinear):
@@ -50,12 +50,8 @@ class Dense(nn.LazyLinear):
     def reset_parameters(self):
         if self.seed is None or self.has_uninitialized_params():
             return
-        gen = torch.Generator().manual_seed(self.seed)
         self.in_features = self.weight.shape[1]
-        std = math.sqrt(1.0 / self.in_features) / .87962566103423978
-        w = torch.empty(self.weight.shape)
-        nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=gen)
-        self.weight.copy_(w)
+        lecun_normal_(self.weight, torch.Generator().manual_seed(self.seed))
         self.bias.zero_()
 
     def forward(self, x):

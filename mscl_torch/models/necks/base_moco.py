@@ -12,7 +12,6 @@ projections; the pooled embedding keeps its input's dtype.
 """
 from __future__ import annotations
 
-import math
 from typing import Sequence
 
 import torch
@@ -21,6 +20,7 @@ from torch import nn
 
 from .. import compute_dtype
 from ..builder import NECKS
+from ..weight_init import lecun_normal_
 from .fpn_video import TPNSingle
 
 
@@ -125,10 +125,7 @@ class TPNProjMoCoV2(nn.Module):
     def init_weights(self, gen: torch.Generator):
         for m in self.modules():
             if isinstance(m, nn.Conv3d):
-                std = math.sqrt(1.0 / m.weight[0].numel()) / \
-                    .87962566103423978
-                nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
-                                      generator=gen)
+                lecun_normal_(m.weight, gen)
                 m.bias.zero_()
 
     def forward(self, x, mlvl: bool = True):

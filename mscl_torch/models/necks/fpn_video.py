@@ -21,15 +21,17 @@ from .sepc import SEPC
 
 class TemporalModulation(nn.Module):
     """A grouped (32) 3x1x1 temporal conv without bias (xavier-uniform),
-    then a temporal max-pool of kernel and stride ``downsample_scale`` in
-    ceil mode: a last partial window takes the max of the frames it holds,
-    as the JAX module's -inf padding gives."""
+    from ``in_channels`` (default ``channels``) to ``channels``, then a
+    temporal max-pool of kernel and stride ``downsample_scale`` in ceil
+    mode: a last partial window takes the max of the frames it holds, as
+    the JAX module's -inf padding gives."""
 
-    def __init__(self, channels: int, downsample_scale: int = 8, dtype=None):
+    def __init__(self, channels: int, downsample_scale: int = 8, dtype=None,
+                 in_channels=None):
         super().__init__()
         self.dtype = compute_dtype.resolve_dtype(dtype)
         self.scale = downsample_scale
-        self.conv = nn.Conv3d(channels, channels, (3, 1, 1),
+        self.conv = nn.Conv3d(in_channels or channels, channels, (3, 1, 1),
                               padding=(1, 0, 0), groups=32, bias=False)
 
     @torch.no_grad()

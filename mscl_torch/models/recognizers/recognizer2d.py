@@ -17,10 +17,12 @@ one moves C last), and the head forms the consensus over the segments.
   over the segments).
 - ``train_step``: the losses through ``parse_losses``.
 
-A ``neck`` (TPN over 2D frames) is refused by name: ``necks/tpn.py`` is
-not ported. The caller sets the mode (``model.eval()`` for testing).
-Module names are the JAX tree's minus ``_m`` (``backbone``, ``cls_head``),
-so ``convert.jax_to_state_dict`` covers the model.
+A ``neck`` (TPN over 2D frames) takes the backbone's levels, each one's
+frames folded back into clips (B, C, segments, H, W), and the head reads
+its fused feature with one segment; the neck's auxiliary losses join the
+head's. The caller sets the mode (``model.eval()`` for testing). Module
+names are the JAX tree's minus ``_m`` (``backbone``, ``neck``,
+``cls_head``), so ``convert.jax_to_state_dict`` covers the model.
 """
 from __future__ import annotations
 
@@ -31,10 +33,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import compute_dtype
-from ..builder import BACKBONES, HEADS, RECOGNIZERS
+from ..builder import BACKBONES, HEADS, NECKS, RECOGNIZERS
 from ..heads.reid_distill_heads import _ReidHeadBase
 from .base import parse_losses
-from .recognizer3d import Recognizer3D
+from .recognizer3d import Recognizer3D, _registered
 
 
 @RECOGNIZERS.register_module()
@@ -43,10 +45,6 @@ class Recognizer2D(nn.Module):
     def __init__(self, backbone, cls_head=None, neck=None, train_cfg=None,
                  test_cfg=None, dtype=None):
         super().__init__()
-        if neck is not None:
-            raise NotImplementedError(
-                f'Recognizer2D neck {dict(neck).get("type")!r} is not '
-                f'ported (necks/tpn.py, ROADMAP.md Queue 1)')
         self.dtype = compute_dtype.resolve_dtype(dtype)
         bb_cfg = dict(backbone)
         bb_cfg.pop('pretrained', None)
@@ -57,6 +55,11 @@ class Recognizer2D(nn.Module):
                 f'unknown backbone {bb_type!r} (external torchvision/timm/'
                 f'mmcls backbones are not in the registry)')
         self.backbone = factory(dtype=self.dtype, **bb_cfg)
+        self.neck = None
+        if neck is not None:
+            neck_cfg = dict(neck)
+            self.neck = _registered(NECKS, 'neck', neck_cfg.pop('type'))(
+                dtype=self.dtype, **neck_cfg)
         self.cls_head = None
         if cls_head is not None:
             head_cfg = dict(cls_head)
@@ -67,12 +70,11 @@ class Recognizer2D(nn.Module):
         self.train_cfg = train_cfg
         self.test_cfg = dict(test_cfg or {})
 
-    def init_weights(self, gen: torch.Generator):
-        for m in (self.backbone, self.cls_head):
-            if m is not None and hasattr(m, 'init_weights'):
-                m.init_weights(gen)
+    init_weights = Recognizer3D.init_weights
 
-    # the head's dropout generator, at the model's level (as Recognizer3D)
+    # the head's (and the neck's) dropout generator, at the model's level
+    # (as Recognizer3D)
+    _dropouts = Recognizer3D._dropouts
     seed_dropout = Recognizer3D.seed_dropout
     dropout_state = Recognizer3D.dropout_state
     set_dropout_state = Recognizer3D.set_dropout_state
@@ -86,6 +88,19 @@ class Recognizer2D(nn.Module):
     def _feat(self, x):
         feat = self.backbone(x)
         return feat[-1] if isinstance(feat, (list, tuple)) else feat
+
+    def _neck_feat(self, feat, num_segs: int, labels=None
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The neck over each level's frames folded back into clips,
+        (B * segments, C, H, W) -> (B, C, segments, H, W): its fused
+        feature (the last of a list) and its auxiliary losses."""
+        levels = feat if isinstance(feat, (list, tuple)) else [feat]
+        levels = [f.reshape((-1, num_segs) + tuple(f.shape[1:]))
+                  .transpose(1, 2) for f in levels]
+        out, aux_losses = self.neck(levels, labels=labels)
+        if isinstance(out, (list, tuple)):
+            out = out[-1]
+        return out, aux_losses
 
     def forward_train(self, imgs: torch.Tensor, labels: torch.Tensor
                       ) -> Dict[str, torch.Tensor]:
@@ -101,8 +116,15 @@ class Recognizer2D(nn.Module):
                 f'labels and its loss then fails to broadcast them against '
                 f'the scores; the port refuses it')
         x, num_segs = self._frames(imgs)
-        feat = self._feat(x)
         labels = labels.reshape(-1)
+        if self.neck is not None:
+            fused, aux_losses = self._neck_feat(self.backbone(x), num_segs,
+                                                labels)
+            losses = dict(self.cls_head.loss(self.cls_head(fused, num_segs=1),
+                                             labels))
+            losses.update(aux_losses)
+            return losses
+        feat = self._feat(x)
         if isinstance(self.cls_head, _ReidHeadBase):
             cls_score, reid_feat = self.cls_head(
                 feat, num_segs=num_segs, labels=labels, return_feat=True)
@@ -114,7 +136,11 @@ class Recognizer2D(nn.Module):
         if self.cls_head is None or self.test_cfg.get('feature_extraction'):
             return self.extract_features_pooled(imgs)
         x, num_segs = self._frames(imgs)
-        cls_score = self.cls_head(self._feat(x), num_segs=num_segs)
+        if self.neck is not None:
+            fused, _ = self._neck_feat(self.backbone(x), num_segs)
+            cls_score = self.cls_head(fused, num_segs=1)
+        else:
+            cls_score = self.cls_head(self._feat(x), num_segs=num_segs)
         if self.test_cfg.get('average_clips') == 'prob':
             cls_score = F.softmax(cls_score, dim=-1)
         return cls_score

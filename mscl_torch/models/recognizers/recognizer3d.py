@@ -10,7 +10,10 @@ recognizers/recognizer3d.py), in NCTHW throughout:
   averages each video's clip scores: 'prob' is the mean of the softmaxes,
   'score' (or None) the mean of the scores;
 - ``extract_features_pooled`` is the retrieval feature: each clip's last
-  stage averaged over T, H and W, then the mean over segments.
+  stage averaged over T, H and W (SlowFast's two pathways each, then
+  concatenated), then the mean over segments;
+- a neck (TPN) takes the backbone's stages and gives the head its fused
+  feature; its auxiliary losses join the head's in training.
 
 Every path checks that a clip's channel axis (dim -4) is the backbone
 stem's ``in_channels`` and raises a ``ValueError`` otherwise. A
@@ -97,19 +100,30 @@ class Recognizer3D(nn.Module):
             if m is not None and hasattr(m, 'init_weights'):
                 m.init_weights(gen)
 
-    # the head's dropout generator, at the model's level for the
-    # checkpoint and the Runner
+    # the head's dropout generator (and the neck's, TPN's aux head), at the
+    # model's level for the checkpoint and the Runner
+    def _dropouts(self):
+        return [m for m in (self.cls_head, self.neck)
+                if hasattr(m, 'dropout_state')]
+
     def seed_dropout(self, seed: int):
-        if hasattr(self.cls_head, 'seed_dropout'):
-            self.cls_head.seed_dropout(seed)
+        """The head's generator from ``seed``, a neck's from seed + 1."""
+        for i, m in enumerate(self._dropouts()):
+            m.seed_dropout(seed + i)
 
     def dropout_state(self):
-        return self.cls_head.dropout_state() \
-            if hasattr(self.cls_head, 'dropout_state') else None
+        """The head's generator state; with a neck that drops too, the
+        list of the head's and the neck's."""
+        states = [m.dropout_state() for m in self._dropouts()]
+        if len(states) > 1:
+            return states
+        return states[0] if states else None
 
     def set_dropout_state(self, state) -> None:
-        if hasattr(self.cls_head, 'set_dropout_state'):
-            self.cls_head.set_dropout_state(state)
+        mods = self._dropouts()
+        states = state if isinstance(state, list) else [state] * len(mods)
+        for m, st in zip(mods, states):
+            m.set_dropout_state(st)
 
     def extract_feat(self, imgs: torch.Tensor):
         """The backbone's last stage (a list is its stages)."""
@@ -162,7 +176,9 @@ class Recognizer3D(nn.Module):
         batches = imgs.shape[0]
         num_segs = imgs.shape[1] if imgs.dim() == 6 else 1
         feat = self.extract_feat(self._clips(imgs))
-        if feat.dim() == 5:
+        if isinstance(feat, tuple):      # SlowFast's pathways, pooled
+            feat = torch.cat([f.mean(dim=(2, 3, 4)) for f in feat], dim=-1)
+        elif feat.dim() == 5:
             feat = feat.mean(dim=(2, 3, 4))
         return feat.reshape(batches, num_segs, -1).mean(dim=1)
 

@@ -6,7 +6,9 @@ files and the same initial weights (the port's, carried across through
 validation metrics equal, and each parameter's and BN statistic's change
 over the run within 5e-3 of JAX's (relative to the largest change of that
 tensor). TRN's training subsets are JAX's, recorded from its jitted step
-and replayed into the port's ``TRNHead.relation_picks``.
+and replayed into the port's ``TRNHead.relation_picks``; so are a TPN
+neck's auxiliary dropout masks (``recorded_bernoulli``,
+``replay_dropout``).
 
 The depth-50 stacks are too ill-conditioned in float32 for that (at 32x32
 crops and a batch of 2 the stem's change after two steps lies 6.8e-3 from
@@ -33,10 +35,12 @@ import pytest
 import torch
 
 import mscl_tpu.apis.train as jax_train
+import mscl_torch.apis.train as port_train
 from mscl_tpu import Config as JaxConfig
 from mscl_tpu.core.train_loop import TrainState
 from mscl_tpu.models.backbones import mobilenet_v2 as jax_mobilenet_v2
 from mscl_tpu.models.backbones import resnet2d as jax_resnet2d
+from mscl_tpu.models.backbones import s3d as jax_s3d
 from mscl_tpu.parallel.mesh import create_mesh
 from mscl_torch.apis import build_model_from_cfg, train_model
 from mscl_torch.config import Config
@@ -44,8 +48,9 @@ from mscl_torch.convert import jax_to_state_dict
 from mscl_torch.core import (build_lr_schedule, build_optimizer,
                              save_checkpoint, train_loop, train_state)
 from mscl_torch.datasets import build_dataset
-from mscl_torch.models.backbones import mobilenet_v2, resnet2d
+from mscl_torch.models.backbones import mobilenet_v2, resnet2d, s3d
 from mscl_torch.models.heads import TRNHead
+from mscl_torch.models.necks import TPN
 
 from _torch_step_util import jax_float64
 from test_torch_pose_data import skeletons
@@ -114,6 +119,14 @@ MBV2_ARCH = [(1, 16, 1, 1), (6, 24, 2, 2), (6, 32, 1, 2), (6, 64, 1, 2),
              (6, 96, 1, 1), (6, 160, 1, 2), (6, 320, 1, 1)]
 
 
+# S3D's Inception table with every branch an eighth as wide (at least 4),
+# in both packages while a test runs (S3D has no width option); its last
+# block then gives S3D_OUT channels
+S3D_TABLE = [(n, cfg if cfg is None else tuple(max(c // 8, 4) for c in cfg))
+             for n, cfg in jax_s3d._INCEPTION]
+S3D_OUT = 384 // 8 + 384 // 8 + 128 // 8 + 128 // 8
+
+
 @contextlib.contextmanager
 def cut_tables():
     arch = {ONE_BASIC: ('basic', (1, 1, 1, 1)),
@@ -121,20 +134,44 @@ def cut_tables():
     with mock.patch.dict(jax_resnet2d.ARCH, arch), \
             mock.patch.dict(resnet2d.ARCH, arch), \
             mock.patch.object(jax_mobilenet_v2, 'ARCH', MBV2_ARCH), \
-            mock.patch.object(mobilenet_v2, 'ARCH', MBV2_ARCH):
+            mock.patch.object(mobilenet_v2, 'ARCH', MBV2_ARCH), \
+            mock.patch.object(jax_s3d, '_INCEPTION', S3D_TABLE), \
+            mock.patch.object(s3d, '_INCEPTION', S3D_TABLE):
         yield
 
 
 def narrow_model(model):
     """A recognition config's model narrowed in place, dropout 0: a 3D
-    ResNet to base_channels 8 and one block a stage; a frame-based ResNet
-    (TSN, TSM, TIN, TANet, TRN; 64 wide, the 2D ResNets have no width
-    option) to Basic blocks, one a stage, and MobileNetV2 to widen_factor
-    0.5 (its last conv stays 1280 wide) and the cut table, under
-    ``cut_tables``; C3D as it is."""
+    ResNet (CSN too) to base_channels 8 and one block a stage; a
+    frame-based ResNet (TSN, TSM, TIN, TANet, TRN; 64 wide, the 2D ResNets
+    have no width option) to Basic blocks, one a stage, and MobileNetV2 to
+    widen_factor 0.5 (its last conv stays 1280 wide) and the cut table,
+    under ``cut_tables``; C3D as it is. The 3D zoo: SlowFast's slow path to
+    base 8 and its fast path to 2, one block a stage; R(2+1)D to base
+    width 8, one block a stage; X3D to base 8 and one block a stage
+    before ``gamma_d``; S3D to the cut table; TimeSformer to 32 wide, 2
+    heads, 2 layers, its image size the crop's (32); a TPN neck to the
+    narrowed stages' widths and 64 out (its aux dropout is the JAX
+    module's fixed 0.5)."""
     bb, head = model['backbone'], model['cls_head']
     head['dropout_ratio'] = 0.0
-    if bb['type'].startswith('MobileNetV2'):
+    if bb['type'] == 'ResNet3dSlowFast':
+        bb['slow_pathway'].update(base_channels=8, stage_blocks=(1,) * 4)
+        bb['fast_pathway'].update(base_channels=2, stage_blocks=(1,) * 4)
+        head['in_channels'] = (8 + 2) * 8 * 4
+    elif bb['type'] == 'ResNet2Plus1d':
+        bb.update(base_width=8, layers=(1,) * 4)
+        head['in_channels'] = 64
+    elif bb['type'] == 'X3D':
+        bb.update(base_channels=8, stage_blocks=(1,) * 4)
+        head['in_channels'] = int(64 * bb.get('gamma_b', 2.25))
+    elif bb['type'] == 'S3D':
+        head['in_channels'] = S3D_OUT
+    elif bb['type'] == 'TimeSformer':
+        bb.update(embed_dims=32, num_heads=2, num_transformer_layers=2,
+                  img_size=32)
+        head['in_channels'] = 32
+    elif bb['type'].startswith('MobileNetV2'):
         bb['widen_factor'] = 0.5
     elif model['type'] == 'Recognizer2D':
         bb['depth'] = ONE_BASIC
@@ -143,6 +180,10 @@ def narrow_model(model):
         stages = bb.get('num_stages', 4)
         bb.update(base_channels=8, stage_blocks=(1,) * stages)
         head['in_channels'] = 8 * 2 ** (stages - 1) * 4
+    neck = model.get('neck')
+    if neck is not None:                # TPN on the last two stages
+        top = head['in_channels']
+        neck.update(in_channels=[top // 2, top], out_channels=64)
     return model
 
 
@@ -194,11 +235,13 @@ def port_to_jax(shapes, state_dict, dtype):
         for a, n, leaf in zip(starts, sizes, leaves)])
 
 
-def run_both(name, root, ann, tmp, validate, x64, ncthw=False):
+def run_both(name, root, ann, tmp, validate, x64, ncthw=False,
+             port64=False):
     """``train_model`` of mscl_tpu (in float64 with ``x64``) and of the
-    port from the port's initial weights; returns the two logs, the port's
-    run (a function of a work dir and an input scale), the initial and
-    JAX's final variables as state dicts."""
+    port from the port's initial weights (its model and clips in float64
+    with ``port64``); returns the two logs, the port's run (a function of
+    a work dir and an input scale), the initial and JAX's final variables
+    as state dicts."""
     jdir, tdir, t0dir = (osp.join(tmp, n) for n in ('jax', 'port', 'p0'))
     cfg = narrow_cfg(name, root, ann, tdir, validate, ncthw)
     model = build_model_from_cfg(cfg['model'], device='cpu')
@@ -230,10 +273,10 @@ def run_both(name, root, ann, tmp, validate, x64, ncthw=False):
     jcfg = narrow_cfg(name, root, ann, jdir, validate, ncthw)
     if x64:
         jcfg['model']['dtype'] = jnp.float64
-    picks = []
+    picks, masks = [], []
     try:
         with jax_float64() if x64 else contextlib.nullcontext(), \
-                _recorded_choice(picks):
+                _recorded_choice(picks), recorded_bernoulli(masks):
             _seed()
             _, jstate = jax_train.train_model(
                 JaxConfig.fromdict(jcfg), validate=validate, seed=0,
@@ -242,7 +285,11 @@ def run_both(name, root, ann, tmp, validate, x64, ncthw=False):
         jax_train.init_state = real
     # TRN's multi-scale head drew its subsets in each training step
     assert bool(picks) == (cfg['model']['cls_head']['type'] == 'TRNHead')
-    jax_final = {k: np.asarray(v, np.float32) for k, v in jax_to_state_dict(
+    # a TPN neck's auxiliary head drew its dropout masks
+    assert bool(masks) == bool((cfg['model'].get('neck') or {}).get(
+        'aux_head_cfg'))
+    jax_final = {k: np.asarray(v, np.float64 if port64 else np.float32)
+                 for k, v in jax_to_state_dict(
         {'params': jstate.params, 'batch_stats': jstate.batch_stats}).items()}
 
     opt = build_optimizer(model, dict(type='SGD', lr=0.0),
@@ -253,15 +300,28 @@ def run_both(name, root, ann, tmp, validate, x64, ncthw=False):
         """The port's train_model from the initial weights; with
         ``scale`` every clip multiplied by it (one ulp's perturbation)."""
         real_to = train_loop.to_torch
+        real_build = port_train.build_model_from_cfg
 
         def to_torch(batch, device):
             out = real_to(batch, device)
             if scale is not None:
                 out['imgs'] = out['imgs'] * scale
+            if port64:
+                out['imgs'] = out['imgs'].double()
             return out
         train_loop.to_torch = to_torch
+        if port64:
+            def build64(*args, **kwargs):
+                model = real_build(*args, **kwargs).double()
+                model.dtype = torch.float64   # Recognizer2D casts its frames
+                test = model.forward_test         # validation's clips too
+                model.forward_test = lambda imgs: test(imgs.double())
+                return model
+            port_train.build_model_from_cfg = build64
         replay = iter(picks)
         try:
+            if masks:                # TPN's aux dropout, as JAX drew it
+                replay_dropout(TPN, masks)
             if picks:                # TRN's subsets, as JAX drew them
                 TRNHead.relation_picks = lambda self, n, k, device: \
                     torch.from_numpy(next(replay)).to(device) \
@@ -275,8 +335,11 @@ def run_both(name, root, ann, tmp, validate, x64, ncthw=False):
                                resume_from=ckpt0)[0]
         finally:
             train_loop.to_torch = real_to
+            port_train.build_model_from_cfg = real_build
             TRNHead.relation_picks = real_picks
+            TPN.dropout = real_dropout
     real_picks = TRNHead.relation_picks
+    real_dropout = TPN.dropout
     return _log(jdir), port_run, init, jax_final
 
 
@@ -299,26 +362,65 @@ def _recorded_choice(picks):
         jax.random.choice = real
 
 
+@contextlib.contextmanager
+def recorded_bernoulli(masks):
+    """jax.random.bernoulli (flax Dropout's mask, inside a jitted step too)
+    also appending each draw to ``masks`` as it runs, in order."""
+    real = jax.random.bernoulli
+
+    def bernoulli(*args, **kwargs):
+        out = real(*args, **kwargs)
+        jax.debug.callback(lambda v: masks.append(np.asarray(v)), out,
+                           ordered=True)
+        return out
+    jax.random.bernoulli = bernoulli
+    try:
+        yield
+    finally:
+        jax.random.bernoulli = real
+
+
+def replay_dropout(cls, masks):
+    """``cls.dropout`` (a SeededDropout's) keeping, in training, what the
+    next of ``masks`` (JAX's draws, in order) keeps, scaled as flax's
+    Dropout scales it; the caller puts the method back."""
+    replay = iter(list(masks))
+
+    def dropout(self, x):
+        if not self.training or self.dropout_ratio == 0:
+            return x
+        keep = torch.from_numpy(next(replay)).to(x.device)
+        return torch.where(keep, x / (1 - self.dropout_ratio),
+                           torch.zeros_like(x))
+    cls.dropout = dropout
+
+
 def _changes(runner, init):
     return {k: v.numpy() - init[k] for k, v in
             runner.model.state_dict().items()}
 
 
 def check(name, root, ann, tmp, validate, x64=False, ncthw=False,
-          spacing_floor=False):
+          spacing_floor=False, port64=False):
     """``spacing_floor`` (TSM's, TIN's and TANet's recipes alone) also
     passes a tensor whose gap from JAX's float64 change lies within two
     float32 spacings of the port's parameter: a change the float32
     parameter cannot record (TIN's offset-net biases near 0.51 and BN
     scales near 1 in TANet and TSM move by about 1e-6 in two steps, one
-    spacing 6e-8-1.2e-7)."""
+    spacing 6e-8-1.2e-7). ``port64`` (with ``x64``) runs the port in
+    float64 too and holds every tensor to the tolerance with no ulp
+    control: for a recipe whose float32 conditioning defeats that control
+    (ir-CSN's, where JAX's own float32 run lies up to 49 % from its
+    float64)."""
     with cut_tables():
-        _check(name, root, ann, tmp, validate, x64, ncthw, spacing_floor)
+        _check(name, root, ann, tmp, validate, x64, ncthw, spacing_floor,
+               port64)
 
 
-def _check(name, root, ann, tmp, validate, x64, ncthw, spacing_floor):
+def _check(name, root, ann, tmp, validate, x64, ncthw, spacing_floor,
+           port64=False):
     jlog, port_run, init, final = run_both(name, root, ann, tmp, validate,
-                                           x64, ncthw)
+                                           x64, ncthw, port64)
     runner = port_run(osp.join(tmp, 'port'))
     tlog = _log(osp.join(tmp, 'port'))
     modes = ['train', 'train'] + (['val'] if validate else [])
@@ -346,6 +448,7 @@ def _check(name, root, ann, tmp, validate, x64, ncthw, spacing_floor):
             np.abs(got[k] - want[k]) > 2 * np.spacing(
                 np.abs(final[k]).astype(np.float32)))}
     if missed:
+        assert not port64, missed
         # the float32 conditioning, not a fault: one ulp on the input moves
         # the port's own float32 run as far (ULP_MULT, as
         # tests/test_torch_resnet3d.py holds the depth-50 stacks)

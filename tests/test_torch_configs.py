@@ -63,6 +63,18 @@ FULL = {
     # its two train sets build; train_model refuses the list
     # (tests/test_torch_omnisource.py)
     'omnisource/tsn_r50_1x1x8_100e_minikinetics_rgb.py',
+    # the 3D zoo and the TPN neck
+    'slowfast/slowfast_r50_4x16x1_256e_kinetics400_rgb.py',
+    'slowfast/slowfast_r50_8x8x1_256e_kinetics400_rgb.py',
+    'slowfast/slowfast_r101_8x8x1_256e_kinetics400_rgb.py',
+    'r2plus1d/r2plus1d_r18_8x8x1_180e_kinetics400_rgb.py',
+    'r2plus1d/r2plus1d_r34_8x8x1_180e_kinetics400_rgb.py',
+    'x3d/x3d_m_16x5x1_facebook_kinetics400_rgb.py',
+    'csn/ircsn_r152_32x2x1_180e_kinetics400_rgb.py',
+    's3d/s3d_64x1x1_100e_kinetics400_rgb.py',
+    'timesformer/timesformer_divST_8x32x1_15e_kinetics400_rgb.py',
+    'tpn/tpn_slowonly_r50_8x8x1_150e_kinetics400_rgb.py',
+    'tpn/tpn_tsm_r50_1x1x8_150e_sthv1_rgb.py',
 }
 # model builds, data refused by name
 REFUSED = {
@@ -70,6 +82,8 @@ REFUSED = {
     'posec3d/slowonly_r50_u48_240e_ntu60_xsub_limb.py': 'left_kp',
     'tsn/tsn_r50_video_1x1x8_100e_kinetics400_rgb.py': 'VideoDataset',
     'tsm/tsm_r50_video_1x1x8_50e_kinetics400_rgb.py': 'VideoDataset',
+    # OpenCVInit / OpenCVDecode over video files: a codec
+    'x3d/x3d_s_13x6x1_facebook_kinetics400_rgb.py': 'VideoDataset',
 }
 
 
@@ -159,7 +173,7 @@ def test_every_config_builds_or_is_refused_by_name(sweep):
 def test_the_counts(sweep):
     models = {n for n, (stage, _, _) in sweep.items() if stage != 'model'}
     full = {n for n, (stage, _, _) in sweep.items() if stage == 'full'}
-    assert len(models) == 37
+    assert len(models) == 49
     assert full == FULL
     assert models == FULL | set(REFUSED)
     for name, word in REFUSED.items():
@@ -199,9 +213,14 @@ FRAME_FAMILY = {
     'pipelines': ('ImageDecode', 'BuildPseudoClip'),
     'datasets': ('ImageDataset',),
 }
+# the 3D recognition zoo and the TPN neck, each registered in the port
+ZOO_3D = {
+    'models': ('ResNet3dSlowFast', 'ResNet3dCSN', 'ResNet3dLayer',
+               'ResNet2Plus1d', 'R3D', 'X3D', 'S3D', 'TimeSformer', 'TPN'),
+}
 # what the JAX registries hold that the port does not, yet (ROADMAP.md
 # Queue 1 items 3-5): a gate that later slices shrink and never grow
-MODELS_LEFT = 35
+MODELS_LEFT = 26
 PIPELINES_LEFT = 27
 
 
@@ -225,6 +244,13 @@ def test_the_frame_family_is_registered(kind, name):
     assert _registry(kind).get(name) is not None
 
 
+@pytest.mark.parametrize('kind,name', [(k, n) for k, names in
+                                       sorted(ZOO_3D.items())
+                                       for n in names])
+def test_the_3d_zoo_is_registered(kind, name):
+    assert _registry(kind).get(name) is not None
+
+
 def test_the_jax_registries_left_to_port():
     """Every type the JAX package registers is the port's too, but for
     those the queues still hold; none of the MSCL family among them."""
@@ -243,5 +269,6 @@ def test_the_jax_registries_left_to_port():
                             not n.startswith('test.'))
         assert not set(left[kind]) & set(MSCL_FAMILY[kind])
         assert not set(left[kind]) & set(FRAME_FAMILY[kind])
+        assert not set(left[kind]) & set(ZOO_3D.get(kind, ()))
     assert len(left['models']) <= MODELS_LEFT, left['models']
     assert len(left['pipelines']) <= PIPELINES_LEFT, left['pipelines']

@@ -273,10 +273,17 @@ def test_recognizer2d_test_paths(test_cfg):
 
 
 def test_recognizer2d_refuses_a_neck():
-    with pytest.raises(NotImplementedError, match='TPN'):
+    """A neck the port does not register is refused by its name; TPN, now
+    ported, builds (tests/test_torch_tpn.py holds it against JAX's)."""
+    with pytest.raises(KeyError, match='NoSuchNeck'):
         RECOGNIZERS.get('Recognizer2D')(
             backbone=dict(type='ResNetTSM', depth=18),
-            neck=dict(type='TPN'), cls_head=dict(type='TSMHead'))
+            neck=dict(type='NoSuchNeck'), cls_head=dict(type='TSMHead'))
+    model = RECOGNIZERS.get('Recognizer2D')(
+        backbone=dict(type='ResNetTSM', depth=18, out_indices=(2, 3)),
+        neck=dict(type='TPN', in_channels=(256, 512), out_channels=64),
+        cls_head=dict(type='TSMHead', in_channels=512))
+    assert model.neck is not None
 
 
 def test_mmaction_names():

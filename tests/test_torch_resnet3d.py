@@ -279,10 +279,13 @@ def test_slowonly_r50_geometry():
     dict(style='caffe'), dict(inflate_style='3x3x3')])
 def test_refuses_by_name(kwargs):
     """ResNet3d builds non-local blocks (tests/test_torch_recognizer2d.py
-    holds them); the TwoR5 pathway, which the JAX module builds without
-    them, refuses non_local."""
+    holds them) and takes the pathway options (tests/
+    test_torch_slowfast_csn.py holds them); the TwoR5 pathway, which the
+    JAX module builds without non-local blocks, lateral or the rest,
+    refuses each by name; ResNet3d refuses another style and '3x3x3'
+    Bottleneck blocks."""
     name = next(iter(kwargs))
-    cls = resnet3d.ResNet3dSlowOnly_TwoR5 if name == 'non_local' \
-        else resnet3d.ResNet3d
+    cls = resnet3d.ResNet3d if name in ('style', 'inflate_style') \
+        else resnet3d.ResNet3dSlowOnly_TwoR5
     with pytest.raises(NotImplementedError, match=name):
         cls(depth=50, base_channels=4, **kwargs)
