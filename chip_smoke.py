@@ -692,6 +692,34 @@ ZOO_NTHWC = tuple(ZOO + path for label, path, _ in ZOO_CONFIGS
 # a test-only config (data.test alone) refused at its data by the test CLI
 ZOO_TEST_REFUSED = (ZOO + 'x3d/x3d_s_13x6x1_facebook_kinetics400_rgb.py',
                     'VideoDataset')
+# recognition_extern: the TSN custom_backbones configs (ResNeXt-101 32x4d,
+# DenseNet-161, Swin-B) card against CPU on one clip of their own train
+# pipeline (3 segments at 224x224), held as recognition_2d holds its
+# configs, with (label, file, the step check's clip cut as (frames, crop)
+# or None: a cut where the CPU's float64 step on the own clip takes over
+# ZOO_STEP_S, extern_step_costs); the planted faults; the CLI on TSN over
+# Swin-B (RC_STEPS steps) and the test CLI on its checkpoint; a run of
+# tsn_r50_1x1x3 derived with EXTERN_DERIVED through train_model (2 epochs
+# of EXTERN_DERIVED_STEPS steps), resumed from its first epoch, and the
+# tools on what it wrote
+EXTERN = 'configs/recognition/tsn/custom_backbones/'
+EXTERN_CONFIGS = (   # the CPU's float64 step on the own clip: Swin-B 10.0
+    # s, DenseNet-161 9.4, ResNeXt-101 7.6 (PERF.md): the first two cut to a
+    # 160x160 crop of their 3 segments
+    ('tsn_swin_base', 'tsn_swin_base_1x1x3_100e_kinetics400_rgb.py',
+     (3, 160)),
+    ('tsn_dense161', 'tsn_dense161_1x1x3_100e_kinetics400_rgb.py', (3, 160)),
+    ('tsn_rn101_32x4d', 'tsn_rn101_32x4d_1x1x3_100e_kinetics400_rgb.py',
+     None))
+EXTERN_DERIVED_BASE = RC2D + 'tsn/tsn_r50_1x1x3_100e_kinetics400_rgb.py'
+EXTERN_DERIVED = {
+    'optimizer': dict(_delete_=True, type='AdamW', lr=1e-3,
+                      weight_decay=1e-2, paramwise_cfg=dict(
+                          custom_keys=dict(bn=dict(decay_mult=0.0)))),
+    'precise_bn': dict(num_iters=2, interval=1),
+    'data.train.sample_by_class': True,
+    'total_epochs': 2}
+EXTERN_DERIVED_STEPS = 2
 ABL_JSON_KEYS = {'arm', 'scale', 'seed', 'steps', 'batch', 'K', 'hw', 'T',
                  'n_videos', 'platform', 'init', 'final', 'losses'}
 
@@ -1991,11 +2019,13 @@ def phase_pretrain_cli_process(root, pkls, thread_window):
     finally:
         t_loader._ProcessPool.__init__ = real_init
     loader = runner.train_loader
+    # the decode processes, every child but the script's reference workers
+    children = [p for p in multiprocessing.active_children()
+                if not any(p.pid in pool._processes for pool in _WORKERS)]
     if loader.workers_mode != 'process' or loader._pool is not None or \
-            multiprocessing.active_children():
+            children:
         raise AssertionError(f'mode {loader.workers_mode}, pool '
-                             f'{loader._pool}, children '
-                             f'{multiprocessing.active_children()}')
+                             f'{loader._pool}, children {children}')
     bs = loader.batch_size
     per_epoch = len(loader)
     state = {f'{t}.{n}': int(getattr(getattr(runner.model, t), n))
@@ -2278,6 +2308,19 @@ def dp_cli_rank(argv):
     return every
 
 
+def dp_world2(batch_path, ref_path, narrow_path, argvs):
+    """This rank's work at world 2, in one launch of the ranks (a launch
+    costs each rank its start, its imports and its card): ``dp_steps_both``
+    (every rank's results gathered, and the seconds they took), then
+    ``dp_cli_rank`` of each argv in turn, the CLI's run and its resume."""
+    t0 = time.perf_counter()
+    steps = dp_steps_both(batch_path, ref_path, narrow_path)
+    every = [None] * dist.world_size()
+    torch.distributed.all_gather_object(every, steps)
+    return every, time.perf_counter() - t0, \
+        [dp_cli_rank(argv) for argv in argvs]
+
+
 def dp_step_line(path, runs, ref_s, floor=None, gate=True):
     """Log a path's numbers: step times, the last step's collectives
     (calls, bytes, host seconds inside them; rank 0's), launches and peak
@@ -2361,14 +2404,14 @@ def phase_pretrain_dp(root, pkls):
     the second step is ill-conditioned within DP_ULP_MULT times the ulp
     controls (world 1 with its images one ulp smaller and larger;
     ``dp_step_line``), and at the narrow width within DP_TOL for both
-    steps (in the same two spawned ranks, after the full-width steps);
-    every rank's state the same bitwise; (c) the full-width steps
-    at world 1 under NCCL, the launcher's path; (b) the training CLI
-    through its launcher with ``--num-devices 2`` (two gloo ranks on the
-    card, a global batch of 32) for 1 epoch of DP_CLI_STEPS steps, then a
-    resume to a second: one loss on both ranks every step, files from rank
-    0 only, the state loaded at resume equal to the state saved, bitwise,
-    on both ranks."""
+    steps (in the same two ranks, after the full-width steps); every
+    rank's state the same bitwise; (c) the full-width steps at world 1
+    under NCCL, the launcher's path; (b) in the same launch of the two
+    ranks as (a), the launcher's (``--num-devices 2``: two gloo ranks on
+    the card), the training CLI (a global batch of 32) for 1 epoch of
+    DP_CLI_STEPS steps, then a resume to a second: one loss on both ranks
+    every step, files from rank 0 only, the state loaded at resume equal
+    to the state saved, bitwise, on both ranks."""
     t_phase = time.perf_counter()
     train_pkl, val_pkl = pkls
     batch_path = osp.join(root, 'dp_batch.pkl')
@@ -2393,14 +2436,6 @@ def phase_pretrain_dp(root, pkls):
     narrow_path = osp.join(root, 'dp_world1_narrow.pth')
     narrow_s = dp_reference(batch_path, narrow_path, 'narrow')['step_s'][-1]
     t0 = time.perf_counter()
-    both = dist.spawn(dp_steps_both, 2, (batch_path, ref_path, narrow_path),
-                      backend='gloo', device='cuda', join_timeout_s=600)
-    gloo_s = time.perf_counter() - t0
-    collectives = dp_step_line('gloo_world2', [b[0] for b in both], ref_s,
-                               floor)
-    dp_step_line('gloo_world2', [b[1] for b in both], narrow_s)
-
-    t0 = time.perf_counter()
     work = osp.join(root, 'work_dp')
     opts = [f'data.videos_per_gpu={DP_CLI_ROWS}']
     cli_pkl = osp.join(root, 'dp_cli_train.pkl')
@@ -2408,15 +2443,20 @@ def phase_pretrain_dp(root, pkls):
         annos = pickle.load(f)
     with open(cli_pkl, 'wb') as f:
         pickle.dump(annos[:DP_CLI_STEPS * DP_BATCH], f)
-    cli_runs = []
-    for epochs, resume in ((1, None), (2, osp.join(work, 'epoch_1.pth'))):
-        argv = pretrain_argv(cli_pkl, val_pkl, work, epochs, resume,
-                             options=opts) + ['--num-devices', '2']
-        # local rank 0's value: every rank's, gathered in rank order
-        cli_runs.append(launch.run(dp_cli_rank, train_cli.parse_args(argv),
-                                   argv))
-    first, second = cli_runs
-    cli_s = time.perf_counter() - t0
+    argvs = [pretrain_argv(cli_pkl, val_pkl, work, epochs, resume,
+                           options=opts) + ['--num-devices', '2']
+             for epochs, resume in ((1, None),
+                                    (2, osp.join(work, 'epoch_1.pth')))]
+    # the launcher's two gloo ranks (two ranks share the card): the steps
+    # against world 1, then the CLI; local rank 0's values, every rank's
+    # gathered in rank order
+    both, gloo_s, (first, second) = launch.run(
+        dp_world2, train_cli.parse_args(argvs[0]),
+        batch_path, ref_path, narrow_path, argvs)
+    cli_s = time.perf_counter() - t0 - gloo_s
+    collectives = dp_step_line('gloo_world2', [b[0] for b in both], ref_s,
+                               floor)
+    dp_step_line('gloo_world2', [b[1] for b in both], narrow_s)
     per_epoch, bs = first[0]['per_epoch'], first[0]['batch']
     if (per_epoch, bs) != (DP_CLI_STEPS, DP_BATCH):
         raise AssertionError(f'{per_epoch} steps an epoch of {bs}')
@@ -3533,15 +3573,46 @@ def narrow_recognizer(model_cfg):
     return cfg
 
 
-def _recognition_model(model_cfg, dev, dtype):
-    """A config's model on ``dev`` in ``dtype`` from seed 1 (float32
-    without TF32, as the port's train_model runs), logits from
-    forward_test; TRN's training subsets drawn from one CPU stream on every
-    device."""
+def _fitted(init, target):
+    """``init`` (a state dict) in the shapes of ``target``'s: an entry of
+    another shape sliced to the target's from its start in every axis
+    (TimeSformer's ``pos_embed`` and ``time_embed`` for a clip cut in
+    frames and crop, a Swin block's bias table for a smaller window)."""
+    out = {}
+    for k, want in target.items():
+        v = init[k]
+        if v.shape != want.shape:
+            if v.dim() != want.dim() or any(a < b for a, b in
+                                            zip(v.shape, want.shape)):
+                raise ValueError(f'{k}: {tuple(v.shape)} does not cover '
+                                 f'{tuple(want.shape)}')
+            v = v[tuple(slice(0, n) for n in want.shape)]
+        out[k] = v
+    return out
+
+
+def _recognition_model(model_cfg, dev, dtype, init=None):
+    """A config's model on ``dev`` in ``dtype`` from seed 1, or with
+    ``init`` (a float32 state dict on the host, from such a build) built
+    on the meta device and given those weights, fitted to its shapes
+    (``_fitted``), with no initialiser run (float32 without TF32, as the
+    port's train_model runs); logits from forward_test; TRN's training
+    subsets drawn from one CPU stream on every device."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    model = build_model_from_cfg(dict(model_cfg, dtype=dtype), device=dev,
-                                 seed=1).to(dtype)
+    if init is None:
+        model = build_model_from_cfg(dict(model_cfg, dtype=dtype),
+                                     device=dev, seed=1).to(dtype)
+    else:
+        from mscl_torch.models import RECOGNIZERS
+        cfg = dict(model_cfg, dtype=dtype)
+        with torch.device('meta'):
+            model = RECOGNIZERS.get(cfg.pop('type'))(**cfg)
+        model = model.to_empty(device=dev)
+        model.load_state_dict(_fitted(init, model.state_dict()))
+        if hasattr(model, 'seed_dropout'):
+            model.seed_dropout(1)
+        model = model.to(dtype)
     model.test_cfg['average_clips'] = None          # logits, not softmaxes
     head = model.cls_head
     if hasattr(head, 'relation_picks'):
@@ -3570,31 +3641,56 @@ def _on(batch, dev, dtype):
     return on_dev
 
 
+def _logits(model, batch, dev, dtype):
+    model.eval()
+    with torch.no_grad():
+        return model.forward_test(_on(batch, dev, dtype)['imgs']).cpu() \
+            .double()
+
+
 def _recognition_run(model_cfg, cfg, batch, dev, steps, fault=None,
                      dtype=torch.float32, logits=True, at=None,
-                     step_batch=None, step_cfg=None):
+                     step_batch=None, step_cfg=None, init=None,
+                     cut_logits=False, own64=False):
     """forward_test's logits (eval mode, before any step; with
-    ``logits``), then with ``steps`` >= 1 one train step: its loss, each
-    parameter's gradient and update (the weights after it less those
-    before, as ``state``), in ``dtype``; with ``steps`` 2 the loss in
+    ``logits``, on ``batch``), then with ``steps`` >= 1 one train step: its
+    loss, each parameter's gradient and update (the weights after it less
+    those before, as ``state``), in ``dtype``; with ``steps`` 2 the loss in
     train mode (no backward, no update) at the weights after the step, or
     at ``at`` (a state dict) where given. The steps take ``step_batch``
     (the batch cut, or None: ``batch``) through the model of ``step_cfg``
-    (None: ``model_cfg``'s). Under ``fault`` (a context manager, or None)
-    the whole run. Gradients and updates stay in ``dtype``, on the CPU."""
-    model = _recognition_model(model_cfg, dev, dtype)
-    out = dict(losses=[], grads={}, updates={})
+    (None: ``model_cfg``'s), whose weights are the first model's
+    (``_fitted``), and with ``cut_logits`` its logits on ``step_batch``
+    (``cut_logits``) come before the step. With ``own64`` (the card) the
+    logits on ``batch`` also in float64 from the same weights
+    (``logits64``). The model is built from seed 1, or from ``init``
+    (``out['init']`` of a float32 run: one initialiser a config). Under
+    ``fault`` (a context manager, or None) the whole run. Gradients and
+    updates stay in ``dtype``, on the CPU."""
+    model = _recognition_model(model_cfg, dev, dtype, init)
+    out = dict(losses=[], grads={}, updates={}, init=init)
+    if init is None:
+        out['init'] = {k: v.detach().to('cpu', torch.float32, copy=True)
+                       for k, v in model.state_dict().items()}
     with fault or contextlib.nullcontext():
         if logits:
-            model.eval()
-            with torch.no_grad():
-                out['logits'] = model.forward_test(
-                    _on(batch, dev, dtype)['imgs']).cpu().double()
-        if not steps:
+            out['logits'] = _logits(model, batch, dev, dtype)
+        if own64:
+            wide = _recognition_model(model_cfg, dev, torch.float64,
+                                      out['init'])
+            out['logits64'] = _logits(wide, batch, dev, torch.float64)
+            del wide
+        if not steps and not cut_logits:
             return out
         if step_cfg is not None:
             del model
-            model = _recognition_model(step_cfg, dev, dtype)
+            model = _recognition_model(step_cfg, dev, dtype, out['init'])
+        if cut_logits:
+            out['cut_logits'] = _logits(
+                model, batch if step_batch is None else step_batch, dev,
+                dtype)
+        if not steps:
+            return out
         on_dev = _on(batch if step_batch is None else step_batch, dev,
                      dtype)
         opt = build_optimizer(
@@ -3649,11 +3745,19 @@ def _leaf_shares(card, cpu, ref, key):
 def _recognition_errors(card, cpu, ref):
     """The card's float32 run against the CPU's float32 run ``cpu`` and
     float64 run ``ref``: the logits' largest gap from the CPU's as a share
-    of their spread (max - min); the losses' largest gap, the step's from
-    ref's and the second from the CPU's at the card's updated weights, as
-    a share of RC_LOSS_TOL; each gradient's and update's as
+    of their spread (max - min; on the cut clip where the runs cut one,
+    and then the card's own-clip logits against its float64 ones as
+    ``own_logit_share``); the losses' largest gap, the step's from ref's
+    and the second from the CPU's at the card's updated weights, as a
+    share of RC_LOSS_TOL; each gradient's and update's as
     ``_leaf_shares`` bounds it, the largest of each."""
-    spread = (cpu['logits'].max() - cpu['logits'].min()).item()
+    key = 'cut_logits' if 'cut_logits' in cpu else 'logits'
+    spread = (cpu[key].max() - cpu[key].min()).item()
+    own = None
+    if 'logits64' in card:
+        wide = card['logits64']
+        own = (card['logits'] - wide).abs().max().item() / \
+            (wide.max() - wide.min()).item()
     loss_diff = max((abs(a - r) for a, r in
                      list(zip(card['losses'][:1], ref['losses'])) +
                      list(zip(card['losses'][1:], cpu['losses'][1:]))),
@@ -3664,9 +3768,8 @@ def _recognition_errors(card, cpu, ref):
     upd_worst = max(upd_share, key=upd_share.get, default=None)
     rels = sorted(card_rel.values())
     return dict(
-        logit_share=(card['logits'] - cpu['logits']).abs().max().item() /
-        spread,
-        logit_spread=spread, loss_diff=loss_diff,
+        logit_share=(card[key] - cpu[key]).abs().max().item() / spread,
+        logit_spread=spread, own_logit_share=own, loss_diff=loss_diff,
         loss_share=None if loss_diff is None else loss_diff / RC_LOSS_TOL,
         grad_share=share.get(worst), grad_worst=worst,
         grad_rel=card_rel.get(worst), cpu_grad_rel=cpu_rel.get(worst),
@@ -3678,6 +3781,7 @@ def _recognition_errors(card, cpu, ref):
 
 def _recognition_held(err):
     return err['logit_share'] <= RC_LOGIT_TOL and err['same_leaves'] and \
+        (err['own_logit_share'] or 0) <= RC_LOGIT_TOL and \
         all(err[k] is None or err[k] <= 1
             for k in ('loss_share', 'grad_share', 'update_share'))
 
@@ -3704,21 +3808,32 @@ def recognition_card_vs_cpu(pool, cfg, sets, kind, model_cfg, clips, steps,
 
     ``cut`` (or None), a function of the batch and ``model_cfg``, gives
     the steps' batch and model config (a clip cut in frames and crop, and
-    for TimeSformer the model of that clip; ``recognition_3d_zoo``); the
-    logits stay at the config's own clip. The card runs here and the
+    for TimeSformer the model of that clip, its weights the config's
+    model's; ``recognition_3d_zoo``). Then the card's and the CPU's
+    float32 logits are held on the cut clip, and the card's float32
+    logits on the config's own clip against its float64 ones from the
+    same weights (the CPU's forward on the own clip cost up to 5.5 times
+    its float64 step on the cut one). The card runs here and the
     CPU's runs in a worker of ``pool`` (a ``reference_pool``); the
     returned function waits for them and raises if the check fails."""
     batch = _recognition_batch(cfg, sets, kind, clips)
     step_batch, step_cfg = cut(batch, model_cfg) if cut else (None, None)
     task = dict(cfg=cfg.filename, model_cfg=model_cfg, batch=batch,
-                steps=steps, step_batch=step_batch, step_cfg=step_cfg)
+                steps=steps, step_batch=step_batch, step_cfg=step_cfg,
+                cut=cut is not None)
     t0 = time.perf_counter()
     task['card'] = _recognition_run(model_cfg, cfg, batch, 'cuda', steps,
-                                    step_batch=step_batch, step_cfg=step_cfg)
+                                    step_batch=step_batch, step_cfg=step_cfg,
+                                    cut_logits=cut is not None,
+                                    own64=cut is not None)
+    init = task['card'].pop('init')
     if fault is not None:
         task['fault'] = _recognition_run(
             model_cfg, cfg, batch, 'cuda', min(steps, 1), fault,
-            step_batch=step_batch, step_cfg=step_cfg)
+            step_batch=step_batch, step_cfg=step_cfg, init=init,
+            logits=cut is None, cut_logits=cut is not None)
+        del task['fault']['init']
+    del init
     card_s = time.perf_counter() - t0
     shape = list(batch['imgs'].shape)
     step_shape = None if step_batch is None else \
@@ -3739,11 +3854,13 @@ def _cpu_reference(task):
     card, steps = task['card'], task['steps']
     kw = dict(step_batch=task['step_batch'], step_cfg=task['step_cfg'])
     cpu = _recognition_run(task['model_cfg'], cfg, task['batch'], 'cpu',
-                           steps, at=card.get('state'), **kw)
+                           steps, at=card.get('state'),
+                           logits=not task['cut'], cut_logits=task['cut'],
+                           **kw)
     t1 = time.perf_counter()
     ref = _recognition_run(task['model_cfg'], cfg, task['batch'], 'cpu',
                            min(steps, 1), dtype=torch.float64, logits=False,
-                           **kw)
+                           init=cpu.pop('init'), **kw)
     err = _recognition_errors(card, cpu, ref)
     fault = _recognition_errors(task['fault'], cpu, ref) \
         if task.get('fault') is not None else None
@@ -3775,31 +3892,66 @@ def _pool_task(fn, path):
     return fn(task)
 
 
-class reference_pool(contextlib.AbstractContextManager):
-    """RC_POOL spawned CPU workers of RC_POOL_THREADS torch threads each
-    for ``_cpu_reference`` (a float64 convolution on one clip runs on one
-    thread, so the configs' CPU runs go side by side), and a directory for
-    their tasks. Only the card's side of the same phase runs beside them,
-    never a CLI or a decode phase; on exit every worker is stopped."""
+def _warm_worker():
+    """A reference worker's start: torch.optim's first optimizer imports
+    torch._dynamo (about 10 s on the card's host), made here, before the
+    worker's first task."""
+    import torch._dynamo  # noqa: F401
 
-    def __init__(self, root):
+
+_WORKERS = []
+
+
+def reference_workers():
+    """The script's RC_POOL spawned CPU workers of the recognition phases'
+    references (``reference_pool``), started and warmed (``_warm_worker``)
+    at the first call, while the kernels build: a worker of a pool of its
+    own paid its start and its imports in the phase, about 15 s. Idle
+    between the phases; stopped by ``stop_reference_workers``."""
+    if not _WORKERS:
         import concurrent.futures
         import multiprocessing
+        pool = concurrent.futures.ProcessPoolExecutor(
+            RC_POOL, mp_context=multiprocessing.get_context('spawn'),
+            initializer=_warm_worker)
+        for _ in range(RC_POOL):       # one start each: none is idle yet
+            pool.submit(os.getpid)
+        _WORKERS.append(pool)
+    return _WORKERS[0]
+
+
+def stop_reference_workers():
+    while _WORKERS:
+        _WORKERS.pop().shutdown(wait=True, cancel_futures=True)
+
+
+class reference_pool(contextlib.AbstractContextManager):
+    """The script's reference workers (RC_POOL spawned CPU workers of
+    RC_POOL_THREADS torch threads each, ``reference_workers``) for
+    ``_cpu_reference`` (a float64 convolution on one clip runs on one
+    thread, so the configs' CPU runs go side by side), and a directory for
+    a phase's tasks. Only the card's side of the same phase runs beside
+    them, never a CLI or a decode phase: on exit every task of the phase
+    has ended or is cancelled."""
+
+    def __init__(self, root):
         self.dir = tempfile.mkdtemp(prefix='cpu_refs_', dir=root)
-        self._tasks = 0
-        self._pool = concurrent.futures.ProcessPoolExecutor(
-            RC_POOL, mp_context=multiprocessing.get_context('spawn'))
+        self._pool = reference_workers()
+        self._futures = []
 
     def submit(self, fn, task):
         """fn(task) in a worker (a module-level function of a dict), the
         task passed through a file."""
-        path = osp.join(self.dir, f'task_{self._tasks}.pt')
-        self._tasks += 1
+        path = osp.join(self.dir, f'task_{len(self._futures)}.pt')
         torch.save(task, path)
-        return self._pool.submit(_pool_task, fn, path)
+        self._futures.append(self._pool.submit(_pool_task, fn, path))
+        return self._futures[-1]
 
     def __exit__(self, *exc):
-        self._pool.shutdown(wait=True, cancel_futures=True)
+        import concurrent.futures
+        for future in self._futures:
+            future.cancel()
+        concurrent.futures.wait(self._futures)
         shutil.rmtree(self.dir, ignore_errors=True)
         return False
 
@@ -4132,7 +4284,7 @@ def zoo_cut(frames, crop):
     each clip (T is dim -3 of (..., C, T, H, W); a Recognizer2D batch
     (B, segments, C, H, W) keeps its segments) and its centre
     ``crop`` x ``crop``; for TimeSformer the step model of that clip
-    (img_size, num_frames)."""
+    (img_size, num_frames), for Swin of that crop (img_size)."""
     def cut(batch, model_cfg):
         imgs = batch['imgs']
         if imgs.ndim == 6:
@@ -4145,6 +4297,9 @@ def zoo_cut(frames, crop):
         if model_cfg['backbone']['type'] == 'TimeSformer':
             step_cfg = json.loads(json.dumps(model_cfg))
             step_cfg['backbone'].update(img_size=crop, num_frames=frames)
+        elif 'swin' in model_cfg['backbone']['type'].lower():
+            step_cfg = json.loads(json.dumps(model_cfg))
+            step_cfg['backbone'].update(img_size=crop)
         return dict(batch, imgs=imgs), step_cfg
     return cut
 
@@ -4300,6 +4455,295 @@ def phase_recognition_3d_zoo(root, sets):
                  for k, r in rows.items()},
         keys='steady_ms, data_wait_share, device_ms, idle_share, '
              'peak_GiB'))
+
+
+def extern_faults():
+    """recognition_extern's planted faults by label: Swin's shift mask all
+    zeros (every shifted window attends across regions), DenseNet's
+    concatenation swapped to [y, x]."""
+    from unittest import mock
+    from mscl_torch.models.backbones import extern_2d
+
+    def no_mask(hp, wp, ws, shift):
+        return np.zeros((hp // ws * (wp // ws), ws * ws, ws * ws), np.float32)
+
+    def swapped(self, x):
+        y = self.conv1(F.relu(self.norm1(x)))
+        y = self.conv2(F.relu(self.norm2(y)))
+        return torch.cat([y, x], dim=1)
+    return {'tsn_swin_base': mock.patch.object(extern_2d, '_shift_attn_mask',
+                                               no_mask),
+            'tsn_dense161': mock.patch.object(extern_2d.DenseLayer, 'forward',
+                                              swapped)}
+
+
+def _same_tree(a, b, path=''):
+    """Where two nested states (dicts, lists, tensors, numbers) differ,
+    bitwise."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        if sorted(a, key=str) != sorted(b, key=str):
+            return [f'{path} keys']
+        return [d for k in a for d in _same_tree(a[k], b[k], f'{path}.{k}')]
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        if len(a) != len(b):
+            return [f'{path} length']
+        return [d for i, (x, y) in enumerate(zip(a, b))
+                for d in _same_tree(x, y, f'{path}[{i}]')]
+    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+        return [] if torch.equal(a.cpu(), b.cpu()) else [path]
+    return [] if a == b else [path]
+
+
+def extern_derived_run(root, sets):
+    """tsn_r50_1x1x3 derived with EXTERN_DERIVED (AdamW, no decay on the
+    norms by ``paramwise_cfg.custom_keys``, PreciseBN every epoch, the
+    class-balanced sampler) through train_model on the card: 2 epochs of
+    EXTERN_DERIVED_STEPS steps at a batch of 8 over the phase's set, then
+    again resumed from its first epoch's checkpoint. Fails unless every
+    loss is finite, each PreciseBN refresh moved BN running statistics
+    and nothing else, and the state the resume loaded (weights, buffers,
+    Adam's moments and counts, the dropout generator) is the saved one,
+    bitwise. Returns the work dir, the train list and a summary."""
+    from mscl_torch.apis import train_model
+    prefix, train, val = sets['rgb']
+    with open(train) as f:
+        lines = f.read().splitlines()
+    ann = osp.join(root, 'derived_train.txt')
+    with open(ann, 'w') as f:
+        f.write('\n'.join(lines[:EXTERN_DERIVED_STEPS * 8]) + '\n')
+    refreshes, resumed = [], []
+    real_refresh, real_resume = train_loop.precise_bn_update, \
+        train_loop.Runner.resume
+
+    def refresh(model, loader, to_device, num_iters=200):
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        real_refresh(model, loader, to_device, num_iters)
+        moved = [k for k, v in model.state_dict().items()
+                 if not torch.equal(v, before[k])]
+        refreshes.append(dict(
+            moved=len(moved), iters=num_iters,
+            other=[k for k in moved if not k.endswith(('running_mean',
+                                                       'running_var'))]))
+
+    def resume(self, path=None):
+        real_resume(self, path)
+        want, got = load_checkpoint(path), self.state()
+        resumed.append(_same_tree(
+            [want[k] for k in ('state_dict', 'dropout_rng', 'aug_rng')] +
+            [want['optimizer']['steps'], want['optimizer']['adam']['state']],
+            [got[k] for k in ('state_dict', 'dropout_rng', 'aug_rng')] +
+            [got['optimizer']['steps'], got['optimizer']['adam']['state']]))
+
+    def run(work, resume_from=None):
+        cfg = Config.fromfile(EXTERN_DERIVED_BASE)
+        cfg.merge_from_dict({
+            'data.train.ann_file': ann, 'data.train.data_prefix': prefix,
+            'data.val.ann_file': val, 'data.val.data_prefix': prefix,
+            'data.test.ann_file': val, 'data.test.data_prefix': prefix,
+            'data.videos_per_gpu': 8, 'checkpoint_config.interval': 1,
+            'log_config.interval': 1, 'work_dir': work, **EXTERN_DERIVED})
+        t0 = time.perf_counter()
+        runner, _ = train_model(cfg, validate=False, seed=0,
+                                resume_from=resume_from)
+        torch.cuda.synchronize()
+        return runner, time.perf_counter() - t0
+    work = osp.join(root, 'tsn_r50_derived')
+    train_loop.precise_bn_update = refresh
+    train_loop.Runner.resume = resume
+    try:
+        runner, run_s = run(work)
+        again, resume_s = run(osp.join(root, 'tsn_r50_derived_resumed'),
+                              osp.join(work, 'epoch_1.pth'))
+    finally:
+        train_loop.precise_bn_update = real_refresh
+        train_loop.Runner.resume = real_resume
+    losses = [r['loss'] for r in read_log(work) if r['mode'] == 'train']
+    kinds = (runner.optimizer.kind, len(runner.optimizer.opt.param_groups))
+    if not losses or not all(math.isfinite(x) for x in losses) or \
+            len(losses) != 2 * EXTERN_DERIVED_STEPS or \
+            runner.optimizer.steps != 2 * EXTERN_DERIVED_STEPS or \
+            again.optimizer.steps != 2 * EXTERN_DERIVED_STEPS or \
+            kinds != ('adam', 2):
+        raise AssertionError(f'derived run: losses {losses}, optimizer '
+                             f'{kinds}, steps {runner.optimizer.steps}, '
+                             f'{again.optimizer.steps}')
+    if len(refreshes) != 3 or any(r['other'] or not r['moved']
+                                  for r in refreshes):
+        raise AssertionError(f'PreciseBN: {refreshes}')
+    if resumed != [[]]:
+        raise AssertionError(f'the resume loaded another state: {resumed}')
+    del runner, again
+    torch.cuda.empty_cache()
+    return work, dict(losses=losses, run_s=run_s, resume_s=resume_s,
+                      precise_bn=refreshes, optimizer=kinds,
+                      resumed_bitwise=True)
+
+
+def extern_tools(root, work):
+    """The analysis and deployment tools on the derived run's outputs:
+    analyze_logs on its log, publish_model on its last checkpoint, get_flops
+    and benchmark on its config at a batch of 1 and 8 clips of 3 segments
+    at 224x224, export of its last checkpoint with --verify (the program
+    reloaded and run on the card against the eager model)."""
+    from mscl_torch.tools import (analyze_logs, benchmark, export, get_flops,
+                                  publish_model)
+    ckpt = osp.join(work, 'epoch_2.pth')
+    timing = analyze_logs.main(['cal_train_time',
+                                osp.join(work, 'log.json')])
+    published = publish_model.main([ckpt, osp.join(root, 'tsn_r50.pth')])
+    flops = get_flops.main([EXTERN_DERIVED_BASE, '--shape', '1', '3',
+                            '3', '224', '224'])
+    bench = benchmark.main([EXTERN_DERIVED_BASE, '--shape', '8', '3', '3',
+                            '224', '224', '--iterations', '20',
+                            '--log-interval', '20'])
+    t0 = time.perf_counter()
+    exported = export.main([EXTERN_DERIVED_BASE, ckpt, '--output-file',
+                            osp.join(root, 'tsn_r50.pt2'), '--shape',
+                            '1', '3', '3', '224', '224', '--verify'])
+    export_s = time.perf_counter() - t0
+    published_ckpt = load_checkpoint(published)
+    if published_ckpt['optimizer'] is not None or \
+            _same_tree(published_ckpt['state_dict'],
+                       load_checkpoint(ckpt)['state_dict']) or \
+            not re.search(r'-[0-9a-f]{8}\.pth$', published) or \
+            bench['device'] != 'cuda:0' or not timing or \
+            not exported['max_abs_err'] < 1e-4:
+        raise AssertionError(f'tools: {published}, {bench["device"]}, '
+                             f'{timing}, {exported}')
+    return dict(cal_train_time={k: float(v) for k, v in
+                                list(timing.values())[0].items()},
+                published=osp.basename(published),
+                params=flops['params'], gflops=flops['flops'] / 1e9,
+                benchmark_videos_per_s=bench['videos_per_s'],
+                benchmark_ms=float(np.mean(bench['times'])) * 1e3,
+                export_bytes=exported['bytes'],
+                export_max_abs_err=exported['max_abs_err'],
+                export_s=export_s)
+
+
+def phase_recognition_extern(root, sets):
+    """The external-name 2D backbones and the runtime of Queue 1 item 3 on
+    recognition_configs' sets: card against CPU for EXTERN_CONFIGS at full
+    width (the CPU's runs in the phase's reference_pool) with the planted
+    faults of ``extern_faults``, which must fail it; the training CLI on TSN
+    over Swin-B (RC_STEPS steps at a batch of 8, validation) and the test
+    CLI on its checkpoint; ``extern_derived_run`` and ``extern_tools``.
+    Float32; no kernel of the port launches."""
+    from mscl_torch.apis import inference
+    t_phase = time.perf_counter()
+    root = osp.join(root, 'recognition_extern')
+    os.makedirs(root)
+    reset_launch_counts()
+    faults = extern_faults()
+    pending = {}
+    t0 = time.perf_counter()
+    with reference_pool(root) as pool:
+        for label, path, frames_crop in EXTERN_CONFIGS:
+            cfg = Config.fromfile(EXTERN + path)
+            pending[label] = recognition_card_vs_cpu(
+                pool, cfg, sets, 'rgb',
+                full_width_check_cfg(cfg.model.to_dict()), RC2D_CHECK,
+                RC_CHECK_STEPS, faults.get(label),
+                cut=zoo_cut(*frames_crop) if frames_crop else None)
+            torch.cuda.empty_cache()
+        checks = {}
+        for label, finish in pending.items():
+            checks[label] = finish()
+            log(phase='recognition_extern_card_vs_cpu', config=label,
+                **checks[label])
+    check_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    swin = EXTERN + EXTERN_CONFIGS[0][1]
+    work = osp.join(root, 'tsn_swin_base')
+    row = recognition_train(swin, sets, 'rgb', True, work)
+    log(phase='recognition_extern_config', config=swin, **row)
+    loop_s, restore = timed_calls(inference, 'run_test')
+    try:
+        metrics, launches, test_s = cli_run(test_cli.main, [
+            swin, osp.join(work, 'epoch_1.pth'), '--out',
+            osp.join(work, 'test.json'), '--cfg-options',
+            *recognition_options(sets, 'rgb', work)])
+    finally:
+        restore()
+    if any(launches.values()) or not all(0 <= v <= 1
+                                         for v in metrics.values()):
+        raise AssertionError(f'test CLI: {metrics}, {launches}')
+    cli_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    derived_work, derived = extern_derived_run(root, sets)
+    derived_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tools = extern_tools(root, derived_work)
+    tools_s = time.perf_counter() - t0
+    launched = dict(l_neg=di.l_neg.launches, dq=di.dq.launches,
+                    corr_lookup=cl.corr_lookup.launches)
+    if any(launched.values()):
+        raise AssertionError(f'recognition_extern launched {launched}')
+    seconds = time.perf_counter() - t_phase
+    # the TSN test pipeline: 3 clips of 1 frame, ThreeCrop: 9 views a video
+    test = dict(videos=RC_VAL, views_a_video=9, metrics=metrics,
+                videos_per_s=RC_VAL / test_s,
+                loop_videos_per_s=RC_VAL / sum(loop_s))
+    worst = {key: max(checks, key=lambda k: checks[k][key] or 0)
+             for key in ('logit_share', 'loss_share', 'grad_share',
+                         'update_share')}
+    log(phase='recognition_extern', test_cli=test, derived=derived,
+        tools=tools, card_vs_cpu_s=check_s, cli_s=cli_s,
+        derived_s=derived_s, tools_s=tools_s, seconds=seconds,
+        launches=launched)
+    log(phase='recognition_extern', headline=dict(
+        checks=f'card_vs_cpu ({len(checks)} configs at full width: logits, '
+               f'losses, gradients, updates against float64; the planted '
+               f'faults failed it), finite losses, 0 kernel launches, test '
+               f'metrics; the derived tsn_r50 run (AdamW, custom_keys, '
+               f'PreciseBN moved the BN statistics alone, the class-balanced '
+               f'sampler) resumed bitwise; its exported program within '
+               f'{_short(tools["export_max_abs_err"])} of the eager model',
+        seconds=round(seconds, 1), card_vs_cpu_s=round(check_s, 1),
+        cli_s=round(cli_s, 1), derived_s=round(derived_s, 1),
+        tools_s=round(tools_s, 1),
+        cpu_refs_s=round(sum(c['cpu_s'] for c in checks.values()), 1),
+        cpu_float64_s={k: round(c['cpu_float64_s'], 1)
+                       for k, c in checks.items()},
+        worst_card_vs_cpu={key: [k, _short(checks[k][key])]
+                           for key, k in worst.items()},
+        faults={label: {key: _short(v) for key, v in
+                        checks[label]['fault'].items()}
+                for label in faults},
+        test_videos_per_s=round(test['videos_per_s'], 2),
+        swin_cli=[round(row['steady_ms'], 1),
+                  round(row['data_wait_share'], 3),
+                  round(row['device_ms'], 1), round(row['idle_share'], 3),
+                  round(row['peak_bytes'] / 2 ** 30, 2)],
+        keys='steady_ms, data_wait_share, device_ms, idle_share, peak_GiB',
+        derived_losses=[round(x, 4) for x in derived['losses']],
+        tools={k: _short(v) for k, v in tools.items()
+               if k != 'cal_train_time'}))
+
+
+def extern_step_costs(root, sets):
+    """The measurement behind EXTERN_CONFIGS' cuts, not part of the smoke
+    run: each config's CPU float64 train step on its own clip, in a
+    reference_pool with every worker busy, as the checks run (a config
+    whose step takes over ZOO_STEP_S is cut). Logs ``extern_step_cost``
+    lines. On the card: python3 -c "import os.path as osp, tempfile,
+    chip_smoke as c; r = osp.join(tempfile.mkdtemp(), 'recognition');
+    c.extern_step_costs(r, c.write_recognition_sets(r))"."""
+    os.makedirs(root, exist_ok=True)
+    with reference_pool(root) as pool:
+        pending = {}
+        for label, path, _ in EXTERN_CONFIGS:
+            cfg = Config.fromfile(EXTERN + path)
+            pending[label] = pool.submit(_float64_step_seconds, dict(
+                cfg=cfg.filename,
+                model_cfg=full_width_check_cfg(cfg.model.to_dict()),
+                batch=_recognition_batch(cfg, sets, 'rgb', RC2D_CHECK)))
+        out = {}
+        for label, future in pending.items():
+            out[label] = future.result()
+            log(phase='extern_step_cost', config=label,
+                own_clip_float64_s=out[label], cut=out[label] > ZOO_STEP_S)
+    return out
 
 
 def _float64_step_seconds(task):
@@ -5062,6 +5506,7 @@ def run_phases(out):
         return result
 
     t0 = time.perf_counter()
+    reference_workers()          # they start beside the build
     cuda_build.build(cuda_build.all_sources())
     for name in cuda_build.host_sources():
         if cuda_build.load_host(name.rsplit('.', 1)[0]) is None:
@@ -5103,12 +5548,15 @@ def run_phases(out):
         run('recognition_2d', phase_recognition_2d, rc_root, rc_sets)
         run('recognition_3d_zoo', phase_recognition_3d_zoo, rc_root,
             rc_sets)
+        run('recognition_extern', phase_recognition_extern, rc_root,
+            rc_sets)
         run('pretrain_configs', phase_pretrain_configs, dev, root, pkls)
         run('ablation_arms', phase_ablation_arms, dev, root)
         run('mscl_family', phase_mscl_family, dev, root, pkls, ft_pkls,
             ft_work)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+        stop_reference_workers()
     log(phase='phase_seconds', total=sum(seconds.values()), **seconds)
     print(json.dumps(dict(phase='all', s=round(sum(seconds.values()), 1),
                           log=osp.relpath(LOG_PATH))), file=out)

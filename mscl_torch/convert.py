@@ -79,7 +79,9 @@ from torch import nn
 _LEAF = {'params': {'kernel': 'weight', 'scale': 'weight', 'bias': 'bias',
                     'fc_cls_kernel': 'fc_cls_kernel',
                     'fc_cls_bias': 'fc_cls_bias', 'pos_embed': 'pos_embed',
-                    'cls_token': 'cls_token', 'time_embed': 'time_embed'},
+                    'cls_token': 'cls_token', 'time_embed': 'time_embed',
+                    'relative_position_bias_table':
+                        'relative_position_bias_table'},
          'batch_stats': {'mean': 'running_mean', 'var': 'running_var'}}
 
 
@@ -203,3 +205,56 @@ def load_jax_variables(module: nn.Module, variables: Dict) -> None:
     sd = {k: torch.from_numpy(v) for k, v in
           jax_to_state_dict(variables).items()}
     module.load_state_dict(sd, strict=True)
+
+
+# the recognizers' children the JAX tree names with a '_m' suffix
+_M_SUFFIXED = ('backbone', 'neck', 'cls_head', 'sup_head', 'moco_head',
+               'moco_mx_head', 'recognizer', 'recognizer_flow')
+# blocks whose JAX module names its conv2 pair bare (``conv2_conv``,
+# ``conv2_bn``), where the port nests them (``conv2.conv``)
+_FLAT_CONV2 = ('Bottleneck3d', 'CSNBottleneck')
+# the raw parameters that keep their names (``_LEAF``), by their torch name
+_RAW = {v: k for k, v in _LEAF['params'].items()
+        if k not in ('kernel', 'scale', 'bias')}
+
+
+def jax_param_paths(model: nn.Module) -> Dict[str, str]:
+    """Each parameter of ``model`` (by its torch name) -> its '/'-joined
+    path in the JAX package's params tree (the inverse of
+    ``jax_to_state_dict``'s names, as the JAX optimizer's labels and
+    ``custom_keys`` read them): ``layer{i}.{j}`` -> ``layer{i}_{j}``, a
+    recognizer's children with their ``_m``, a VideoResNet's ``0`` / ``1``
+    -> ``conv`` / ``bn``, ResNet3d's bare ``conv2_conv`` / ``conv2_bn``;
+    ``weight`` -> ``scale`` (1-D) or ``kernel``. Each path maps back onto
+    its name under ``jax_to_state_dict``'s rules."""
+    modules = dict(model.named_modules())
+    out = {}
+    for name, param in model.named_parameters():
+        segs = name.split('.')
+        path, convbn, i = [], False, 0
+        while i < len(segs) - 1:
+            owner = modules['.'.join(segs[:i])]
+            convbn = convbn or hasattr(owner, 'stem')
+            seg = segs[i]
+            m = re.fullmatch(r'(layer\d+)(_local)?', seg)
+            if m and i + 2 < len(segs) and segs[i + 1].isdigit():
+                path.append(f'{m.group(1)}_{segs[i + 1]}{m.group(2) or ""}')
+                i += 2
+                continue
+            if seg == 'conv2' and type(owner).__name__ in _FLAT_CONV2 and \
+                    i + 2 < len(segs):
+                path.append(f'conv2_{segs[i + 1]}')
+                i += 2
+                continue
+            if convbn and seg in ('0', '1'):
+                seg = 'conv' if seg == '0' else 'bn'
+            elif i == 0 and seg in _M_SUFFIXED:
+                seg += '_m'
+            path.append(seg)
+            i += 1
+        leaf = segs[-1]
+        if leaf == 'weight':
+            leaf = 'scale' if param.dim() == 1 else 'kernel'
+        path.append(_RAW.get(leaf, leaf))
+        out[name] = '/'.join(path)
+    return out

@@ -38,6 +38,7 @@ from ..parallel import dist
 from ..utils.device import resolve_device
 from .checkpoint import (latest_checkpoint, load_checkpoint, load_meta,
                          restore_train_state, save_checkpoint, train_state)
+from .precise_bn import precise_bn_update
 
 
 def make_train_step(model: nn.Module, optimizer=None,
@@ -99,7 +100,8 @@ def to_torch(batch: Dict, device) -> Dict:
 class Runner:
     """Epoch-based training loop (the JAX package's Runner, itself the
     reference's EpochBasedRunner with its logger, checkpoint and evaluation
-    hooks): train epochs, a checkpoint every ``checkpoint_config.interval``
+    hooks): train epochs, ``precise_bn`` every ``precise_bn.interval``
+    epochs, a checkpoint every ``checkpoint_config.interval``
     epochs, validation every ``evaluation.interval`` (by loss with
     ``evaluation.simple``, else by ``evaluation.metrics`` over
     ``eval_fn``'s scores), a JSON log (``log.json``), resume, and on
@@ -111,8 +113,6 @@ class Runner:
     def __init__(self, model, optimizer, train_loader, cfg, work_dir,
                  val_loader=None, pre_update_fn=None, lr_schedule=None,
                  device=None, val_dataset=None, eval_fn=None):
-        if cfg.get('precise_bn'):
-            raise NotImplementedError('precise_bn is not ported')
         self.model = model
         self.optimizer = optimizer
         self.train_loader = train_loader
@@ -141,6 +141,11 @@ class Runner:
         self.best_rule = rule
         self.best_score = None
         self.best_ckpt_path = None
+        # PreciseBNHook (reference apis/train.py:127-139; the slowfast_prebn
+        # configs' precise_bn=dict(num_iters=200, interval=1)): the BN
+        # statistics refreshed from train data every ``interval`` epochs,
+        # before the checkpoint (core/precise_bn.py)
+        self.precise_bn = dict(cfg.get('precise_bn') or {}) or None
 
         self._train_step = make_train_step(model, optimizer, pre_update_fn)
         self._val_step = make_train_step(model, None, pre_update_fn,
@@ -195,6 +200,12 @@ class Runner:
             while self.epoch < self.total_epochs:
                 self.train_epoch()
                 self.epoch += 1
+                if self.precise_bn and self.epoch % self.precise_bn.get(
+                        'interval', 1) == 0:
+                    precise_bn_update(
+                        self.model, self.train_loader,
+                        lambda b: to_torch(b, self.device),
+                        num_iters=self.precise_bn.get('num_iters', 200))
                 if self.ckpt_interval and \
                         self.epoch % self.ckpt_interval == 0:
                     self._save(self.epoch)

@@ -34,12 +34,12 @@ def build_dataloader(dataset, videos_per_gpu, workers_per_gpu=0,
                      rank=0, pad_last=False):
     """A NumpyLoader over global batches of ``videos_per_gpu * num_gpus``
     (the reference's lr-per-batch-size semantics), rank ``rank``'s rows of
-    each when ``num_gpus`` > 1; ``pad_last`` tiles a short last batch."""
+    each when ``num_gpus`` > 1; ``pad_last`` tiles a short last batch;
+    ``sampler`` (a PK sampler's config) and a dataset's
+    ``sample_by_class`` choose the epoch's order (``NumpyLoader``)."""
     from .loader import NumpyLoader
-    if sampler:
-        raise NotImplementedError(f'sampler {dict(sampler)} is not ported')
     return NumpyLoader(dataset, batch_size=videos_per_gpu * num_gpus,
                        shuffle=shuffle, seed=seed, drop_last=drop_last,
                        num_workers=workers_per_gpu, prefetch=prefetch,
                        workers_mode=workers_mode, world=num_gpus, rank=rank,
-                       pad_last=pad_last)
+                       pad_last=pad_last, sampler=sampler)

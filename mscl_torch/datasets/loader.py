@@ -7,7 +7,8 @@ bounded prefetch queue. With ``workers_mode='thread'`` and more than one
 worker it decodes the samples of a batch on a thread each; with
 ``workers_mode='process'`` a pool of decode processes makes whole batches,
 ``workers + prefetch`` of them in flight. The order of an epoch is
-``np.random.default_rng(seed + epoch)``'s permutation.
+``np.random.default_rng(seed + epoch)``'s permutation, or its draws of
+the class-balanced or the PK sampler (``epoch_order``).
 
 Data parallel (``world`` > 1, one loader a rank): ``batch_size`` is the
 global batch and ``len`` counts global batches. Every rank draws the same
@@ -288,7 +289,8 @@ class NumpyLoader:
     def __init__(self, dataset, batch_size, shuffle=True, seed=None,
                  drop_last=False, num_workers=0, prefetch=2,
                  collate_fn=default_collate, workers_mode='thread',
-                 mp_context='fork', world=1, rank=0, pad_last=False):
+                 mp_context='fork', world=1, rank=0, pad_last=False,
+                 sampler=None):
         assert workers_mode in ('thread', 'process'), workers_mode
         if batch_size % world:
             raise ValueError(f'a global batch of {batch_size} does not '
@@ -305,6 +307,7 @@ class NumpyLoader:
         self.num_workers = num_workers
         self.prefetch = max(1, prefetch)
         self.collate_fn = collate_fn
+        self.sampler = dict(sampler) if sampler else None
         self.epoch = 0
 
     def _get_pool(self) -> _ProcessPool:
@@ -343,11 +346,66 @@ class NumpyLoader:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
-    def __iter__(self):
-        if getattr(self.dataset, 'sample_by_class', False) and self.shuffle:
-            raise NotImplementedError('the class-balanced sampler is not '
-                                      'ported')
+    def _class_balanced_order(self, rng) -> np.ndarray:
+        """ClassSpecificDistributedSampler (reference
+        samplers/distributed_sampler.py:50-140, mscl_tpu's
+        ``_class_balanced_order``): ``len(dataset)`` draws of a class with
+        probability proportional to its size ** ``power`` (0: uniform over
+        the classes), each then of one of its videos, uniformly."""
+        by_class = self.dataset.video_infos_by_class
+        labels = sorted(by_class)
+        freqs = np.array([len(by_class[c]) for c in labels], np.float64)
+        probs = freqs ** getattr(self.dataset, 'power', 0.0)
+        probs = probs / probs.sum()
+        class_indices = {c: [] for c in labels}
+        for i, info in enumerate(self.dataset.video_infos):
+            class_indices[info['label']].append(i)
+        chosen = rng.choice(len(labels), size=len(self.dataset), p=probs)
+        return np.array([
+            class_indices[labels[c]][rng.integers(
+                len(class_indices[labels[c]]))] for c in chosen])
+
+    def _pk_order(self, rng, pk_sample_num: int) -> np.ndarray:
+        """PKDistributedSampler (reference
+        samplers/distributed_sampler.py:141-201, reid; mscl_tpu's
+        ``_pk_order``): each anchor of the (shuffled) order followed by
+        ``pk_sample_num`` - 1 other videos of its class, drawn with
+        replacement only when the class has too few (the anchor itself
+        when it is alone)."""
+        labels = [info['label'] for info in self.dataset.video_infos]
+        class_indices: Dict[Any, list] = {}
+        for i, lab in enumerate(labels):
+            class_indices.setdefault(lab, []).append(i)
+        base = rng.permutation(len(labels)) if self.shuffle else \
+            np.arange(len(labels))
+        order = []
+        k = pk_sample_num - 1
+        for ind in base:
+            order.append(ind)
+            pool = [i for i in class_indices[labels[ind]] if i != ind]
+            if pool:
+                extra = rng.choice(pool, size=k, replace=len(pool) < k)
+                order.extend(int(x) for x in extra)
+            else:
+                order.extend([int(ind)] * k)
+        return np.asarray(order)
+
+    def epoch_order(self) -> np.ndarray:
+        """The dataset indices of this epoch, from
+        ``np.random.default_rng(seed + epoch)``: the PK order for a
+        ``PKSampler`` / ``PKDistributedSampler`` (``pk_sample_num`` a
+        video, default 2), the class-balanced one for a dataset with
+        ``sample_by_class`` when shuffling, else a permutation (or, not
+        shuffling, the dataset's order). Another sampler type is read as
+        none, as the JAX loader reads it."""
         n = len(self.dataset)
         rng = np.random.default_rng(self.seed + self.epoch)
-        order = rng.permutation(n) if self.shuffle else np.arange(n)
-        return _EpochIterator(self, order)
+        if self.sampler and self.sampler.get('type') in (
+                'PKDistributedSampler', 'PKSampler'):
+            return self._pk_order(rng, self.sampler.get('pk_sample_num', 2))
+        if getattr(self.dataset, 'sample_by_class', False) and self.shuffle:
+            return self._class_balanced_order(rng)
+        return rng.permutation(n) if self.shuffle else np.arange(n)
+
+    def __iter__(self):
+        return _EpochIterator(self, self.epoch_order())

@@ -1,3 +1,5 @@
+from .extern_2d import (BottleneckX, DenseLayer, DenseNet, PatchMerging,
+                        ResNeXt, SwinBlock, SwinTransformer)
 from .mobilenet_v2 import MobileNetV2, MobileNetV2TSM
 from .resnet2d import C3D, ResNet, ResNetTSM, temporal_shift
 from .resnet3d import (BasicBlock3d, Bottleneck3d, ConvModule, CSNBottleneck,
@@ -18,4 +20,6 @@ __all__ = ['BasicBlock3D', 'Bottleneck3D', 'ConvBN', 'VideoResNet',
            'ResNetTSM', 'C3D', 'temporal_shift', 'MobileNetV2',
            'MobileNetV2TSM', 'ResNetTIN', 'linear_sampler', 'tin_shift', 'TAM',
            'TANet', 'CSNBottleneck', 'ResNet3dCSN', 'ResNet3dLayer',
-           'ResNet3dSlowFast', 'S3D', 'TimeSformer', 'ResNet2Plus1d', 'X3D']
+           'ResNet3dSlowFast', 'S3D', 'TimeSformer', 'ResNet2Plus1d', 'X3D',
+           'BottleneckX', 'ResNeXt', 'DenseLayer', 'DenseNet', 'SwinBlock',
+           'PatchMerging', 'SwinTransformer']

@@ -38,6 +38,7 @@ import mscl_tpu.apis.train as jax_train
 import mscl_torch.apis.train as port_train
 from mscl_tpu import Config as JaxConfig
 from mscl_tpu.core.train_loop import TrainState
+from mscl_tpu.models.backbones import extern_2d as jax_extern_2d
 from mscl_tpu.models.backbones import mobilenet_v2 as jax_mobilenet_v2
 from mscl_tpu.models.backbones import resnet2d as jax_resnet2d
 from mscl_tpu.models.backbones import s3d as jax_s3d
@@ -48,7 +49,7 @@ from mscl_torch.convert import jax_to_state_dict
 from mscl_torch.core import (build_lr_schedule, build_optimizer,
                              save_checkpoint, train_loop, train_state)
 from mscl_torch.datasets import build_dataset
-from mscl_torch.models.backbones import mobilenet_v2, resnet2d, s3d
+from mscl_torch.models.backbones import extern_2d, mobilenet_v2, resnet2d, s3d
 from mscl_torch.models.heads import TRNHead
 from mscl_torch.models.necks import TPN
 
@@ -57,6 +58,10 @@ from test_torch_pose_data import skeletons
 from test_torch_rawframe_data import write_rawframes
 
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
+# a JAX program a test runs once, a forward at a small size: XLA compiles it
+# without LLVM's optimisation, which takes most of such a compile's time
+# and changes no arithmetic (the HLO passes stay)
+FAST_COMPILE = {'xla_backend_optimization_level': 0}
 B = 2
 GRAD_TOL = 5e-3
 ULP_MULT = 8.0
@@ -110,11 +115,13 @@ def _small(pipeline, ncthw=False):
 
 
 # the 2D tables cut while a test runs (cut_tables): ResNet's Basic and
-# Bottleneck stacks with one block a stage, and MobileNetV2's table with
+# Bottleneck stacks and ResNeXt's with one block a stage, and MobileNetV2's
+# table with
 # one block a stage but the second (a shifted residual block), in both
 # packages' tables (mscl_tpu's TIN and TANet read resnet2d.ARCH)
 ONE_BASIC = 'basic, one block a stage'
 ONE_BOTTLENECK = 'bottleneck, one block a stage'
+ONE_NEXT = 'ResNeXt, one block a stage'
 MBV2_ARCH = [(1, 16, 1, 1), (6, 24, 2, 2), (6, 32, 1, 2), (6, 64, 1, 2),
              (6, 96, 1, 1), (6, 160, 1, 2), (6, 320, 1, 1)]
 
@@ -125,6 +132,16 @@ MBV2_ARCH = [(1, 16, 1, 1), (6, 24, 2, 2), (6, 32, 1, 2), (6, 64, 1, 2),
 S3D_TABLE = [(n, cfg if cfg is None else tuple(max(c // 8, 4) for c in cfg))
              for n, cfg in jax_s3d._INCEPTION]
 S3D_OUT = 384 // 8 + 384 // 8 + 128 // 8 + 128 // 8
+# S3D's module case (tests/test_torch_video_zoo.py): the cut table's first
+# block of each group and its pools (the recipe holds every block)
+S3D_SHORT = [S3D_TABLE[i] for i in (0, 2, 3, 8, 10)]
+
+
+@contextlib.contextmanager
+def short_s3d():
+    with mock.patch.object(jax_s3d, '_INCEPTION', S3D_SHORT), \
+            mock.patch.object(s3d, '_INCEPTION', S3D_SHORT):
+        yield
 
 
 @contextlib.contextmanager
@@ -133,6 +150,8 @@ def cut_tables():
             ONE_BOTTLENECK: ('bottleneck', (1, 1, 1, 1))}
     with mock.patch.dict(jax_resnet2d.ARCH, arch), \
             mock.patch.dict(resnet2d.ARCH, arch), \
+            mock.patch.dict(jax_extern_2d.ARCH_NEXT, {ONE_NEXT: (1,) * 4}), \
+            mock.patch.dict(extern_2d.ARCH_NEXT, {ONE_NEXT: (1,) * 4}), \
             mock.patch.object(jax_mobilenet_v2, 'ARCH', MBV2_ARCH), \
             mock.patch.object(mobilenet_v2, 'ARCH', MBV2_ARCH), \
             mock.patch.object(jax_s3d, '_INCEPTION', S3D_TABLE), \
@@ -150,7 +169,11 @@ def narrow_model(model):
     base 8 and its fast path to 2, one block a stage; R(2+1)D to base
     width 8, one block a stage; X3D to base 8 and one block a stage
     before ``gamma_d``; S3D to the cut table; TimeSformer to 32 wide, 2
-    heads, 2 layers, its image size the crop's (32); a TPN neck to the
+    heads, 2 layers, its image size the crop's (32); the external-name 2D
+    backbones: ResNeXt to one block a stage (32 groups of 4 stay),
+    DenseNet to 16 initial features, growth 8, one layer a block, Swin to
+    16 wide, depths (2, 1, 1, 1), its image size the crop's (32, which
+    the JAX module reads from its input: ``PORT_ONLY``); a TPN neck to the
     narrowed stages' widths and 64 out (its aux dropout is the JAX
     module's fixed 0.5)."""
     bb, head = model['backbone'], model['cls_head']
@@ -173,6 +196,16 @@ def narrow_model(model):
         head['in_channels'] = 32
     elif bb['type'].startswith('MobileNetV2'):
         bb['widen_factor'] = 0.5
+    elif bb['type'] == 'mmcls.ResNeXt':
+        bb['depth'] = ONE_NEXT
+    elif bb['type'] == 'torchvision.densenet161':
+        bb.update(num_init_features=16, growth_rate=8,
+                  block_config=(1, 1, 1, 1))
+        head['in_channels'] = 17
+    elif bb['type'] == 'timm.swin_base_patch4_window7_224':
+        bb.update(embed_dim=16, depths=(2, 1, 1, 1), num_heads=(1, 1, 2, 2),
+                  img_size=32)
+        head['in_channels'] = 128
     elif model['type'] == 'Recognizer2D':
         bb['depth'] = ONE_BASIC
         head['in_channels'] = 512
@@ -187,12 +220,14 @@ def narrow_model(model):
     return model
 
 
-def narrow_cfg(name, root, ann, work_dir, validate, ncthw=False):
+def narrow_cfg(name, root, ann, work_dir, validate, ncthw=False,
+               update=None, epochs=1):
     """The config file as a dict: its model narrowed (``narrow_model``), a
-    batch of 2, one epoch of 2 steps over ``ann`` (the flow set's grey x/y
-    files) with the pipelines' sizes scaled down (with ``ncthw`` NTHWC
-    clips formatted NCTHW, as the port's Recognizer3D reads clips: C3D's
-    recipe formats NTHWC), validation every epoch on the same list."""
+    batch of 2, ``epochs`` epochs of 2 steps over ``ann`` (the flow set's
+    grey x/y files) with the pipelines' sizes scaled down (with ``ncthw``
+    NTHWC clips formatted NCTHW, as the port's Recognizer3D reads clips:
+    C3D's recipe formats NTHWC), validation every epoch on the same list;
+    then ``update`` (a function of the dict, or None) applied."""
     cfg = Config.fromfile(osp.join(ROOT, 'configs', name)).to_dict()
     narrow_model(cfg['model'])
     data = cfg['data']
@@ -200,17 +235,33 @@ def narrow_cfg(name, root, ann, work_dir, validate, ncthw=False):
     for split in ('train', 'val', 'test'):
         data[split]['ann_file'] = ann
         data[split]['pipeline'] = _small(data[split]['pipeline'], ncthw)
+
         if data[split]['type'] == 'RawframeDataset':
             data[split]['data_prefix'] = root
             data[split]['filename_tmpl'] = '{}_{:05d}.jpg' \
                 if data[split].get('modality') == 'Flow' else 'img_{:05}.jpg'
-    cfg.update(total_epochs=1, work_dir=work_dir,
+    cfg.update(total_epochs=epochs, work_dir=work_dir,
                checkpoint_config=dict(interval=1),
                log_config=dict(interval=1))
     cfg['evaluation'] = dict(interval=1, metrics=['top_k_accuracy',
                                                   'mean_class_accuracy'])
     if not validate:
         cfg['data'].pop('val')
+    if update is not None:
+        update(cfg)
+    return cfg
+
+
+# backbone arguments the port takes and the JAX module does not (it sizes
+# from its first input what the port sizes when it is built)
+PORT_ONLY = {'timm.swin_base_patch4_window7_224': ('img_size',)}
+
+
+def jax_cfg(cfg):
+    """``narrow_cfg``'s config less what only the port's backbone takes."""
+    bb = cfg['model']['backbone']
+    for key in PORT_ONLY.get(bb['type'], ()):
+        bb.pop(key, None)
     return cfg
 
 
@@ -236,14 +287,14 @@ def port_to_jax(shapes, state_dict, dtype):
 
 
 def run_both(name, root, ann, tmp, validate, x64, ncthw=False,
-             port64=False):
+             port64=False, update=None, epochs=1):
     """``train_model`` of mscl_tpu (in float64 with ``x64``) and of the
     port from the port's initial weights (its model and clips in float64
     with ``port64``); returns the two logs, the port's run (a function of
     a work dir and an input scale), the initial and JAX's final variables
     as state dicts."""
     jdir, tdir, t0dir = (osp.join(tmp, n) for n in ('jax', 'port', 'p0'))
-    cfg = narrow_cfg(name, root, ann, tdir, validate, ncthw)
+    cfg = narrow_cfg(name, root, ann, tdir, validate, ncthw, update, epochs)
     model = build_model_from_cfg(cfg['model'], device='cpu')
     init = {k: v.numpy().copy() for k, v in model.state_dict().items()}
     real = jax_train.init_state
@@ -264,19 +315,22 @@ def run_both(name, root, ann, tmp, validate, x64, ncthw=False,
             step=jnp.zeros((), jnp.int32), params=variables['params'],
             batch_stats=variables.get('batch_stats', {}),
             moco_state=variables.get('moco_state', {}),
-            opt_state=tx.init(variables['params']), rng=state_rng)
+            # one compilation, not one a parameter shape
+            opt_state=jax.jit(tx.init)(variables['params']), rng=state_rng)
         # placed as the step returns it, so the second step reuses the
         # first one's compilation
         return jax.device_put(state, NamedSharding(mesh, PartitionSpec()))
     mesh = create_mesh(1)
     jax_train.init_state = init_state
-    jcfg = narrow_cfg(name, root, ann, jdir, validate, ncthw)
+    jcfg = jax_cfg(narrow_cfg(name, root, ann, jdir, validate, ncthw,
+                              update, epochs))
     if x64:
         jcfg['model']['dtype'] = jnp.float64
     picks, masks = [], []
     try:
         with jax_float64() if x64 else contextlib.nullcontext(), \
-                _recorded_choice(picks), recorded_bernoulli(masks):
+                _recorded_choice(picks), recorded_bernoulli(masks), \
+                _fast_compiled_but_the_step():
             _seed()
             _, jstate = jax_train.train_model(
                 JaxConfig.fromdict(jcfg), validate=validate, seed=0,
@@ -292,7 +346,9 @@ def run_both(name, root, ann, tmp, validate, x64, ncthw=False,
                  for k, v in jax_to_state_dict(
         {'params': jstate.params, 'batch_stats': jstate.batch_stats}).items()}
 
-    opt = build_optimizer(model, dict(type='SGD', lr=0.0),
+    # the config's optimizer (its groups, no state yet): the runs resume
+    # from these initial weights
+    opt = build_optimizer(model, dict(cfg['optimizer']),
                           build_lr_schedule({}, 0.0, 1, 1))
     ckpt0 = save_checkpoint(train_state(model, opt), t0dir, 0)
 
@@ -341,6 +397,24 @@ def run_both(name, root, ann, tmp, validate, x64, ncthw=False,
     real_picks = TRNHead.relation_picks
     real_dropout = TPN.dropout
     return _log(jdir), port_run, init, jax_final
+
+
+@contextlib.contextmanager
+def _fast_compiled_but_the_step():
+    """Every ``jax.jit`` made inside but the train step's (the validation's
+    forward, the optimizer's init) compiled with FAST_COMPILE: the step
+    runs a forward and a backward in float64 and runs slower so."""
+    real = jax.jit
+
+    def jit(fun, *args, **kwargs):
+        if getattr(fun, '__name__', '') != 'train_step':
+            kwargs.setdefault('compiler_options', FAST_COMPILE)
+        return real(fun, *args, **kwargs)
+    jax.jit = jit
+    try:
+        yield
+    finally:
+        jax.jit = real
 
 
 @contextlib.contextmanager
@@ -401,7 +475,7 @@ def _changes(runner, init):
 
 
 def check(name, root, ann, tmp, validate, x64=False, ncthw=False,
-          spacing_floor=False, port64=False):
+          spacing_floor=False, port64=False, update=None, epochs=1):
     """``spacing_floor`` (TSM's, TIN's and TANet's recipes alone) also
     passes a tensor whose gap from JAX's float64 change lies within two
     float32 spacings of the port's parameter: a change the float32
@@ -411,19 +485,21 @@ def check(name, root, ann, tmp, validate, x64=False, ncthw=False,
     float64 too and holds every tensor to the tolerance with no ulp
     control: for a recipe whose float32 conditioning defeats that control
     (ir-CSN's, where JAX's own float32 run lies up to 49 % from its
-    float64)."""
+    float64). ``update`` changes the narrowed config (an optimizer, a
+    sampler, PreciseBN) in both packages; ``epochs`` epochs of 2 steps
+    run. Returns the port's runner."""
     with cut_tables():
-        _check(name, root, ann, tmp, validate, x64, ncthw, spacing_floor,
-               port64)
+        return _check(name, root, ann, tmp, validate, x64, ncthw,
+                      spacing_floor, port64, update, epochs)
 
 
 def _check(name, root, ann, tmp, validate, x64, ncthw, spacing_floor,
-           port64=False):
+           port64=False, update=None, epochs=1):
     jlog, port_run, init, final = run_both(name, root, ann, tmp, validate,
-                                           x64, ncthw, port64)
+                                           x64, ncthw, port64, update, epochs)
     runner = port_run(osp.join(tmp, 'port'))
     tlog = _log(osp.join(tmp, 'port'))
-    modes = ['train', 'train'] + (['val'] if validate else [])
+    modes = (['train', 'train'] + (['val'] if validate else [])) * epochs
     assert [r['mode'] for r in tlog] == [r['mode'] for r in jlog] == modes
     for j, t in zip(jlog, tlog):
         assert sorted(j) == sorted(t)
@@ -436,7 +512,7 @@ def _check(name, root, ann, tmp, validate, x64, ncthw, spacing_floor,
                                            err_msg=f'{t["mode"]} {k}')
             else:
                 assert t[k] == j[k], (t['mode'], k)
-    assert runner.optimizer.steps == 2
+    assert runner.optimizer.steps == 2 * epochs
     got = _changes(runner, init)
     want = {k: v - init[k] for k, v in final.items()}
     scale = {k: max(np.abs(v).max(), 1e-12) for k, v in want.items()}
@@ -461,6 +537,7 @@ def _check(name, root, ann, tmp, validate, x64, ncthw, spacing_floor,
         far = {k: (e, moved[k]) for k, e in missed.items()
                if e > ULP_MULT * moved[k]}
         assert not far, far
+    return runner
 
 
 @pytest.fixture(scope='module')

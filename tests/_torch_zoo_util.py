@@ -10,8 +10,15 @@ port through ``mscl_torch/convert.py`` and compares:
 
 - eval mode (BN on running statistics): every output within 1e-4;
 - train mode: every output within 1e-4, each parameter's gradient of
-  sum_i <out_i, w_i> / sqrt(size of out_i) (w_i normal from a seed) within
-  rtol 5e-3 / atol 1e-4, and the BN statistics the pass leaves within 1e-4.
+  sum_i <out_i, w_i> / sqrt(size of out_i) (w_i normal from a fixed JAX
+  key, drawn inside the jitted pass) within rtol 5e-3 / atol 1e-4, and the
+  BN statistics the pass leaves within 1e-4.
+
+The eval pass is jitted once for a module's repr (``jax_eval``), so a
+module case and its init case share the compilation. The eval pass and
+the init run once, a forward at a small size, so each is compiled without
+LLVM's optimisation (``FAST_COMPILE``); the train pass, a forward and a
+backward in float64, runs slower so.
 
 With ``x64`` both packages run in float64 (JAX with x64 on, the model's
 dtype float64 and flax's BatchNorm; the port's model and inputs in
@@ -31,7 +38,7 @@ import torch
 from mscl_torch.convert import jax_to_state_dict, load_jax_variables
 
 from _torch_port_util import ncthw, nthwc, perturb
-from _torch_recognition_util import port_to_jax
+from _torch_recognition_util import FAST_COMPILE, port_to_jax
 from _torch_step_util import jax_float64
 
 OUT_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -72,6 +79,22 @@ def _close(got, want, tol, what):
         np.testing.assert_allclose(g, w, err_msg=f'{what} {i}', **tol)
 
 
+# the jitted eval passes by the JAX module's repr and its inputs' shapes:
+# a module case and its init case (the same config on inputs of one shape)
+# share one compilation
+_EVAL = {}
+
+
+def jax_eval(jmodel, variables, x, jkw):
+    """``jmodel.apply(variables, x, train=False, **jkw)``, jitted once for
+    every module of the same repr."""
+    key = repr(jmodel)
+    if key not in _EVAL:
+        _EVAL[key] = jax.jit(lambda v, xx, kw: jmodel.apply(
+            v, xx, train=False, **kw), compiler_options=FAST_COMPILE)
+    return _EVAL[key](variables, x, jkw)
+
+
 def hold(jfactory, tmodel, x, x64=False, jkw=None, tkw=None, rngs=None):
     """``jfactory(dtype)`` builds the JAX module, ``tmodel`` is the port's;
     ``x`` the port's input (NCTHW numpy or a list). ``jkw`` / ``tkw``: more
@@ -93,8 +116,7 @@ def hold(jfactory, tmodel, x, x64=False, jkw=None, tkw=None, rngs=None):
     variables = {'params': perturb(variables['params'], 2),
                  'batch_stats': perturb(variables.get('batch_stats', {}), 3)}
     load_jax_variables(tmodel, variables)
-    want = flat(jax.jit(lambda v, xx: jmodel.apply(
-        v, xx, train=False, **jkw))(variables, to_jax(x)))
+    want = flat(jax_eval(jmodel, variables, to_jax(x), jkw))
     tmodel.eval()
     with torch.no_grad():
         got = flat(tmodel(to_torch(x), **tkw))
@@ -107,23 +129,22 @@ def hold(jfactory, tmodel, x, x64=False, jkw=None, tkw=None, rngs=None):
             dt) if np.asarray(a).dtype == np.float32 else np.asarray(a)),
             variables)
 
-        def train_out(params, xx):
-            return jm.apply(
+        def loss(params, xx):
+            out, new = jm.apply(
                 {'params': params, 'batch_stats': cast['batch_stats']}, xx,
                 train=True, mutable=['batch_stats'], rngs=rngs, **jkw)
-        rng = np.random.default_rng(1)
-        weights = [rng.normal(size=a.shape) / np.sqrt(max(a.size, 1))
-                   for a in _jax_flat(jax.eval_shape(
-                       train_out, cast['params'], to_jax(x, dt))[0])]
-        jw = [jnp.asarray(w.astype(dt)) for w in weights]
-
-        def loss(params, xx):
-            out, new = train_out(params, xx)
-            return sum(jnp.sum(o * w) for o, w in zip(_jax_flat(out), jw)), \
-                (out, new)
-        (_, (jout, jnew)), jgrads = jax.jit(jax.value_and_grad(
+            outs = _jax_flat(out)
+            # the weights drawn here from the outputs' shapes (no trace of
+            # their own), returned in the port's layout
+            keys = jax.random.split(jax.random.PRNGKey(1), len(outs))
+            ws = [jax.random.normal(k, o.shape, o.dtype) /
+                  np.sqrt(max(o.size, 1)) for k, o in zip(keys, outs)]
+            return sum(jnp.sum(o * w) for o, w in zip(outs, ws)), \
+                (out, new, ws)
+        (_, (jout, jnew, weights)), jgrads = jax.jit(jax.value_and_grad(
             loss, has_aux=True))(cast['params'], to_jax(x, dt))
         jout = flat(jout)
+        weights = [np.asarray(w) for w in weights]
         jax.effects_barrier()            # its host callbacks have run
         model = copy.deepcopy(tmodel).to(tdt)
         model.train()
@@ -146,16 +167,11 @@ def hold(jfactory, tmodel, x, x64=False, jkw=None, tkw=None, rngs=None):
 
 
 def _jax_flat(out):
-    """``flat``'s order over a JAX output (or its shapes), 5-D arrays
-    moved to NCTHW."""
+    """``flat``'s order over a JAX output, 5-D arrays moved to NCTHW."""
     if isinstance(out, dict):
         return [a for k in sorted(out) for a in _jax_flat(out[k])]
     if isinstance(out, (list, tuple)):
         return [a for o in out for a in _jax_flat(o)]
-    if isinstance(out, jax.ShapeDtypeStruct):
-        s = out.shape
-        return [np.empty((s[0], s[4]) + s[1:4] if len(s) == 5 else s,
-                         np.uint8)]
     return [jnp.transpose(out, (0, 4, 1, 2, 3)) if out.ndim == 5 else out]
 
 
@@ -173,11 +189,11 @@ def from_jax_init(jmodel, tmodel, x, jkw=None, tkw=None):
     on ``x``."""
     jkw, tkw = dict(jkw or {}), dict(tkw or {})
     variables = jax.jit(lambda k, xx: jmodel.init(k, xx, train=False,
-                                                  **jkw))(
+                                                  **jkw),
+                        compiler_options=FAST_COMPILE)(
         jax.random.PRNGKey(3), to_jax(x))
     load_jax_variables(tmodel, variables)
-    want = flat(jax.jit(lambda v, xx: jmodel.apply(
-        v, xx, train=False, **jkw))(variables, to_jax(x)))
+    want = flat(jax_eval(jmodel, variables, to_jax(x), jkw))
     tmodel.eval()
     with torch.no_grad():
         got = flat(tmodel(to_torch(x), **tkw))

@@ -75,6 +75,10 @@ FULL = {
     'timesformer/timesformer_divST_8x32x1_15e_kinetics400_rgb.py',
     'tpn/tpn_slowonly_r50_8x8x1_150e_kinetics400_rgb.py',
     'tpn/tpn_tsm_r50_1x1x8_150e_sthv1_rgb.py',
+    # the external-name 2D backbones
+    'custom_backbones/tsn_dense161_1x1x3_100e_kinetics400_rgb.py',
+    'custom_backbones/tsn_rn101_32x4d_1x1x3_100e_kinetics400_rgb.py',
+    'custom_backbones/tsn_swin_base_1x1x3_100e_kinetics400_rgb.py',
 }
 # model builds, data refused by name
 REFUSED = {
@@ -173,7 +177,7 @@ def test_every_config_builds_or_is_refused_by_name(sweep):
 def test_the_counts(sweep):
     models = {n for n, (stage, _, _) in sweep.items() if stage != 'model'}
     full = {n for n, (stage, _, _) in sweep.items() if stage == 'full'}
-    assert len(models) == 49
+    assert len(models) == 52
     assert full == FULL
     assert models == FULL | set(REFUSED)
     for name, word in REFUSED.items():
@@ -218,9 +222,16 @@ ZOO_3D = {
     'models': ('ResNet3dSlowFast', 'ResNet3dCSN', 'ResNet3dLayer',
                'ResNet2Plus1d', 'R3D', 'X3D', 'S3D', 'TimeSformer', 'TPN'),
 }
+# the external-name 2D backbones, under their own names and the names the
+# custom_backbones configs give
+EXTERN_2D = {
+    'models': ('ResNeXt', 'mmcls.ResNeXt', 'DenseNet',
+               'torchvision.densenet161', 'SwinTransformer',
+               'timm.swin_base_patch4_window7_224'),
+}
 # what the JAX registries hold that the port does not, yet (ROADMAP.md
-# Queue 1 items 3-5): a gate that later slices shrink and never grow
-MODELS_LEFT = 26
+# Queue 1 item 5): a gate that later slices shrink and never grow
+MODELS_LEFT = 20
 PIPELINES_LEFT = 27
 
 
@@ -251,6 +262,13 @@ def test_the_3d_zoo_is_registered(kind, name):
     assert _registry(kind).get(name) is not None
 
 
+@pytest.mark.parametrize('kind,name', [(k, n) for k, names in
+                                       sorted(EXTERN_2D.items())
+                                       for n in names])
+def test_the_extern_2d_backbones_are_registered(kind, name):
+    assert _registry(kind).get(name) is not None
+
+
 def test_the_jax_registries_left_to_port():
     """Every type the JAX package registers is the port's too, but for
     those the queues still hold; none of the MSCL family among them."""
@@ -270,5 +288,6 @@ def test_the_jax_registries_left_to_port():
         assert not set(left[kind]) & set(MSCL_FAMILY[kind])
         assert not set(left[kind]) & set(FRAME_FAMILY[kind])
         assert not set(left[kind]) & set(ZOO_3D.get(kind, ()))
+        assert not set(left[kind]) & set(EXTERN_2D.get(kind, ()))
     assert len(left['models']) <= MODELS_LEFT, left['models']
     assert len(left['pipelines']) <= PIPELINES_LEFT, left['pipelines']

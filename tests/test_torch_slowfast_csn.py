@@ -6,7 +6,8 @@ statistics), and the SlowFast and ir-CSN recipes through ``train_model``
 
 Sizes as the slice's other tests: base_channels 8 (SlowFast's fast path
 2), one block a stage, T = 8 (in the 4x16 geometry the fast path sees
-every frame and the slow path one), 32x32. The depth-50
+every frame and the slow path one; the 8x8 geometry at T = 4, the slow
+path one frame of them), 32x32. The depth-50
 stacks run in float64 on both sides (``hold``'s ``x64``).
 """
 import numpy as np
@@ -43,12 +44,12 @@ CASES = {
                            fast_pathway=FAST), (3, 8, 32, 32), True),
     'slowfast_8x8': (dict(type='ResNet3dSlowFast', resample_rate=4,
                           speed_ratio=4, slow_pathway=SLOW,
-                          fast_pathway=FAST), (3, 8, 32, 32), True),
+                          fast_pathway=FAST), (3, 4, 32, 32), True),
     'slowfast_no_lateral': (dict(type='ResNet3dSlowFast', resample_rate=4,
                                  speed_ratio=4,
                                  slow_pathway=dict(SLOW, lateral=False,
                                                    fusion_kernel=3),
-                                 fast_pathway=FAST), (3, 8, 32, 32), True),
+                                 fast_pathway=FAST), (3, 4, 32, 32), True),
     'ircsn': (dict(type='ResNet3dCSN', depth=50, base_channels=8,
                    stage_blocks=(1, 1, 1, 1), bottleneck_mode='ir',
                    out_indices=(2, 3)), (3, 8, 32, 32), True),

@@ -9,13 +9,16 @@ options).
 
 Sizes: base widths 8 (the R3D adapter's is fixed at 64), one block a
 stage (X3D's before ``gamma_d``), T = 8, 32x32; S3D with its Inception
-table an eighth as wide (``cut_tables``); TimeSformer 32 wide, 2 heads, 2
+table an eighth as wide (``cut_tables``), the module case with the first
+block of each group (``short_s3d``; the recipe runs them all); TimeSformer 32 wide, 2 heads, 2
 layers, 16x16 patches of 32x32 frames. The convolutional stacks run in
 float64 on both sides (``hold``'s ``x64``): at these sizes their last
 stages hold a few positions a channel (S3D's last BN normalises 2 values
 a channel), too ill-conditioned in float32 for the tolerances;
 TimeSformer, with no BN, runs in float32.
 """
+import contextlib
+
 import numpy as np
 import pytest
 
@@ -28,7 +31,7 @@ from mscl_torch.models.backbones import x3d
 from _torch_data_util import one_torch_thread  # noqa: F401
 from _torch_port_util import xla3d_conv  # noqa: F401
 from _torch_recognition_util import (ROOT, check, cut_tables,  # noqa: F401
-                                     narrow_model, sets)
+                                     narrow_model, sets, short_s3d)
 from _torch_zoo_util import from_jax_init, hold
 
 pytestmark = pytest.mark.usefixtures('xla3d_conv', 'one_torch_thread')
@@ -84,7 +87,8 @@ def test_backbone_matches_jax(name):
     cfg = dict(cfg)
     typ = cfg.pop('type')
     x = np.random.default_rng(1).normal(size=(2,) + shape).astype(np.float32)
-    with cut_tables():
+    with cut_tables(), short_s3d() if name == 's3d' else \
+            contextlib.nullcontext():
         hold(lambda dt: JAX_BACKBONES.get(typ)(dtype=dt, **cfg),
              BACKBONES.get(typ)(**cfg), x, x64=x64)
 
