@@ -214,15 +214,17 @@ the exit code is nonzero:
    RC_POOL spawned workers while the card runs the next configs; configs
    whose models differ only in their class count and dropout and whose clips
    agree in shape, RC2D_STEP_GROUPS, hold their logits and share one step
-   check, after a check that their configs and state dicts agree), and
-   tsm_r50_1x1x8 and tin_r50 again on the
+   check, after a check that their configs and state dicts agree; the
+   step checks of the configs over a 2D ResNet at a smaller depth,
+   RC2D_STEP_BLOCKS blocks a stage, their full-depth logits held on the
+   card against its float64), and tsm_r50_1x1x8 and tin_r50 again on the
    card with the TSM shift or TIN's shift switched off, planted faults that
    must fail that check; the training CLI on tsn_r50_1x1x3 (with validation),
    tsm_r50_1x1x8 and tin_r50 (1 epoch: 4, 4 and 5 steps at their batches of 8,
    8 and 6) and one more step profiled; the test CLI on the TSN checkpoint (9
    views a video, 4 videos), its metrics in [0, 1]; and the refusals by name:
    C3D (NTHWC clips) before its first step, the tsn and tsm video configs
-   (VideoDataset), tsn_r18_hvu (HVUDataset), the OmniSource config (its list
+   (VideoDataset), the OmniSource config (its list
    of train sets) and tsn_r101_mmit (its multi-class target). It fails unless
    every loss is finite and no kernel of the port launched; it logs each
    trained config's steady ms, data-wait share, profiled device ms and idle
@@ -304,7 +306,35 @@ the exit code is nonzero:
    features, the videos' labels, no decayed-InfoNCE launch) and ``python -m
    mscl_torch.tools.merge_pkls`` on two shards of an annotation list the
    phase writes (each video once, as in the unsharded list);
-18. print the card's name and power limit, the kernel table and the
+18. localization: temporal action localization at the shipped configs'
+   full widths on synthetic data from a seed (an ActivityNet-style set of
+   20 videos of 400 features, a THUMOS-style set of 4 videos of 96 JPEG
+   frames with its SSN proposal list). BMN (T 100, 32 x 3 samples,
+   hidden 256/128/512, batch 8, the config's Adam): the sample mask's
+   host build timed, 3 steps on labels from its generate_labels (the
+   port's train_model refuses BMN, TEM and PEM by name: JAX's cannot
+   train them as shipped), one more profiled, the boundary-matching
+   product timed against its bound, then forward_test and the host
+   proposals of 4 val videos into ActivityNetDataset.evaluate (AR@1, 5,
+   10, 100, AUC). BSN: TEM (400 -> 512, batch 16) 3 steps, its curves for
+   every video written as the TEM csv files, the ported
+   bsn_proposal_generation on them, PEM (32 -> 256) 3 steps on a batch's
+   proposals (top_k 500) and AR@AN over its test pipeline's (top_k 1000).
+   SSN's shipped config through train_model (ResNet-50 at 224, 8
+   proposals x 9 segments a video, SGD with clip 40: 4 steps), one more
+   step profiled, a test pass over every proposal into evaluate's mAP,
+   then the ported report_map on its detections. Card against CPU: BMN,
+   TEM, PEM and the trained SSN forward (eval mode) within LOC_SHARE of
+   the CPU's spread, BMN's losses with the same uniforms within
+   RC_LOSS_TOL. The HVU config (tsn_r18_1x1x8_100e_hvu_action_rgb) through
+   the training CLI on a synthetic HVU set stops by name before a step,
+   where JAX's data path fails: at its None filename_tmpl, and with one
+   set at LoadHVULabel on the one-hot target; its model refuses that
+   target on the card (multi_class). It fails unless every loss and
+   metric is finite and in range and no kernel of the port launched; a
+   headline record gives each model's steady ms, idle share and peak
+   memory;
+19. print the card's name and power limit, the kernel table and the
    result. Each phase's seconds are logged (phase_seconds).
 
 Every phase's log lines (and the CLIs' and spawned ranks' own output) go
@@ -320,8 +350,9 @@ run), 14b (each extraction run and each vis_flow run), 14c and 14d (each
 CLI run: none may launch a kernel), 11-14 (each CLI run; the fine-tune,
 test and retrieval paths must launch no decayed-InfoNCE kernel: r3d_18 goes
 to cuDNN), the probe tool's run in 4 and 16 (each arm's run of the tool,
-the A/B's two runs), 17 (the CLI run), and read just after. The kernel
-table's decayed-InfoNCE launches are the pretrain CLI's (both runs of 9).
+the A/B's two runs), 17 (the CLI run), 18 (its paths: none may launch
+a kernel), and read just after. The kernel table's decayed-InfoNCE
+launches are the pretrain CLI's (both runs of 9).
 It needs a CUDA device: without one it exits nonzero before printing any
 result.
 """
@@ -329,6 +360,7 @@ from __future__ import annotations
 
 import builtins
 import contextlib
+import copy
 import hashlib
 import importlib
 import json
@@ -630,6 +662,14 @@ RC2D_FAULTS = {'tsm_r50_1x1x8': ('resnet2d', 'temporal_shift'),
 RC2D_STEP_GROUPS = (('tsn_r50_1x1x3', 'tsn_r50_ucf101', 'tsn_r50_sthv1'),
                     ('tsn_r50_1x1x8', 'omnisource_tsn_r50'),
                     ('tsm_r50_1x1x8', 'tsm_r50_sthv2', 'tsm_r50_dense'))
+# the step checks of the configs over a 2D ResNet (RC2D_DEPTH_CUT: TSN,
+# TSM, TIN, TANet, TRN) at a smaller depth, each stage cut to its first
+# RC2D_STEP_BLOCKS blocks (the one with the stride and downsample, and one
+# more): ResNet-50's 16 blocks cut to 8, 57 % of its FLOPs at 224x224; the
+# CPU's references, most of the phase, shrink with them. The full-depth
+# model's logits are held on the card against its own float64 (depth_cut)
+RC2D_STEP_BLOCKS = 2
+RC2D_DEPTH_CUT = ('ResNet', 'ResNetTSM', 'ResNetTIN', 'TANet')
 # the CPU's float32 and float64 runs of card_vs_cpu in RC_POOL spawned
 # workers of RC_POOL_THREADS threads (reference_pool)
 RC_POOL, RC_POOL_THREADS = 4, 2
@@ -641,7 +681,6 @@ RC2D_REFUSED = (
      'VideoDataset', 'rgb'),
     (RC2D + 'tsm/tsm_r50_video_1x1x8_50e_kinetics400_rgb.py', 'VideoDataset',
      'rgb'),
-    (RC2D + 'tsn/tsn_r18_1x1x8_100e_hvu_action_rgb.py', 'HVUDataset', 'rgb'),
     (RC2D + 'omnisource/tsn_r50_1x1x8_100e_minikinetics_rgb.py',
      'OmniSource', None),
     (RC2D + 'tsn/tsn_r101_1x1x5_50e_mmit_rgb.py', 'multi_class', 'rgb'))
@@ -2406,18 +2445,28 @@ def phase_pretrain_dp(root, pkls):
     ``dp_step_line``), and at the narrow width within DP_TOL for both
     steps (in the same two ranks, after the full-width steps); every
     rank's state the same bitwise; (c) the full-width steps at world 1
-    under NCCL, the launcher's path; (b) in the same launch of the two
-    ranks as (a), the launcher's (``--num-devices 2``: two gloo ranks on
-    the card), the training CLI (a global batch of 32) for 1 epoch of
-    DP_CLI_STEPS steps, then a resume to a second: one loss on both ranks
-    every step, files from rank 0 only, the state loaded at resume equal
-    to the state saved, bitwise, on both ranks."""
+    under NCCL, the launcher's path (its rank spawned beside the controls
+    and the two gloo ranks: its start overlaps theirs); (b) in the same
+    launch of the two ranks as (a), the launcher's (``--num-devices 2``:
+    two gloo ranks on the card), the training CLI (a global batch of 32)
+    for 1 epoch of DP_CLI_STEPS steps, then a resume to a second: one loss
+    on both ranks every step, files from rank 0 only, the state loaded at
+    resume equal to the state saved, bitwise, on both ranks."""
     t_phase = time.perf_counter()
     train_pkl, val_pkl = pkls
     batch_path = osp.join(root, 'dp_batch.pkl')
     ref_path = osp.join(root, 'dp_world1.pth')
     dp_global_batch(train_pkl, batch_path)
     ref_s = dp_reference(batch_path, ref_path, 'full')['step_s'][-1]
+
+    def nccl_world1():
+        t0 = time.perf_counter()
+        runs = dist.spawn(dp_steps, 1, (batch_path, ref_path),
+                          backend='nccl', device='cuda', join_timeout_s=600)
+        return runs, time.perf_counter() - t0
+    from concurrent.futures import ThreadPoolExecutor
+    side = ThreadPoolExecutor(1)
+    nccl_run = side.submit(nccl_world1)
     # the step's own conditioning: world 1 again, the images one ulp
     # smaller (times 1 - 2^-24) and one ulp larger (times 1 + 2^-23)
     controls = []
@@ -2428,11 +2477,6 @@ def phase_pretrain_dp(root, pkls):
         torch.cuda.empty_cache()
     floor = [{g: max(c['compare'][i][1][g] for c in controls)
               for g in DP_TOL} for i in range(DP_STEPS)]
-    t0 = time.perf_counter()
-    nccl = dist.spawn(dp_steps, 1, (batch_path, ref_path), backend='nccl',
-                      device='cuda', join_timeout_s=600)
-    nccl_s = time.perf_counter() - t0
-    dp_step_line('nccl_world1', nccl, ref_s, floor)
     narrow_path = osp.join(root, 'dp_world1_narrow.pth')
     narrow_s = dp_reference(batch_path, narrow_path, 'narrow')['step_s'][-1]
     t0 = time.perf_counter()
@@ -2454,6 +2498,9 @@ def phase_pretrain_dp(root, pkls):
         dp_world2, train_cli.parse_args(argvs[0]),
         batch_path, ref_path, narrow_path, argvs)
     cli_s = time.perf_counter() - t0 - gloo_s
+    with side:
+        nccl, nccl_s = nccl_run.result()
+    dp_step_line('nccl_world1', nccl, ref_s, floor)
     collectives = dp_step_line('gloo_world2', [b[0] for b in both], ref_s,
                                floor)
     dp_step_line('gloo_world2', [b[1] for b in both], narrow_s)
@@ -3600,12 +3647,12 @@ def _recognition_model(model_cfg, dev, dtype, init=None):
     subsets drawn from one CPU stream on every device."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    cfg = dict(model_cfg, dtype=dtype)
+    blocks = cfg.pop('stage_blocks_cut', None)
     if init is None:
-        model = build_model_from_cfg(dict(model_cfg, dtype=dtype),
-                                     device=dev, seed=1).to(dtype)
+        model = build_model_from_cfg(cfg, device=dev, seed=1).to(dtype)
     else:
         from mscl_torch.models import RECOGNIZERS
-        cfg = dict(model_cfg, dtype=dtype)
         with torch.device('meta'):
             model = RECOGNIZERS.get(cfg.pop('type'))(**cfg)
         model = model.to_empty(device=dev)
@@ -3613,6 +3660,11 @@ def _recognition_model(model_cfg, dev, dtype, init=None):
         if hasattr(model, 'seed_dropout'):
             model.seed_dropout(1)
         model = model.to(dtype)
+    if blocks is not None:              # depth_cut: each stage's first blocks
+        for i in range(1, model.backbone.num_stages + 1):
+            name = f'layer{i}'
+            setattr(model.backbone, name,
+                    getattr(model.backbone, name)[:blocks])
     model.test_cfg['average_clips'] = None          # logits, not softmaxes
     head = model.cls_head
     if hasattr(head, 'relation_picks'):
@@ -3809,7 +3861,8 @@ def recognition_card_vs_cpu(pool, cfg, sets, kind, model_cfg, clips, steps,
     ``cut`` (or None), a function of the batch and ``model_cfg``, gives
     the steps' batch and model config (a clip cut in frames and crop, and
     for TimeSformer the model of that clip, its weights the config's
-    model's; ``recognition_3d_zoo``). Then the card's and the CPU's
+    model's, ``zoo_cut``; or the clip as it is and a model cut in depth,
+    ``depth_cut``). Then the card's and the CPU's
     float32 logits are held on the cut clip, and the card's float32
     logits on the config's own clip against its float64 ones from the
     same weights (the CPU's forward on the own clip cost up to 5.5 times
@@ -4210,10 +4263,12 @@ def phase_recognition_2d(root, sets):
             # steps; a config of a step group but its first: its logits
             steps = 0 if label == 'tsn_r101_mmit' or label in leader \
                 else RC_CHECK_STEPS
+            cut = depth_cut(RC2D_STEP_BLOCKS) if steps and \
+                cfg.model.backbone.type in RC2D_DEPTH_CUT else None
             pending[label] = recognition_card_vs_cpu(
                 pool, cfg, sets, kinds[label],
                 full_width_check_cfg(cfg.model.to_dict()), RC2D_CHECK,
-                steps, fault)
+                steps, fault, cut)
             torch.cuda.empty_cache()
         checks = {}
         for label, finish in pending.items():
@@ -4251,14 +4306,16 @@ def phase_recognition_2d(root, sets):
                 videos_per_s=RC_VAL / test_s,
                 loop_videos_per_s=RC_VAL / sum(loop_s))
     worst = {key: max(checks, key=lambda k: checks[k][key] or 0)
-             for key in ('logit_share', 'loss_share', 'grad_share',
-                         'update_share')}
+             for key in ('logit_share', 'own_logit_share', 'loss_share',
+                         'grad_share', 'update_share')}
+    cut = sum('step_imgs' in c for c in checks.values())
     log(phase='recognition_2d', test_cli=test, refusals=refusals,
         card_vs_cpu_s=check_s, seconds=seconds)
     log(phase='recognition_2d', headline=dict(
         checks=f'card_vs_cpu ({len(checks)} configs at full width: logits, '
                f'losses, gradients, updates against float64, '
-               f'{len(checks) - len(leader) - 1} step checks; the planted '
+               f'{len(checks) - len(leader) - 1} step checks, {cut} at '
+               f'{RC2D_STEP_BLOCKS} blocks a stage; the planted '
                f'faults failed it), finite losses, 0 kernel launches, test '
                f'metrics, {len(refusals)} refusals',
         cpu_refs_s=round(sum(c['cpu_s'] for c in checks.values()), 1),
@@ -4301,6 +4358,16 @@ def zoo_cut(frames, crop):
             step_cfg = json.loads(json.dumps(model_cfg))
             step_cfg['backbone'].update(img_size=crop)
         return dict(batch, imgs=imgs), step_cfg
+    return cut
+
+
+def depth_cut(blocks):
+    """``recognition_card_vs_cpu``'s cut in depth: the batch as it is, and
+    the step model the config's with each stage of its 2D ResNet cut to
+    its first ``blocks`` blocks (``_recognition_model`` cuts it after the
+    build; its weights the full model's)."""
+    def cut(batch, model_cfg):
+        return batch, dict(model_cfg, stage_blocks_cut=blocks)
     return cut
 
 
@@ -5408,6 +5475,526 @@ def phase_mscl_family(dev, root, pkls, ft_pkls, ft_work):
         feature_videos_per_s=round(tools['videos_per_s'], 2)))
 
 
+LOC = 'configs/localization/'
+LOC_CONFIGS = dict(
+    bmn=LOC + 'bmn/bmn_400x100_2x8_9e_activitynet_feature.py',
+    tem=LOC + 'bsn/bsn_tem_400x100_1x16_20e_activitynet_feature.py',
+    pem=LOC + 'bsn/bsn_pem_400x100_1x16_20e_activitynet_feature.py',
+    ssn=LOC + 'ssn/ssn_r50_450e_thumos14_rgb_train.py')
+# the synthetic ActivityNet set: LOC_TRAIN videos for training (one batch
+# of BMN's 8 or TEM's 16 each step, cycled), LOC_VAL for evaluation;
+# LOC_T_RAW + v feature rows of 400 a video (resized to 100)
+LOC_TRAIN, LOC_VAL, LOC_T_RAW, LOC_STEPS = 16, 4, 120, 3
+LOC_PEM_STEPS = 3
+# SSN: LOC_SSN_VIDEOS videos of LOC_SSN_FRAMES 128x171 JPEG frames, one a
+# step (8 proposals x 9 segments = 72 frames at 224)
+LOC_SSN_VIDEOS, LOC_SSN_FRAMES = 4, 96
+# card against CPU: each model's outputs (eval mode) within this share of
+# their spread (max - min) on the CPU (the recognition phases' logit
+# share); BMN at batch 1, SSN over 2 proposals of the first video
+LOC_SHARE = RC_LOGIT_TOL
+
+
+def _loc_util():
+    """tests/_torch_localization_util.py (numpy only): the synthetic
+    ActivityNet, SSN and HVU sets the CPU tests write too."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        '_torch_localization_util', osp.join(
+            osp.dirname(osp.abspath(__file__)), 'tests',
+            '_torch_localization_util.py'))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _loc_model(name, dev, seed=0):
+    cfg = Config.fromfile(LOC_CONFIGS[name])
+    return build_model_from_cfg(cfg.model.to_dict(), device=dev, seed=seed), \
+        cfg
+
+
+def _loc_dataset(cfg, split, ann, prefix, **kw):
+    from mscl_torch.datasets import build_dataset
+    return build_dataset(dict(cfg.data[split].to_dict(), ann_file=ann,
+                              data_prefix=prefix, **kw))
+
+
+def _loc_share(card, cpu):
+    """The card's largest gap from the CPU over the CPU's spread, the
+    largest over a tuple of outputs."""
+    worst = 0.0
+    for a, b in zip(card, cpu):
+        a, b = a.detach().cpu().double(), b.detach().double()
+        worst = max(worst, ((a - b).abs().max() / (b.max() - b.min()))
+                    .item())
+    return worst
+
+
+def _loc_optimizer(model, cfg, steps_per_epoch):
+    """The config's optimizer under its lr policy."""
+    lr = build_lr_schedule(dict(cfg.get('lr_config') or {}),
+                           cfg.optimizer['lr'], cfg.total_epochs,
+                           steps_per_epoch)
+    return build_optimizer(model, dict(cfg.optimizer), lr, grad_clip=(
+        cfg.get('optimizer_config') or {}).get('grad_clip'))
+
+
+def _loc_train(model, opt, batches, dev):
+    """LOC_STEPS steps (host batches, cycled), each to a synchronise: the
+    losses and each step's ms; then one more step profiled and the peak
+    memory."""
+    step = make_train_step(model, opt)
+    losses, ms = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(LOC_STEPS):
+        batch = to_torch(batches[i % len(batches)], dev)
+        t0 = time.perf_counter()
+        log_vars = step(batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append({k: v.item() for k, v in log_vars.items()})
+    prof = profile(f'localization_{type(model).__name__}',
+                   lambda: step(to_torch(batches[0], dev)))
+    for lv in losses:
+        if not all(math.isfinite(v) for v in lv.values()):
+            raise AssertionError(f'{type(model).__name__} logged {lv}')
+    return dict(losses=[lv['loss'] for lv in losses], step_ms=ms,
+                steady_ms=sum(ms[1:]) / len(ms[1:]),
+                device_ms=prof['device_busy_ms'],
+                idle_share=prof['device_idle_share'],
+                peak_bytes=torch.cuda.max_memory_allocated())
+
+
+def _activitynet_eval(dataset, proposals, prefix):
+    """The dataset's AR@AN and AUC for ``proposals`` (a proposal list a
+    video, in its order), each in [0, 1] (AUC in [0, 100])."""
+    results = [dict(video_name=info['video_name'], proposal_list=p)
+               for info, p in zip(dataset.video_infos, proposals)]
+    metrics = dataset.evaluate(results)
+    for k, v in metrics.items():
+        if not (math.isfinite(v) and 0 <= v <= (100 if k == 'auc' else 1)):
+            raise AssertionError(f'{prefix} {k} = {v}')
+    if not all(proposals):
+        raise AssertionError(f'{prefix}: a video without proposals')
+    return metrics
+
+
+def _bmn_path(dev, ann, val_ann, feats):
+    """BMN at full width: the sample mask's host build, the
+    boundary-matching product timed against torch.matmul's bound, steps
+    under the config's Adam, then the val videos' proposals and AR@AN."""
+    from mscl_torch.models.localizers import bmn as bmn_mod
+    bmn_mod.build_interp1d_mask.cache_clear()
+    t0 = time.perf_counter()
+    mask = bmn_mod.build_interp1d_mask(100, 32, 3, 0.5)
+    mask_s = time.perf_counter() - t0
+    model, cfg = _loc_model('bmn', dev)
+    model.seed_dropout(0)
+    ds = _loc_dataset(cfg, 'train', ann, feats)
+    bs = cfg.data['videos_per_gpu']
+    batches = []
+    for b in range(LOC_TRAIN // bs):
+        items = [ds[i] for i in range(b * bs, (b + 1) * bs)]
+        conf, start, end = model.generate_labels(
+            [it['gt_bbox'] for it in items])
+        batches.append(dict(raw_feature=np.stack(
+            [it['raw_feature'] for it in items]), label_confidence=conf,
+            label_start=start, label_end=end))
+    opt = _loc_optimizer(model, cfg, len(batches))
+    run = _loc_train(model, opt, batches, dev)
+    # the boundary-matching product at the step's shape
+    conf = torch.randn(bs, 256, 100, device=dev)
+    smask = model._sample_mask(dev)
+    bm_ms = time_ms(lambda: torch.matmul(conf, smask), iters=10)
+    bm_bound = bound(4 * (conf.numel() + smask.numel() +
+                          bs * 256 * smask.shape[1]),
+                     2.0 * bs * 256 * 100 * smask.shape[1])
+    val = _loc_dataset(cfg, 'val', val_ann, feats)
+    model.eval()
+    x = torch.from_numpy(np.stack([val[i]['raw_feature']
+                                   for i in range(len(val))])).to(dev)
+    with torch.no_grad():
+        cm, s, e = model.forward_test(x)
+    t0 = time.perf_counter()
+    props = [model.proposals_from_outputs(cm[i], s[i], e[i], info)
+             for i, info in enumerate(val.video_infos)]
+    post_s = time.perf_counter() - t0
+    metrics = _activitynet_eval(val, props, 'BMN')
+    return dict(run, mask_build_s=mask_s, mask_mb=mask.nbytes / 2 ** 20,
+                mask_nonzero_share=float((mask != 0).mean()),
+                bm_matmul_ms=bm_ms, bm_bound_ms=bm_bound[0],
+                bm_bound_by=bm_bound[1], post_s=post_s, metrics=metrics)
+
+
+def _bsn_path(dev, root, ann, full_ann, val_ann, feats):
+    """TEM at full width under its SGD; its results for every video as
+    the TEM csv files; the ported proposal generation; PEM on what it
+    writes (each step one batch's proposals, ragged over the videos, as
+    one row set: PEM scores each proposal alone), then the val videos'
+    proposals and AR@AN."""
+    from mscl_torch.tools import bsn_proposal_generation as pgm_tool
+    tem, cfg = _loc_model('tem', dev)
+    ds = _loc_dataset(cfg, 'train', ann, feats)
+    bs = cfg.data['videos_per_gpu']
+    items = [ds[i] for i in range(len(ds))]
+    action, start, end = tem.generate_labels([it['gt_bbox'] for it in items])
+    batches = [dict(raw_feature=np.stack([it['raw_feature'] for it in
+                                          items[:bs]]),
+                    label_action=action[:bs], label_start=start[:bs],
+                    label_end=end[:bs])]
+    tem_run = _loc_train(tem, _loc_optimizer(tem, cfg, 1), batches, dev)
+    full = _loc_dataset(cfg, 'test', full_ann, feats)
+    tem_dir = osp.join(root, 'tem_results')
+    os.makedirs(tem_dir)
+    tem.eval()
+    with torch.no_grad():
+        out = tem.forward_test(torch.from_numpy(np.stack(
+            [full[i]['raw_feature'] for i in range(len(full))])).to(dev))
+    tmins = np.arange(100) / 100
+    for info, curves in zip(full.video_infos, out.cpu().numpy()):
+        np.savetxt(osp.join(tem_dir, info['video_name'] + '.csv'),
+                   np.concatenate([curves, np.stack(
+                       [tmins, tmins + 0.01], 1)], 1), delimiter=',',
+                   header='action,start,end,tmin,tmax', comments='')
+    pgm = osp.join(root, 'pgm')
+    t0 = time.perf_counter()
+    done = pgm_tool.main([full_ann, '--tem-results-dir', tem_dir,
+                          '--pgm-proposals-dir', pgm + '_proposals',
+                          '--pgm-features-dir', pgm + '_features',
+                          '--temporal-scale', '100', '--top-k', '1000',
+                          '--num-workers', '4'])
+    pgm_s = time.perf_counter() - t0
+    if done != len(full):
+        raise AssertionError(f'PGM made {done} videos of {len(full)}')
+    pem, pcfg = _loc_model('pem', dev)
+    pem.seed_dropout(0)
+    dirs = dict(pgm_proposals_dir=pgm + '_proposals/',
+                pgm_features_dir=pgm + '_features/')
+
+    def pipeline(split):
+        return [dict(t, **dirs) if t['type'] == 'LoadProposals' else t
+                for t in pcfg.data[split]['pipeline']]
+    from mscl_torch.datasets import build_dataset
+    pds = build_dataset(dict(pcfg.data['train'].to_dict(), ann_file=ann,
+                             data_prefix=feats, pipeline=pipeline('train')))
+    pbs = pcfg.data['videos_per_gpu']
+    rows = [pds[i] for i in range(min(pbs, len(pds)))]
+    batches = [dict(bsp_feature=np.concatenate(
+        [r['bsp_feature'] for r in rows])[None],
+        reference_temporal_iou=np.concatenate(
+        [r['reference_temporal_iou'] for r in rows])[None])]
+    pem_run = _loc_train(pem, _loc_optimizer(pem, pcfg, 1), batches, dev)
+    test = build_dataset(dict(pcfg.data['test'].to_dict(), ann_file=val_ann,
+                              data_prefix=feats, pipeline=pipeline('test')))
+    pem.eval()
+    props = []
+    for i in range(len(test)):
+        r = test[i]
+        with torch.no_grad():
+            scores = pem.forward_test(torch.as_tensor(
+                r['bsp_feature']).to(dev))
+        meta = test.video_infos[i]
+        props.append(pem.proposals_from_outputs(
+            scores, r['tmin'], r['tmax'], r['tmin_score'], r['tmax_score'],
+            meta))
+    metrics = _activitynet_eval(test, props, 'BSN')
+    return dict(tem=tem_run, pem=pem_run, pgm_s=pgm_s,
+                pem_rows=int(batches[0]['bsp_feature'].shape[1]),
+                metrics=metrics)
+
+
+def _ssn_path(root):
+    """SSN's shipped config through train_model (ResNet-50, 224 crops, 8
+    proposals x 9 segments a video, a video a step, SGD with clip 40), a
+    test pass over every proposal of each video (mode 'val' sampling, the
+    same STPP), evaluate's mAP, then the ported report_map on an
+    ActivityNet-format copy of the detections."""
+    from mscl_torch.apis import train_model
+    from mscl_torch.datasets.pipelines import Compose
+    from mscl_torch.tools import report_map as report_tool
+    lu = _loc_util()
+    sroot = osp.join(root, 'ssn')
+    os.makedirs(sroot)
+    ann = lu.write_ssn_set(sroot, jpeg.imwrite, n_videos=LOC_SSN_VIDEOS,
+                           n_frames=LOC_SSN_FRAMES, hw=(128, 171),
+                           num_classes=20)
+    work = osp.join(root, 'ssn_work')
+    cfg = Config.fromfile(LOC_CONFIGS['ssn'])
+    cfg.merge_from_dict({'data.train.ann_file': ann,
+                         'data.train.data_prefix': sroot,
+                         'total_epochs': 1, 'work_dir': work,
+                         'log_config.interval': 1,
+                         'checkpoint_config.interval': 1})
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    runner, model = train_model(cfg, validate=False, seed=0)
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    lines = [r for r in read_log(work) if r['mode'] == 'train']
+    if len(lines) != LOC_SSN_VIDEOS or not all(
+            math.isfinite(r[k]) for r in lines for k in r
+            if k.startswith('loss')):
+        raise AssertionError(f'SSN logged {lines}')
+    # one more step of a train batch, profiled: the step's device time and
+    # idle share without the data wait
+    it = iter(runner.train_loader)
+    try:
+        batch = to_torch(next(it), 'cuda')
+    finally:
+        it.close()
+    step = make_train_step(model, runner.optimizer)
+    prof = profile('localization_SSN', lambda: step(batch))
+    ds = runner.train_loader.dataset
+    test_pipe = Compose([
+        dict(type='SampleProposalFrames', clip_len=1, body_segments=5,
+             aug_segments=(2, 2), aug_ratio=0.5, mode='val'),
+        dict(type='RawFrameDecode'),
+        dict(type='Resize', scale=(224, 224), keep_ratio=False),
+        dict(type='Normalize', mean=[104, 117, 128], std=[1, 1, 1],
+             to_bgr=True),
+        dict(type='FormatShape', input_format='NPTCHW')])
+    model.eval()
+    results, inputs = [], None
+    t0 = time.perf_counter()
+    for info in ds.video_infos:
+        props = info['proposals']
+        item = test_pipe(dict(info, filename_tmpl=ds.filename_tmpl,
+                              modality='RGB', start_index=ds.start_index,
+                              out_proposals=[((info['video_id'], p), 0)
+                                             for p in props]))
+        imgs = torch.from_numpy(item['imgs'][None]).cuda()
+        scale = torch.tensor([[ds._get_stage(p, info['total_frames'])
+                               for p in props]], dtype=torch.float32).cuda()
+        inputs = inputs or (imgs[:, :2].cpu(), scale[:, :2].cpu())
+        with torch.no_grad():
+            act, comp, reg = model.forward_test(imgs, scale)
+        results.append(dict(
+            relative_proposal_list=np.array(
+                [(p.start_frame / info['total_frames'],
+                  p.end_frame / info['total_frames']) for p in props],
+                np.float32),
+            activity_scores=act.cpu().numpy(),
+            completeness_scores=comp.cpu().numpy(),
+            bbox_preds=reg.cpu().numpy()))
+    test_s = time.perf_counter() - t0
+    metrics = ds.evaluate(results)
+    if not all(math.isfinite(v) and 0 <= v <= 1 for v in metrics.values()):
+        raise AssertionError(f'SSN mAP {metrics}')
+    # report_map: SSN's detections as class-agnostic ActivityNet proposals
+    # (in frames as seconds), the activity argmax a video as its label
+    dets = ds.results_to_detections(results, top_k=200)
+    gt, proposal, cls_pred = {}, {}, {}
+    for idx, info in enumerate(ds.video_infos):
+        vid, n = info['video_id'], info['total_frames']
+        gt['v_' + vid] = dict(annotations=[dict(
+            segment=[g.start_frame, g.end_frame], label=f'c{g.label}')
+            for g in info['gts']])
+        proposal[vid] = [dict(segment=[float(r[0] * n), float(r[1] * n)],
+                              score=float(r[2]))
+                         for c in dets for r in c.get(vid, [])]
+        act = results[idx]['activity_scores'][:, 1:].mean(0)
+        cls_pred[vid] = [dict(label=f'c{c + 1}', score=float(s))
+                         for c, s in enumerate(act)]
+    paths = {k: osp.join(root, f'ssn_{k}.json') for k in ('gt', 'prop', 'cls')}
+    for k, obj in (('gt', gt), ('prop', dict(results=proposal)),
+                   ('cls', dict(results=cls_pred))):
+        with open(paths[k], 'w') as f:
+            json.dump(obj, f)
+    report = report_tool.main(['--proposal', paths['prop'], '--gt',
+                               paths['gt'], '--cls-pred', paths['cls'],
+                               '--det-output', osp.join(root, 'ssn_det.json')])
+    if not 0 <= report['average_mAP'] <= 1:
+        raise AssertionError(f'report_map {report}')
+    ms = [r['time'] * 1e3 for r in lines]
+    return dict(losses=[r['loss'] for r in lines], step_ms=ms,
+                steady_ms=sum(ms[1:]) / len(ms[1:]),
+                data_ms=[r['data_time'] * 1e3 for r in lines],
+                device_ms=prof['device_busy_ms'],
+                idle_share=prof['device_idle_share'],
+                peak_bytes=peak, train_s=train_s, test_s=test_s,
+                metrics=metrics, report_average_map=report['average_mAP'],
+                model=model, inputs=inputs)
+
+
+def _loc_card_vs_cpu(dev, feats, ssn):
+    """BMN (batch 1), TEM, PEM and SSN forward (eval mode) at full width
+    on the card and on the CPU from the same weights and input, each
+    within LOC_SHARE of the CPU's spread; BMN's losses on both devices
+    with the same uniforms (the CPU's draws handed to both) within
+    RC_LOSS_TOL."""
+    from mscl_torch.models.losses import bmn_loss
+    rng = np.random.default_rng(7)
+    shares, held = {}, {}
+    cases = dict(bmn=rng.normal(size=(1, 100, 400)),
+                 tem=rng.normal(size=(2, 100, 400)),
+                 pem=rng.uniform(size=(1, 500, 32)))
+    for name, x in cases.items():
+        outs = {}
+        for d in ('cpu', 'cuda'):
+            model = _loc_model(name, d, seed=1)[0].eval()
+            with torch.no_grad():
+                out = model(torch.from_numpy(x.astype(np.float32)).to(d))
+            outs[d] = out if isinstance(out, tuple) else (out,)
+            held[name] = model
+        shares[name] = _loc_share(outs['cuda'], outs['cpu'])
+        if name == 'bmn':
+            bmn_outs = outs
+    # BMN's losses on each device's outputs, the same uniforms on both
+    conf, start, end = held['bmn'].generate_labels(
+        [np.array([[0.1, 0.4], [0.5, 0.9]])])
+    draws = bmn_loss.draw_uniforms(torch.Generator().manual_seed(3),
+                                   conf.shape, 'cpu')
+    real, losses = bmn_loss.draw_uniforms, {}
+    bmn_loss.draw_uniforms = lambda g, shape, d: tuple(u.to(d)
+                                                       for u in draws)
+    try:
+        for d in ('cpu', 'cuda'):
+            labels = [torch.from_numpy(a).to(d) for a in (conf, start, end)]
+            losses[d] = [v.item() for v in bmn_loss.BMNLoss()(
+                *bmn_outs[d], *labels, held['bmn'].bm_mask.to(d))]
+    finally:
+        bmn_loss.draw_uniforms = real
+    loss_diff = max(abs(a - b) for a, b in zip(losses['cuda'],
+                                                losses['cpu']))
+    # SSN: the trained model's weights on both devices, two proposals
+    model, (imgs, scale) = ssn['model'], ssn['inputs']
+    cpu = copy.deepcopy(model).cpu().eval()
+    with torch.no_grad():
+        card_out = model.forward_test(imgs.to(dev), scale.to(dev))
+        cpu_out = cpu.forward_test(imgs, scale)
+    shares['ssn'] = _loc_share(card_out, cpu_out)
+    bad = {k: v for k, v in shares.items() if not v <= LOC_SHARE}
+    if bad or not loss_diff <= RC_LOSS_TOL:
+        raise AssertionError(f'localization card vs CPU: shares {shares}, '
+                             f'BMN loss gap {loss_diff}')
+    return dict(shares=shares, bmn_loss_diff=loss_diff,
+                bmn_losses=dict(zip(('total', 'tem', 'pem_reg', 'pem_cls'),
+                                    losses['cuda'])))
+
+
+def _hvu_refusals(root):
+    """tsn_r18_1x1x8_100e_hvu_action_rgb through the training CLI on a
+    synthetic HVU set stops by name before its first step where JAX's
+    fails: at the None filename_tmpl the config leaves (ValueError), and
+    with one set, at LoadHVULabel meeting the one-hot target HVUDataset
+    made (TypeError); its model, on the card, refuses the one-hot target
+    (Recognizer2D's multi_class refusal)."""
+    lu = _loc_util()
+    hroot = osp.join(root, 'hvu')
+    os.makedirs(hroot)
+    ann = lu.write_hvu(hroot, jpeg.imwrite, category_nums=(('action', 739),))
+    cfg_path = 'configs/recognition/tsn/tsn_r18_1x1x8_100e_hvu_action_rgb.py'
+    out = {}
+    for extra, err, word in (
+            ((), ValueError, 'filename_tmpl'),
+            (('data.train.filename_tmpl=img_{:05d}.jpg',), TypeError,
+             'LoadHVULabel')):
+        work = osp.join(hroot, f'work_{word}')
+        try:
+            cli_run(train_cli.main, [
+                cfg_path, '--seed', '0', '--cfg-options',
+                f'data.train.ann_file={ann}',
+                f'data.train.data_prefix={hroot}',
+                'data.videos_per_gpu=2', 'total_epochs=1',
+                f'work_dir={work}', *extra])
+        except err as e:
+            if word not in str(e):
+                raise
+            out[word] = str(e)[:60]
+        else:
+            raise AssertionError(f'the HVU config trained ({word})')
+        logged = osp.join(work, 'log.json')
+        if osp.exists(logged) and open(logged).read().strip():
+            raise AssertionError(f'the HVU config logged a step ({word})')
+    model = build_model_from_cfg(Config.fromfile(cfg_path).model.to_dict(),
+                                 device='cuda')
+    label = torch.zeros(2, 739, device='cuda')
+    label[:, 3] = 1
+    try:
+        model.train_step(dict(imgs=torch.zeros(2, 8, 3, 64, 64,
+                                               device='cuda'), label=label))
+    except NotImplementedError as e:
+        if 'multi_class' not in str(e):
+            raise
+        out['multi_class'] = str(e)[:60]
+    else:
+        raise AssertionError('the HVU model took a one-hot target')
+    return out
+
+
+def phase_localization(root):
+    """BMN, BSN (TEM -> proposal generation -> PEM) and SSN at the shipped
+    configs' full widths on synthetic data from a seed: each trains a few
+    steps and is evaluated (AR@AN and AUC; SSN's mAP and report_map);
+    card against CPU for the four models' outputs and BMN's losses. No
+    kernel of the port launches."""
+    dev = torch.device('cuda')
+    t_phase = time.perf_counter()
+    lu = _loc_util()
+    root = osp.join(root, 'localization')
+    os.makedirs(root)
+    n = LOC_TRAIN + LOC_VAL
+    full_ann, feats = lu.write_activitynet(root, n, LOC_T_RAW, 400, seed=3)
+    with open(full_ann) as f:
+        anno = json.load(f)
+    names = sorted(anno)
+    anns = {}
+    for split, keep in (('train', names[:LOC_TRAIN]),
+                        ('val', names[LOC_TRAIN:])):
+        anns[split] = osp.join(root, f'anno_{split}.json')
+        with open(anns[split], 'w') as f:
+            json.dump({k: anno[k] for k in keep}, f)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    bmn = _bmn_path(dev, anns['train'], anns['val'], feats)
+    bmn_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bsn = _bsn_path(dev, root, anns['train'], full_ann, anns['val'], feats)
+    bsn_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ssn = _ssn_path(root)
+    ssn_s = time.perf_counter() - t0
+    launched = dict(l_neg=di.l_neg.launches, dq=di.dq.launches,
+                    corr_lookup=cl.corr_lookup.launches)
+    if any(launched.values()):
+        raise AssertionError(f'localization launched {launched}')
+    t0 = time.perf_counter()
+    hvu = _hvu_refusals(root)
+    hvu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cvc = _loc_card_vs_cpu(dev, feats, ssn)
+    cvc_s = time.perf_counter() - t0
+    ssn.pop('model'), ssn.pop('inputs')
+    seconds = time.perf_counter() - t_phase
+    log(phase='localization', bmn=bmn, bsn=bsn, ssn=ssn, card_vs_cpu=cvc,
+        hvu_refusals=hvu, bmn_s=bmn_s, bsn_s=bsn_s, ssn_s=ssn_s,
+        hvu_s=hvu_s, card_vs_cpu_s=cvc_s,
+        seconds=seconds, launches=launched)
+
+    def row(r):
+        return [round(r['steady_ms'], 1), round(r.get('idle_share') or 0, 3),
+                round(r['peak_bytes'] / 2 ** 30, 2)]
+    log(phase='localization', headline=dict(
+        checks='BMN, TEM -> PGM -> PEM and SSN trained at full width and '
+               'evaluated (AR@AN, AUC, mAP, report_map); card vs CPU '
+               'within its share; the HVU config refused by name (3); '
+               '0 kernel launches',
+        bmn=row(bmn), tem=row(bsn['tem']), pem=row(bsn['pem']),
+        ssn=row(ssn), ssn_device_ms=round(ssn['device_ms'], 1),
+        keys='steady_ms, idle_share (a step profiled), peak_GiB',
+        mask_build_s=round(bmn['mask_build_s'], 2),
+        bm_matmul_ms=[round(bmn['bm_matmul_ms'], 3),
+                      round(bmn['bm_bound_ms'], 3)],
+        auc=[round(bmn['metrics']['auc'], 2),
+             round(bsn['metrics']['auc'], 2)],
+        ssn_map50=round(ssn['metrics']['mAP@0.50'], 3),
+        worst_share=_short(max(cvc['shares'].values())),
+        parts_s=dict(bmn=round(bmn_s, 1), bsn=round(bsn_s, 1),
+                     ssn=round(ssn_s, 1), hvu=round(hvu_s, 1),
+                     cvc=round(cvc_s, 1))))
+
+
 def _kernel_class(name):
     """Class of a device kernel by its name; the first match wins, so BN
     and resize kernels that cuDNN or a conv-like name carries come first."""
@@ -5554,6 +6141,7 @@ def run_phases(out):
         run('ablation_arms', phase_ablation_arms, dev, root)
         run('mscl_family', phase_mscl_family, dev, root, pkls, ft_pkls,
             ft_work)
+        run('localization', phase_localization, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
         stop_reference_workers()

@@ -84,6 +84,16 @@ def apply_ssl_pretrain(model, ssl_cfg: Dict) -> None:
         duplicate_keys=ssl_cfg.get('duplicate_keys', ())))
 
 
+# the localizers mscl_tpu's train_model cannot train as shipped: their
+# pipelines give ``raw_feature`` and a ragged ``gt_bbox`` (PEM's
+# ``LoadProposals`` up to top_k rows a video), which its collate cannot
+# stack (mscl_tpu/datasets/loader.py:41); with even rows BMN's train_step
+# reads a ``label_confidence`` that no step makes
+# (mscl_tpu/models/localizers/bmn.py:181), and TEM's and PEM's Collect
+# meta strings reach the init (mscl_tpu/core/train_loop.py:57)
+UNTRAINABLE_LOCALIZERS = ('BMN', 'TEM', 'PEM')
+
+
 def _plain(cfg_node) -> Dict:
     return cfg_node.to_dict() if hasattr(cfg_node, 'to_dict') \
         else dict(cfg_node)
@@ -100,9 +110,10 @@ def train_model(cfg, validate: bool = True, resume_from: Optional[str] = None,
     head's dropout generators; then ``model.train_cfg.ssl_pretrain``, if
     set, loads its backbone. The loaders' decode processes are stopped
     when the run ends. A list of train sets (OmniSource) is refused before
-    anything is built. In a process group the world is the group's, and
-    'cuda' is the rank's card (the current device ``init_distributed``
-    set).
+    anything is built, and so are BMN, TEM and PEM
+    (``UNTRAINABLE_LOCALIZERS``). In a process group the world is the
+    group's, and 'cuda' is the rank's card (the current device
+    ``init_distributed`` set).
     """
     device = resolve_device(device)
     world, rank = dist.world_size(), dist.rank()
@@ -115,6 +126,15 @@ def train_model(cfg, validate: bool = True, resume_from: Optional[str] = None,
             f'OmniSource config): train_model takes one train set, as '
             f'mscl_tpu.apis.train_model does, whose dict() of the list '
             f'fails; OmniSourceRunner is the runner such a list needs')
+    model_type = _plain(cfg.model).get('type')
+    if model_type in UNTRAINABLE_LOCALIZERS:
+        raise NotImplementedError(
+            f'{model_type} does not train through train_model: its data '
+            f'gives raw features and ragged ground truth (or ragged '
+            f'proposals), whose batches mscl_tpu.apis.train_model fails '
+            f'to collate, and no step there makes the labels its '
+            f'train_step reads; train it as the JAX tests do, the '
+            f"model's generate_labels on each batch, then train_step")
     simple_eval = (cfg.get('evaluation') or {}).get('simple', False)
     train_dataset = build_dataset(_plain(data['train']))
     train_loader = build_dataloader(

@@ -62,6 +62,13 @@ LayerNorm ``scale`` -> ``weight`` and the raw ``pos_embed``,
 (``downsample_{i}``, ``fusion``), ``downsample_op_{i}``,
 ``pyramid_fusion``, ``aux_conv``, ``aux_bn`` and ``aux_fc``.
 
+So do the localizers, with no rule of their own: BMN's grouped 1D convs
+``b1``, ``b2``, ``s1``, ``e1``, ``p1`` ((3, C/4, C) -> (C, C/4, 3)), ``s2``
+and ``e2``, its ``p3d`` over the samples ((S,1,1,C,C3) -> (C3,C,S,1,1))
+and ``p2d_1`` .. ``p2d_4``; TEM's ``conv1`` .. ``conv3``; PEM's Dense
+``fc1`` and ``fc2``; SSN's ``backbone`` and its head's ``activity_fc``,
+``completeness_fc`` and ``regressor_fc``.
+
 Leaves are read with ``np.asarray``, so JAX arrays work without importing
 JAX here. RAFT has its own mapping onto the official RAFT names:
 ``raft_jax_to_state_dict``; PWC-Lite, whose modules keep the flax names,

@@ -38,6 +38,9 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+# how long _EpochIterator.close() waits for its producer to end
+CLOSE_TIMEOUT_S = 60.0
+
 
 def default_collate(samples: List[Dict[str, Any]]) -> Dict[str, Any]:
     """Stack a list of per-sample dicts into a batch dict.
@@ -231,7 +234,7 @@ class _EpochIterator:
                 next_emit += 1
                 self._put(batch)
         except BaseException as e:
-            self._q.put(e)
+            self._put(e)
 
     def _producer(self):
         try:
@@ -242,10 +245,13 @@ class _EpochIterator:
                     self.order[b * self.batch_size:
                                (b + 1) * self.batch_size])
                 if self.loader.num_workers > 1:
-                    samples = [None] * len(inds)
+                    samples, errors = [None] * len(inds), []
 
                     def work(slot, i):
-                        samples[slot] = self._load_one(i)
+                        try:
+                            samples[slot] = self._load_one(i)
+                        except BaseException as e:  # raised below, in order
+                            errors.append((slot, e))
 
                     threads = []
                     for slot, i in enumerate(inds):
@@ -254,11 +260,13 @@ class _EpochIterator:
                         threads.append(t)
                     for t in threads:
                         t.join()
+                    if errors:
+                        raise min(errors, key=lambda se: se[0])[1]
                 else:
                     samples = [self._load_one(i) for i in inds]
                 self._put(self.loader.collate_fn(samples))
         except BaseException as e:  # surface worker errors to the consumer
-            self._q.put(e)
+            self._put(e)
 
     def __iter__(self):
         return self
@@ -276,9 +284,17 @@ class _EpochIterator:
         return item
 
     def close(self):
-        """Stop the producer (it sees the flag within half a second, also
-        when blocked on a full queue)."""
+        """Stop the producer and wait for it to end. It sees the flag
+        within half a second when blocked on a full queue, and after the
+        batch it is decoding otherwise; until it ends it may still draw
+        from the global ``random`` and ``np.random`` generators, so the
+        caller's next draws are its own only once this returns. Raises if
+        the producer has not ended within CLOSE_TIMEOUT_S seconds."""
         self._stop.set()
+        self._thread.join(CLOSE_TIMEOUT_S)
+        if self._thread.is_alive():
+            raise RuntimeError(f'the producer of the loader did not stop '
+                               f'within {CLOSE_TIMEOUT_S} s of close()')
 
 
 class NumpyLoader:

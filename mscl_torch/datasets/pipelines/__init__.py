@@ -13,6 +13,8 @@ from .loading import (ArrayDecode, BuildPseudoClip, DenseSampleFrames,
                       ImageDecode, LocalDecode, RawFrameDecode, SampleFrames,
                       UntrimmedSampleFrames)
 from .mcl_augmentations import MCLRandomResizedCrop, motion_map_from_flow
+from .loading_localization import (GenerateLocalizationLabels, LoadHVULabel,
+                                   LoadLocalizationFeature, LoadProposals)
 from .loading_mscl import (AlignIndex, ChosenSampleFrames, FlowToGT,
                            MatchFlow, Seg2T, TemporalShiftChosenSampleFrames,
                            TemporalShiftSampleFrames)
@@ -46,5 +48,6 @@ __all__ = [
     'LoadKineticsPose', 'PoseCompact', 'AlignIndex',
     'TemporalShiftSampleFrames', 'FlowToGT', 'Flow2ImgWithAug',
     'NormFlowWithStidedAugV2', 'NormFlowWithAugV2', 'NormFlowV2',
-    'MoCoNormalizeV2',
+    'MoCoNormalizeV2', 'LoadLocalizationFeature', 'GenerateLocalizationLabels',
+    'LoadProposals', 'LoadHVULabel',
 ]

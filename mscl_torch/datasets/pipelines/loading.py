@@ -235,6 +235,11 @@ class RawFrameDecode:
     def __call__(self, results):
         directory = results['frame_dir']
         filename_tmpl = results['filename_tmpl']
+        if filename_tmpl is None:
+            # the JAX RawFrameDecode fails on it too (a TypeError in
+            # _fmt_tmpl, mscl_tpu/datasets/pipelines/loading.py:181)
+            raise ValueError(f'RawFrameDecode needs a filename_tmpl for the '
+                             f'frames of {directory}, not None')
         modality = results['modality']
         if results['frame_inds'].ndim != 1:
             results['frame_inds'] = np.squeeze(results['frame_inds'])

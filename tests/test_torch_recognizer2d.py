@@ -348,7 +348,9 @@ def test_recognizer2d_trains_a_reid_head(head):
 def test_recognizer2d_refuses_a_multi_class_target():
     """The JAX Recognizer2D flattens every target, so a multi-class one
     (N, classes), as tsn_r101_..._mmit's data gives, fails to broadcast in
-    its loss before any step; the port refuses it by name."""
+    its loss before any step; the port refuses it by name. The same
+    refusal covers tsn_r18_1x1x8_100e_hvu_action_rgb's one-hot target
+    under HVULoss (tests/test_torch_localization.py)."""
     cfg = dict(backbone=dict(type='ResNet', depth=ONE_BASIC),
                cls_head=dict(type='TSNHead', num_classes=5, in_channels=512,
                              multi_class=True, dropout_ratio=0.0,
