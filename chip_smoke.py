@@ -334,7 +334,34 @@ the exit code is nonzero:
    metric is finite and in range and no kernel of the port launched; a
    headline record gives each model's steady ms, idle share and peak
    memory;
-19. print the card's name and power limit, the kernel table and the
+19. audio: the audio recipes at the configs' full widths. 64 wavs of 10 s
+   at 16 kHz (int16) are written and turned into 640x80 log-mel features
+   by the ported ``build_audio_features`` (4 forked workers); the feature
+   config (ResNetAudio-50, base 32, 128x80 clips, SGD with clip 40) runs
+   through the training CLI for 4 steps at batch 32 with validation, then
+   the test CLI on its checkpoint (10 clips a video) and evaluate; the raw
+   audio config (a 2D ResNet-50 over one-channel log-mels of 2 s crops)
+   for 4 steps; both models card against CPU (logits within 1e-3 of
+   their spread). A headline record gives each model's steady ms, data
+   wait, a profiled step's device ms and idle share, and peak memory;
+20. detection: AVA spatio-temporal detection at the shipped configs' full
+   widths on an AVA-shaped set written from a seed (a csv of 8 videos x
+   5 keyframes, a proposal pickle with scores, an exclude file, JPEG
+   rawframes at 320x240): card against CPU for the 8 distinct models
+   (SlowOnly-50, -101, -NL; SlowFast 4x16 with and without
+   ``with_global``; SlowFast 8x8 with temporal max and the focal loss;
+   LFB non-local; ACRN) on one clip of 8 RoIs (the scores in eval mode
+   within 1e-3 of their spread, the train-mode loss within 1e-3 and the
+   bbox head's gradient within 1e-2, dropout 0; the CPU's runs in the
+   reference workers), then one step on the card under the config's SGD;
+   the other 8 configs built and run forward; the SlowOnly-50 config
+   through the training CLI (batch 8, 4x16 frames, 256 crops, 32 RoIs a
+   clip, 4 steps); forward_test on the keyframes into
+   ``AVADataset.evaluate`` (mAP@0.5IOU); the LFB end to end
+   (``LFBInferHead`` writes lfb_train.pkl, ``LFB`` samples a 300 x 2048
+   block a RoI, the lfb_nl model's forward_test takes it). Neither
+   phase launches a kernel of the port;
+21. print the card's name and power limit, the kernel table and the
    result. Each phase's seconds are logged (phase_seconds).
 
 Every phase's log lines (and the CLIs' and spawned ranks' own output) go
@@ -350,8 +377,8 @@ run), 14b (each extraction run and each vis_flow run), 14c and 14d (each
 CLI run: none may launch a kernel), 11-14 (each CLI run; the fine-tune,
 test and retrieval paths must launch no decayed-InfoNCE kernel: r3d_18 goes
 to cuDNN), the probe tool's run in 4 and 16 (each arm's run of the tool,
-the A/B's two runs), 17 (the CLI run), 18 (its paths: none may launch
-a kernel), and read just after. The kernel table's decayed-InfoNCE
+the A/B's two runs), 17 (the CLI run), 18-20 (their paths: none may
+launch a kernel), and read just after. The kernel table's decayed-InfoNCE
 launches are the pretrain CLI's (both runs of 9).
 It needs a CUDA device: without one it exits nonzero before printing any
 result.
@@ -742,14 +769,21 @@ ZOO_TEST_REFUSED = (ZOO + 'x3d/x3d_s_13x6x1_facebook_kinetics400_rgb.py',
 # of EXTERN_DERIVED_STEPS steps), resumed from its first epoch, and the
 # tools on what it wrote
 EXTERN = 'configs/recognition/tsn/custom_backbones/'
+# the step checks of Swin-B at EXTERN_SWIN_DEPTHS (its third stage's 18
+# blocks cut to 6, an even count: the shifted and the plain window
+# alternate as they do) and of ResNeXt-101 at each stage's first
+# EXTERN_STEP_BLOCKS blocks (33 to 8), the CPU's references shrinking with
+# them; their full-depth logits held on the card against its float64
+EXTERN_SWIN_DEPTHS = (2, 2, 6, 2)
+EXTERN_STEP_BLOCKS = 2
 EXTERN_CONFIGS = (   # the CPU's float64 step on the own clip: Swin-B 10.0
     # s, DenseNet-161 9.4, ResNeXt-101 7.6 (PERF.md): the first two cut to a
     # 160x160 crop of their 3 segments
     ('tsn_swin_base', 'tsn_swin_base_1x1x3_100e_kinetics400_rgb.py',
-     (3, 160)),
+     (3, 160, EXTERN_SWIN_DEPTHS)),
     ('tsn_dense161', 'tsn_dense161_1x1x3_100e_kinetics400_rgb.py', (3, 160)),
     ('tsn_rn101_32x4d', 'tsn_rn101_32x4d_1x1x3_100e_kinetics400_rgb.py',
-     None))
+     (None, None, EXTERN_STEP_BLOCKS)))
 EXTERN_DERIVED_BASE = RC2D + 'tsn/tsn_r50_1x1x3_100e_kinetics400_rgb.py'
 EXTERN_DERIVED = {
     'optimizer': dict(_delete_=True, type='AdamW', lr=1e-3,
@@ -4336,12 +4370,19 @@ def phase_recognition_2d(root, sets):
              'peak_GiB'))
 
 
-def zoo_cut(frames, crop):
+def zoo_cut(frames, crop, blocks=None):
     """``recognition_card_vs_cpu``'s cut: the first ``frames`` frames of
     each clip (T is dim -3 of (..., C, T, H, W); a Recognizer2D batch
     (B, segments, C, H, W) keeps its segments) and its centre
     ``crop`` x ``crop``; for TimeSformer the step model of that clip
-    (img_size, num_frames), for Swin of that crop (img_size)."""
+    (img_size, num_frames), for Swin of that crop (img_size). With
+    ``blocks`` the step model is cut in depth too: Swin's stages to
+    ``blocks`` (its ``depths``); with ``frames`` None the clip is kept
+    and a 2D ResNet's stages cut to their first ``blocks`` blocks
+    (``depth_cut``). The weights are the full model's."""
+    if frames is None:
+        return depth_cut(blocks)
+
     def cut(batch, model_cfg):
         imgs = batch['imgs']
         if imgs.ndim == 6:
@@ -4357,6 +4398,8 @@ def zoo_cut(frames, crop):
         elif 'swin' in model_cfg['backbone']['type'].lower():
             step_cfg = json.loads(json.dumps(model_cfg))
             step_cfg['backbone'].update(img_size=crop)
+            if blocks is not None:
+                step_cfg['backbone']['depths'] = blocks
         return dict(batch, imgs=imgs), step_cfg
     return cut
 
@@ -5995,6 +6038,543 @@ def phase_localization(root):
                      cvc=round(cvc_s, 1))))
 
 
+AUDIO = 'configs/recognition_audio/resnet/'
+AUDIO_CONFIGS = dict(
+    feature=AUDIO + 'tsn_r50_64x1x1_100e_kinetics400_audio_feature.py',
+    raw=AUDIO + 'tsn_r50_64x1x1_100e_kinetics400_audio.py')
+# AUDIO_WAVS wavs of AUDIO_SECONDS s at 16 kHz (int16), each listed twice
+# in the train lists: AUDIO_STEPS steps at the configs' batch of 32; the
+# first AUDIO_VAL for validation and the test CLI (10 clips a video)
+AUDIO_WAVS, AUDIO_SECONDS, AUDIO_VAL, AUDIO_STEPS = 64, 10, 16, 4
+# card against CPU: each model's logits (eval mode) on AUDIO_CVC_CLIPS
+# clips within this share of their spread
+AUDIO_CVC_CLIPS = 8
+DET = 'configs/detection/'
+DET_MAIN = DET + 'ava/slowonly_r50_4x16x1_20e_ava_rgb.py'
+# the distinct models: card against CPU on one clip of DET_ROIS RoIs,
+# forward (eval) and one step (train mode, dropout 0)
+DET_CHECKED = (
+    ('slowonly_r50', 'ava/slowonly_r50_4x16x1_20e_ava_rgb.py'),
+    ('slowonly_r101', 'ava/slowonly_r101_8x8x1_20e_ava_rgb.py'),
+    ('slowonly_nl', 'ava/slowonly_nl_r50_4x16x1_10e_ava_rgb.py'),
+    ('slowfast_4x16', 'ava/slowfast_r50_4x16x1_20e_ava_rgb.py'),
+    ('slowfast_context', 'ava/slowfast_context_r50_4x16x1_20e_ava_rgb.py'),
+    ('slowfast_max_focal', 'ava/slowfast_temporal_max_focal_alpha3_gamma1_'
+     'r50_8x8x1_cosine_10e_ava22_rgb.py'),
+    ('lfb_nl', 'lfb/lfb_nl_r50_4x16x1_20e_ava_rgb.py'),
+    ('acrn', 'acrn/slowfast_acrn_r50_8x8x1_cosine_10e_ava22_rgb.py'))
+# the others: built and one forward on the card
+DET_FORWARD = (
+    'ava/slowonly_r50_4x16x1_20e_ava_rgb_custom_classes.py',
+    'ava/slowfast_r50_4x16x1_20e_ava_rgb_custom_classes.py',
+    'ava/slowfast_r50_8x8x1_20e_ava_rgb.py',
+    'ava/slowfast_r50_8x8x1_cosine_10e_ava22_rgb.py',
+    'ava/slowfast_temporal_max_r50_8x8x1_cosine_10e_ava22_rgb.py',
+    'ava/slowonly_nl_r50_8x8x1_10e_ava_rgb.py',
+    'lfb/lfb_avg_r50_4x16x1_20e_ava_rgb.py',
+    'lfb/lfb_max_r50_4x16x1_20e_ava_rgb.py')
+# the AVA-shaped set: DET_VIDEOS videos of 320x240 JPEG frames (16 distinct,
+# encoded once) around DET_KEYFRAMES; one keyframe excluded, so the train
+# run takes DET_STEPS steps of the config's 8
+DET_VIDEOS, DET_KEYFRAMES, DET_STEPS, DET_ROIS = 8, (902, 903, 904, 905,
+                                                     906), 4, 8
+DET_LFB = 'lfb/lfb_nl_r50_4x16x1_20e_ava_rgb.py'
+
+
+def _util(name):
+    """A numpy-only helper module of tests/ by its file name."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(name, osp.join(
+        osp.dirname(osp.abspath(__file__)), 'tests', name + '.py'))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _audio_lists(root):
+    """The train lists (each wav or feature twice) and the val list (the
+    first AUDIO_VAL), "name total_frames label" at 30 frames a second."""
+    paths = {}
+    frames = AUDIO_SECONDS * 30
+    for name, suffix in (('feature', ''), ('raw', '.wav')):
+        rows = [f'clip_{i}{suffix} {frames} {i % 400}\n'
+                for i in range(AUDIO_WAVS)]
+        for split, lines in (('train', rows * 2), ('val', rows[:AUDIO_VAL])):
+            paths[name, split] = osp.join(root, f'{name}_{split}.txt')
+            with open(paths[name, split], 'w') as f:
+                f.writelines(lines)
+    return paths
+
+
+def _cli_row(runner, work, key, name):
+    """A training CLI run's log: the losses finite, the steady window's
+    (steps 3-) ms and data wait, then one more step profiled."""
+    train = [r for r in read_log(work) if r['mode'] == 'train']
+    if len(train) < AUDIO_STEPS or not all(
+            math.isfinite(r[k]) for r in train for k in r
+            if k.startswith('loss')):
+        raise AssertionError(f'{name}: {train}')
+    steady = train[2:]
+    step_s = sum(r['time'] for r in steady) / len(steady)
+    it = iter(runner.train_loader)
+    batch = to_torch(next(it), 'cuda')
+    it.close()
+    prof = profile(f'{name}_step', lambda: runner._train_step(batch))
+    return dict(batch=list(batch[key].shape), steps=len(train),
+                steady_ms=step_s * 1e3,
+                data_wait_ms=sum(r['data_time'] for r in steady) /
+                len(steady) * 1e3,
+                device_ms=prof['device_busy_ms'],
+                idle_share=prof['device_idle_share'],
+                losses=[r['loss'] for r in train])
+
+
+def _share(card, cpu):
+    card, cpu = card.detach().cpu().double(), cpu.detach().double()
+    return ((card - cpu).abs().max() / (cpu.max() - cpu.min())).item()
+
+
+def _audio_card_vs_cpu(model_cfg, batch):
+    """The model on the card and on the CPU from seed 1: forward_test's
+    logits (eval mode, before the softmax) within RC_LOGIT_TOL of their
+    spread."""
+    logits = {}
+    for dev in ('cuda', 'cpu'):
+        model = build_model_from_cfg(dict(model_cfg), device=dev, seed=1)
+        model.test_cfg['average_clips'] = None
+        model.eval()
+        with torch.no_grad():
+            logits[dev] = model.forward_test(torch.from_numpy(
+                batch).to(dev)).cpu()
+    share = _share(logits['cuda'], logits['cpu'])
+    if not share <= RC_LOGIT_TOL:
+        raise AssertionError(f'{model_cfg["backbone"]["type"]}: card vs '
+                             f'CPU {share}')
+    return share
+
+
+def phase_audio(root):
+    """The audio recipes at the configs' full widths: AUDIO_WAVS wavs of
+    AUDIO_SECONDS s written (int16, 16 kHz) and turned into log-mel
+    features by the ported build_audio_features (4 workers); the feature
+    config (ResNetAudio-50, base 32, 128x80 clips) through the training CLI
+    for AUDIO_STEPS steps at batch 32 with validation, then the test CLI
+    on its checkpoint (10 clips a video) and evaluate; the raw-audio config
+    (a 2D ResNet-50 over 1-channel log-mels of 2 s crops) for AUDIO_STEPS
+    steps; card against CPU for both models. No kernel of the port
+    launches."""
+    from mscl_torch.datasets import build_dataset
+    from mscl_torch.datasets.loader import default_collate
+    from mscl_torch.tools import build_audio_features
+    t_phase = time.perf_counter()
+    root = osp.join(root, 'audio')
+    wav_dir, feat_dir = osp.join(root, 'wavs'), osp.join(root, 'features')
+    os.makedirs(wav_dir)
+    t0 = time.perf_counter()
+    _util('_torch_ava_util').write_wavs(wav_dir, n=AUDIO_WAVS,
+                                        seconds=AUDIO_SECONDS)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    built = build_audio_features.main([wav_dir, feat_dir,
+                                       '--num-workers', '4'])
+    features_s = time.perf_counter() - t0
+    if built != AUDIO_WAVS or np.load(osp.join(
+            feat_dir, 'clip_0.npy')).shape != (640, 80):
+        raise AssertionError(f'build_audio_features: {built} wavs')
+    lists = _audio_lists(root)
+    rows, cvc, launched = {}, {}, {}
+    for name, prefix in (('feature', feat_dir), ('raw', wav_dir)):
+        work = osp.join(root, f'{name}_work')
+        opts = [f'data.train.ann_file={lists[name, "train"]}',
+                f'data.train.data_prefix={prefix}', 'total_epochs=1',
+                'checkpoint_config.interval=1', 'log_config.interval=1',
+                f'work_dir={work}']
+        if name == 'feature':
+            opts += [f'data.{s}.{k}={v}' for s in ('val', 'test')
+                     for k, v in (('ann_file', lists[name, 'val']),
+                                  ('data_prefix', prefix))]
+            opts.append('evaluation.interval=1')
+        torch.cuda.reset_peak_memory_stats()
+        (runner, model), launches, run_s = cli_run(
+            train_cli.main, [AUDIO_CONFIGS[name], '--seed', '0'] +
+            (['--validate'] if name == 'feature' else []) +
+            ['--cfg-options', *opts])
+        launches['corr_lookup'] = cl.corr_lookup.launches
+        launched[name] = launches
+        rows[name] = dict(_cli_row(runner, work, 'audios', f'audio_{name}'),
+                          run_s=run_s,
+                          peak_bytes=torch.cuda.max_memory_allocated())
+        cfg = Config.fromfile(AUDIO_CONFIGS[name])
+        ds = build_dataset(dict(cfg.data.train.to_dict(),
+                                ann_file=lists[name, 'train'],
+                                data_prefix=prefix))
+        np.random.seed(0)
+        batch = default_collate([ds[i] for i in range(AUDIO_CVC_CLIPS)])
+        cvc[name] = _audio_card_vs_cpu(cfg.model.to_dict(), batch['audios'])
+        if name == 'feature':
+            val = [r for r in read_log(work) if r['mode'] == 'val']
+            if len(val) != 1 or not 0 <= val[0]['top1_acc'] <= 1:
+                raise AssertionError(f'audio validation: {val}')
+            t0 = time.perf_counter()
+            metrics, test_launches, _ = cli_run(test_cli.main, [
+                AUDIO_CONFIGS[name], osp.join(work, 'epoch_1.pth'),
+                '--cfg-options', f'data.test.ann_file={lists[name, "val"]}',
+                f'data.test.data_prefix={prefix}', f'work_dir={work}'])
+            test_s = time.perf_counter() - t0
+            if not all(0 <= v <= 1 for v in metrics.values()) or \
+                    'top1_acc' not in metrics:
+                raise AssertionError(f'audio test CLI: {metrics}')
+            launched['test'] = test_launches
+        del runner, model
+        torch.cuda.empty_cache()
+    if any(v for d in launched.values() for v in d.values()):
+        raise AssertionError(f'audio launched {launched}')
+    seconds = time.perf_counter() - t_phase
+    log(phase='audio', rows=rows, card_vs_cpu=cvc, test_metrics=metrics,
+        write_s=write_s, features_s=features_s, test_s=test_s,
+        seconds=seconds, launches=launched)
+    log(phase='audio', headline=dict(
+        checks=f'{AUDIO_WAVS} wavs -> build_audio_features; the feature '
+               f'and raw configs trained ({AUDIO_STEPS} steps at 32, '
+               f'validation), the test CLI (10 clips) evaluated; card vs '
+               f'CPU within its share; 0 kernel launches',
+        **{name: [round(r['steady_ms'], 1), round(r['data_wait_ms'], 1),
+                  round(r['device_ms'], 1),
+                  round(r['idle_share'] or 0, 3),
+                  round(r['peak_bytes'] / 2 ** 30, 2)]
+           for name, r in rows.items()},
+        keys='steady_ms, data_wait_ms, device_ms and idle_share (a step '
+             'profiled), peak_GiB',
+        test_top1=round(metrics['top1_acc'], 3),
+        worst_share=_short(max(cvc.values())),
+        parts_s=dict(write=round(write_s, 1), features=round(features_s, 1),
+                     feature=round(rows['feature']['run_s'], 1),
+                     raw=round(rows['raw']['run_s'], 1),
+                     test=round(test_s, 1))))
+
+
+def _jpeg_writer():
+    """``imwrite(path, img)`` through the port's JPEG encoder, each distinct
+    array encoded once."""
+    cache = {}
+
+    def imwrite(path, img):
+        if id(img) not in cache:
+            cache[id(img)] = (img, jpeg.encode_jpeg(img, 90))
+        with open(path, 'wb') as f:
+            f.write(cache[id(img)][1])
+    return imwrite
+
+
+def _det_options(ava, work):
+    return [f'data.train.ann_file={ava["ann"]}',
+            f'data.train.exclude_file={ava["exclude"]}',
+            f'data.train.proposal_file={ava["proposals"]}',
+            f'data.train.data_prefix={ava["prefix"]}', 'total_epochs=1',
+            'checkpoint_config.interval=1', 'log_config.interval=1',
+            f'work_dir={work}']
+
+
+def _det_clip(cfg, ava):
+    """One clip of the config's own train pipeline over the set (seed 0):
+    imgs (1, 3, T, 256, 256) and its first DET_ROIS RoIs as the flat
+    (R, 5) form, with their labels and weights."""
+    from mscl_torch.datasets import build_dataset
+    ds_cfg = dict(cfg.data.train.to_dict(), ann_file=ava['ann'],
+                  exclude_file=ava['exclude'],
+                  proposal_file=ava['proposals'], data_prefix=ava['prefix'])
+    random.seed(0)
+    np.random.seed(0)
+    item = build_dataset(ds_cfg)[0]
+    rois = np.concatenate([np.zeros((DET_ROIS, 1), np.float32),
+                           item['rois'][:DET_ROIS]], 1)
+    return dict(imgs=item['imgs'][None], rois=rois,
+                labels=item['roi_labels'][:DET_ROIS],
+                valid_mask=(item['roi_weights'][:DET_ROIS] > 0).astype(
+                    np.float32))
+
+
+def _det_model(path, dev):
+    """A config's detector from seed 1, every dropout site at 0 (the
+    card's masks are not the CPU's)."""
+    from mscl_torch.models.heads.base import RateDropout
+    cfg = Config.fromfile(DET + path)
+    model = build_model_from_cfg(cfg.model.to_dict(), device=dev, seed=1)
+    for m in model.modules():
+        if isinstance(m, RateDropout):
+            m.dropout_ratio = 0.0
+    return model, cfg
+
+
+def _det_pass(path, clip, dev):
+    """forward_test's scores (eval mode), then in train mode the step's
+    loss and the bbox head's gradient."""
+    model, _ = _det_model(path, dev)
+    on = {k: torch.from_numpy(v).to(dev) for k, v in clip.items()}
+    model.eval()
+    with torch.no_grad():
+        scores = model.forward_test(on['imgs'], on['rois']).cpu()
+    model.train()
+    loss, _ = model.train_step(on)
+    fc = model.bbox_head.fc_cls
+    grads = torch.autograd.grad(loss, [fc.weight, fc.bias])
+    return dict(scores=scores, loss=loss.item(),
+                grads=[g.cpu() for g in grads], model=model, on=on)
+
+
+def _det_cpu_reference(task):
+    """The CPU's side of a detector's check, in a reference_pool worker:
+    its scores, loss and head gradient from the same seed and clip."""
+    t0 = time.perf_counter()
+    out = _det_pass(task['path'], task['clip'], 'cpu')
+    out.pop('model'), out.pop('on')
+    out['seconds'] = time.perf_counter() - t0
+    return out
+
+
+def _det_card_vs_cpu(pool, path, clip):
+    """A detector on the card and on the CPU (in ``pool``) from seed 1 on
+    one clip: the scores within RC_LOGIT_TOL of their spread, the step's
+    loss within RC_LOSS_TOL, the head's gradient within RC_GRAD_TOL
+    (relative norm); on the card the step then runs under the config's
+    SGD. Returns a function that waits for the CPU and raises if the check
+    fails."""
+    future = pool.submit(_det_cpu_reference, dict(path=path, clip=clip))
+    t0 = time.perf_counter()
+    card = _det_pass(path, clip, 'cuda')
+    model, cfg = card.pop('model'), Config.fromfile(DET + path)
+    opt = build_optimizer(model, cfg.optimizer.to_dict(),
+                          build_lr_schedule({}, cfg.optimizer['lr'], 1, 1),
+                          grad_clip=(cfg.get('optimizer_config') or {})
+                          .get('grad_clip'))
+    loss = make_train_step(model, opt)(card.pop('on'))['loss'].item()
+    if not math.isfinite(loss):
+        raise AssertionError(f'{path}: step loss {loss}')
+    card_s = time.perf_counter() - t0
+    del model, opt
+
+    def held():
+        cpu = future.result()
+        err = dict(
+            score_share=_share(card['scores'], cpu['scores']),
+            loss_diff=abs(card['loss'] - cpu['loss']),
+            grad_rel=max(((a - b).norm() / b.norm()).item()
+                         for a, b in zip(card['grads'], cpu['grads'])),
+            card_s=card_s, cpu_s=cpu['seconds'], loss=card['loss'])
+        if not (err['score_share'] <= RC_LOGIT_TOL and
+                err['loss_diff'] <= RC_LOSS_TOL and
+                err['grad_rel'] <= RC_GRAD_TOL):
+            raise AssertionError(f'{path}: card vs CPU {err}')
+        return err
+    return held
+
+
+def _det_eval(model, cfg, ava):
+    """forward_test on every keyframe (the test-mode clip: the keyframe's
+    4 x 16 frames, short side 256) over its proposals, then
+    AVADataset.evaluate: mAP@0.5IOU in [0, 1]. Returns the metrics, the
+    keyframes' (roi features, rois, metas, the first one's clip) for the
+    LFB pass and the keyframes a second."""
+    from mscl_torch.datasets import build_dataset
+    pipeline = [dict(type='SampleAVAFrames', clip_len=4, frame_interval=16,
+                     test_mode=True),
+                dict(type='RawFrameDecode'),
+                dict(type='Resize', scale=(-1, 256)),
+                dict(type='Normalize', mean=[123.675, 116.28, 103.53],
+                     std=[58.395, 57.12, 57.375], to_bgr=False),
+                dict(type='FormatShape', input_format='NCTHW',
+                     collapse=True)]
+    ds = build_dataset(dict(cfg.data.train.to_dict(), ann_file=ava['ann'],
+                            exclude_file=ava['exclude'],
+                            proposal_file=ava['proposals'],
+                            data_prefix=ava['prefix'], pipeline=pipeline,
+                            test_mode=True))
+    model.eval()
+    results, feats = [], []
+    t0 = time.perf_counter()
+    for i in range(len(ds)):
+        item = ds[i]
+        h, w = item['img_shape']
+        props = item['proposals']
+        rois = torch.from_numpy(np.concatenate(
+            [np.zeros((len(props), 1), np.float32), props], 1)).cuda()
+        imgs = torch.from_numpy(item['imgs'][None]).cuda()
+        with torch.no_grad():
+            scores = model.forward_test(imgs, rois)
+            roi_feats = model.roi_extractor(model.extract_feat(imgs), rois)
+        results.append(dict(bboxes=props / np.array([w, h, w, h],
+                                                   np.float32),
+                            scores=scores.cpu().numpy()))
+        feats.append((roi_feats, rois, [dict(img_key=ds.img_key(i))],
+                      imgs if i == 0 else None))
+    per_s = len(ds) / (time.perf_counter() - t0)
+    metrics = ds.evaluate(results)
+    if not 0 <= metrics['mAP@0.5IOU'] <= 1:
+        raise AssertionError(f'AVA mAP {metrics}')
+    return metrics, feats, per_s
+
+
+def _det_lfb(root, feats):
+    """The LFB end to end: LFBInferHead over the keyframes' RoI features
+    writes lfb_train.pkl; LFB loads it and samples each RoI's long-term
+    block (window 60 x 5 features of 2048, a seeded generator); the
+    lfb_nl model (seed 1) runs forward_test with it on the first
+    keyframe's clip and RoIs."""
+    from mscl_torch.models.heads import LFB, LFBInferHead, sample_lfb
+    prefix = osp.join(root, 'lfb')
+    infer = LFBInferHead(prefix, dataset_mode='train')
+    for roi_feats, rois, metas, _ in feats:
+        infer(roi_feats, rois, metas)
+    path = infer.save()
+    cfg = Config.fromfile(DET + DET_LFB)
+    lfb_cfg = dict(cfg.model.roi_head.shared_head.lfb_cfg.to_dict(),
+                   lfb_prefix_path=prefix, dataset_modes=('train',))
+    bank = LFB(**lfb_cfg)
+    _, rois, metas, imgs = feats[0]
+    lt = sample_lfb(bank, [metas[0]['img_key']] * len(rois),
+                    np.random.default_rng(0))
+    if lt.shape != (len(rois), 300, 2048) or not np.abs(lt).sum() > 0:
+        raise AssertionError(f'LFB block {lt.shape}')
+    model, _ = _det_model(DET_LFB, 'cuda')
+    model.eval()
+    with torch.no_grad():
+        scores = model.forward_test(imgs, rois, torch.from_numpy(lt).cuda())
+    if scores.shape != (len(rois), 81) or not torch.isfinite(scores).all():
+        raise AssertionError(f'FBO forward_test {tuple(scores.shape)}')
+    return dict(bank_videos=len(bank), lt_shape=list(lt.shape),
+                pkl_bytes=os.path.getsize(path))
+
+
+def _roi_align_cost(dev, n=8, hw=16, c=2048, rois=256, out=8, ratio=2):
+    """RoIAlign at the AVA step's shape (8 clips' 16x16 maps of 2048,
+    256 RoIs, 8x8 bins of 2x2 points): forward and backward ms (CUDA
+    events, the mean of 5 after 2 warm-ups) and the peak memory above the
+    inputs of one forward and backward."""
+    from mscl_torch.ops.roi_align import roi_align
+    g = torch.Generator(device=dev).manual_seed(0)
+    feat = torch.rand(n, hw, hw, c, device=dev, generator=g) \
+        .requires_grad_()
+    xy = torch.rand(rois, 2, device=dev, generator=g) * 160
+    boxes = torch.cat([torch.randint(0, n, (rois, 1), device=dev,
+                                     generator=g).float(), xy,
+                       xy + 32 + torch.rand(rois, 2, device=dev,
+                                            generator=g) * 64], 1)
+    cot = torch.rand(rois, out, out, c, device=dev, generator=g)
+
+    def run():
+        y = roi_align(feat, boxes, out, 1 / 16, ratio, True)
+        y.backward(cot)
+        feat.grad = None
+    for _ in range(2):
+        run()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(5):
+        run()
+    end.record()
+    torch.cuda.synchronize()
+    return dict(ms=start.elapsed_time(end) / 5,
+                peak_extra_bytes=torch.cuda.max_memory_allocated() - base,
+                shape=[n, hw, hw, c, rois, out, ratio])
+
+
+def phase_detection(root):
+    """AVA spatio-temporal detection at the shipped configs' full widths on
+    an AVA-shaped set written from a seed (csv, proposal pickle with
+    scores, exclude file, JPEG rawframes at 320x240): card against CPU for
+    the distinct models (DET_CHECKED: forward and one step, dropout 0) in
+    the reference workers; every other config (DET_FORWARD) built and one
+    forward on the card; the SlowOnly-50 config through the training CLI
+    (batch 8, 4x16 frames, 256 crops, 32 RoIs a clip, DET_STEPS steps);
+    forward_test on the keyframes into AVADataset.evaluate; the LFB end to
+    end. No kernel of the port launches."""
+    dev = torch.device('cuda')
+    t_phase = time.perf_counter()
+    root = osp.join(root, 'detection')
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    ava = _util('_torch_ava_util').write_ava_set(
+        root, _jpeg_writer(), n_videos=DET_VIDEOS, keyframes=DET_KEYFRAMES,
+        hw=(240, 320), distinct=16)
+    write_s = time.perf_counter() - t0
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    pending, forward = {}, {}
+    with reference_pool(root) as pool:
+        for label, path in DET_CHECKED:
+            cfg = Config.fromfile(DET + path)
+            pending[label] = _det_card_vs_cpu(pool, path, _det_clip(cfg,
+                                                                    ava))
+        for path in DET_FORWARD:
+            clip = _det_clip(Config.fromfile(DET + path), ava)
+            model, _ = _det_model(path, dev)
+            model.eval()
+            with torch.no_grad():
+                scores = model.forward_test(
+                    torch.from_numpy(clip['imgs']).to(dev),
+                    torch.from_numpy(clip['rois']).to(dev))
+            if not torch.isfinite(scores).all():
+                raise AssertionError(f'{path}: forward {scores}')
+            forward[path] = list(scores.shape)
+            del model
+        checked = {label: held() for label, held in pending.items()}
+    cvc_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    work = osp.join(root, 'work')
+    torch.cuda.reset_peak_memory_stats()
+    (runner, model), launches, run_s = cli_run(
+        train_cli.main, [DET_MAIN, '--seed', '0', '--cfg-options',
+                         *_det_options(ava, work)])
+    row = dict(_cli_row(runner, work, 'imgs', 'detection_slowonly'),
+               run_s=run_s, peak_bytes=torch.cuda.max_memory_allocated())
+    if row['steps'] != DET_STEPS:
+        raise AssertionError(f'detection: {row["steps"]} steps')
+    t0 = time.perf_counter()
+    metrics, feats, keyframes_per_s = _det_eval(model, Config.fromfile(
+        DET_MAIN), ava)
+    eval_s = time.perf_counter() - t0
+    del runner, model
+    t0 = time.perf_counter()
+    lfb = _det_lfb(root, feats)
+    lfb_s = time.perf_counter() - t0
+    roi_align_cost = _roi_align_cost(dev)
+    launches['corr_lookup'] = cl.corr_lookup.launches
+    if any(launches.values()):
+        raise AssertionError(f'detection launched {launches}')
+    seconds = time.perf_counter() - t_phase
+    log(phase='detection', train=row, card_vs_cpu=checked, forward=forward,
+        metrics=metrics, keyframes_per_s=keyframes_per_s, lfb=lfb,
+        roi_align=roi_align_cost,
+        write_s=write_s, card_vs_cpu_s=cvc_s, eval_s=eval_s, lfb_s=lfb_s,
+        seconds=seconds, launches=launches)
+    log(phase='detection', headline=dict(
+        checks=f'{len(DET_CHECKED)} models card vs CPU (forward and a '
+               f'step), {len(DET_FORWARD)} more built and run; '
+               f'slowonly_r50 trained ({DET_STEPS} steps at 8, 32 RoIs), '
+               f'evaluated (mAP@0.5IOU), the LFB end to end; 0 kernel '
+               f'launches',
+        slowonly_r50=[round(row['steady_ms'], 1),
+                      round(row['data_wait_ms'], 1),
+                      round(row['device_ms'], 1),
+                      round(row['idle_share'] or 0, 3),
+                      round(row['peak_bytes'] / 2 ** 30, 2)],
+        keys='steady_ms, data_wait_ms, device_ms and idle_share (a step '
+             'profiled), peak_GiB',
+        map=round(metrics['mAP@0.5IOU'], 4),
+        roi_align_ms=round(roi_align_cost['ms'], 2),
+        roi_align_peak_GiB=round(roi_align_cost['peak_extra_bytes'] /
+                                 2 ** 30, 2),
+        worst_share=_short(max(c['score_share']
+                               for c in checked.values())),
+        worst_grad=_short(max(c['grad_rel'] for c in checked.values())),
+        parts_s=dict(write=round(write_s, 1), cvc=round(cvc_s, 1),
+                     train=round(run_s, 1), eval=round(eval_s, 1),
+                     lfb=round(lfb_s, 1))))
+
+
 def _kernel_class(name):
     """Class of a device kernel by its name; the first match wins, so BN
     and resize kernels that cuDNN or a conv-like name carries come first."""
@@ -6142,6 +6722,8 @@ def run_phases(out):
         run('mscl_family', phase_mscl_family, dev, root, pkls, ft_pkls,
             ft_work)
         run('localization', phase_localization, root)
+        run('audio', phase_audio, root)
+        run('detection', phase_detection, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
         stop_reference_workers()

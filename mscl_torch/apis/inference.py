@@ -29,9 +29,11 @@ from ..utils.device import resolve_device
 def _forward_each_batch(model, method: str, loader) -> List[np.ndarray]:
     """``model.<method>(imgs)`` on every batch, in eval mode without
     gradients; the rows as float32 numpy arrays (in a process group every
-    rank's, in dataset order: see above)."""
+    rank's, in dataset order: see above). The batch entry is the model's
+    ``input_key`` ('imgs'; an AudioRecognizer's 'audios')."""
     device = next(model.parameters()).device
     fn = getattr(model, method)
+    key = getattr(model, 'input_key', 'imgs')
     was_training = model.training
     model.eval()
     out: List[np.ndarray] = []
@@ -40,7 +42,7 @@ def _forward_each_batch(model, method: str, loader) -> List[np.ndarray]:
         with torch.no_grad():
             for batch in loader:
                 imgs = torch.from_numpy(
-                    np.ascontiguousarray(batch['imgs'])).to(device)
+                    np.ascontiguousarray(batch[key])).to(device)
                 rows = fn(imgs).float()
                 if dist.is_distributed():
                     rows = dist.all_gather_rows(rows, tag='eval_rows')

@@ -62,6 +62,14 @@ LayerNorm ``scale`` -> ``weight`` and the raw ``pos_embed``,
 (``downsample_{i}``, ``fusion``), ``downsample_op_{i}``,
 ``pyramid_fusion``, ``aux_conv``, ``aux_bn`` and ``aux_fc``.
 
+So do the audio and detection models: ResNetAudio's ``ConvAudio`` pairs
+(``conv_1_conv``, ``conv_1_bn``, ``conv_2_conv``, ``conv_2_bn``) and flat
+``conv1_conv`` / ``conv3_bn`` / ``downsample_conv``, its bare 3x3
+``conv2_conv`` (-> ``conv2.conv``); the detector's ``bbox_head.fc_cls``,
+ACRN's ``conv{i}_conv`` / ``conv{i}_bn`` (its ``conv2_conv`` ->
+``conv2.conv``), FBO's Dense layers and its LayerNorm ``ln`` (a (S, C)
+``scale`` -> ``weight``).
+
 So do the localizers, with no rule of their own: BMN's grouped 1D convs
 ``b1``, ``b2``, ``s1``, ``e1``, ``p1`` ((3, C/4, C) -> (C, C/4, 3)), ``s2``
 and ``e2``, its ``p3d`` over the samples ((S,1,1,C,C3) -> (C3,C,S,1,1))
@@ -219,7 +227,8 @@ _M_SUFFIXED = ('backbone', 'neck', 'cls_head', 'sup_head', 'moco_head',
                'moco_mx_head', 'recognizer', 'recognizer_flow')
 # blocks whose JAX module names its conv2 pair bare (``conv2_conv``,
 # ``conv2_bn``), where the port nests them (``conv2.conv``)
-_FLAT_CONV2 = ('Bottleneck3d', 'CSNBottleneck')
+_FLAT_CONV2 = ('Bottleneck3d', 'CSNBottleneck', 'Bottleneck2dAudio',
+               'ACRNHead')
 # the raw parameters that keep their names (``_LEAF``), by their torch name
 _RAW = {v: k for k, v in _LEAF['params'].items()
         if k not in ('kernel', 'scale', 'bias')}
@@ -249,7 +258,7 @@ def jax_param_paths(model: nn.Module) -> Dict[str, str]:
                 i += 2
                 continue
             if seg == 'conv2' and type(owner).__name__ in _FLAT_CONV2 and \
-                    i + 2 < len(segs):
+                    i + 2 < len(segs) and segs[i + 1] in ('conv', 'bn'):
                 path.append(f'conv2_{segs[i + 1]}')
                 i += 2
                 continue
@@ -261,7 +270,8 @@ def jax_param_paths(model: nn.Module) -> Dict[str, str]:
             i += 1
         leaf = segs[-1]
         if leaf == 'weight':
-            leaf = 'scale' if param.dim() == 1 else 'kernel'
+            norm = isinstance(modules['.'.join(segs[:-1])], nn.LayerNorm)
+            leaf = 'scale' if param.dim() == 1 or norm else 'kernel'
         path.append(_RAW.get(leaf, leaf))
         out[name] = '/'.join(path)
     return out

@@ -9,6 +9,9 @@ names ``'{}_{:05d}.jpg'`` with 'x' and 'y'), numbered from
 ``start_index``. ``VideoDataset`` is refused by name: its videos need a
 video codec, which the port does not have.
 
+``AudioVisualDataset`` adds each video's ``audio_path`` under
+``audio_prefix`` (``mscl_tpu/datasets/rawframe_dataset.py:109``).
+
 ``ImageDataset`` (the OmniSource web images) lists "path label..." lines,
 as the JAX one, which subclasses the JAX ``VideoDataset`` for its list
 reader; the port's reads the list itself and needs no codec (its pipeline
@@ -84,6 +87,33 @@ class RawframeDataset(BaseDataset):
 
     def prepare_test_frames(self, idx):
         return self.prepare_train_frames(idx)
+
+
+@DATASETS.register_module()
+class AudioVisualDataset(RawframeDataset):
+    """RawframeDataset lines, each video also given ``audio_path``: its
+    frame directory relative to ``data_prefix``, under ``audio_prefix``,
+    with '.npy' (a spectrogram or feature map); and with ``video_prefix``
+    a ``filename`` (.mp4) that no pipeline of the port decodes (reference
+    mmaction audio_visual_dataset.py)."""
+
+    def __init__(self, ann_file, pipeline, audio_prefix, **kwargs):
+        self.audio_prefix = audio_prefix
+        self.video_prefix = kwargs.pop('video_prefix', None)
+        super().__init__(ann_file, pipeline, **kwargs)
+
+    def load_annotations(self):
+        video_infos = super().load_annotations()
+        for info in video_infos:
+            rel = osp.relpath(info['frame_dir'], self.data_prefix) \
+                if self.data_prefix else info['frame_dir']
+            if self.audio_prefix is not None:
+                info['audio_path'] = osp.join(self.audio_prefix,
+                                              rel + '.npy')
+            if self.video_prefix:
+                info['filename'] = osp.join(self.video_prefix,
+                                            rel + '.mp4')
+        return video_infos
 
 
 @DATASETS.register_module()

@@ -8,6 +8,7 @@ from . import heads  # noqa: F401
 from . import losses  # noqa: F401
 from . import recognizers  # noqa: F401
 from . import localizers  # noqa: F401
+from . import detection  # noqa: F401
 
 __all__ = ['MODELS', 'BACKBONES', 'NECKS', 'HEADS', 'RECOGNIZERS', 'LOSSES',
            'SSL_AUGS', 'build_backbone', 'build_neck', 'build_head',

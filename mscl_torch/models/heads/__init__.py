@@ -1,5 +1,7 @@
 from .base import BaseHead, topk_accuracy
 from .i3d_head import I3DHead
+from .lfb import (LFB, ACRNHead, FBOHead, FBONonLocal, LFBInferHead,
+                  NonLocalLayer, sample_lfb)
 from .local_align_heads import (FGMoDistPredHead, MAMSCLWithAugPosHead,
                                 MlvlMSCLWithAugPosHead, MoDistMSEPredHead,
                                 MoDistPredDTHead, MoDistPredHead,
@@ -16,7 +18,8 @@ from .moco_head_v3 import (MoCoHeadV2, MSCLWithAugDistillMxHead,
 from .reid_distill_heads import (FGTSMReidSimpleHead, RcMoDistHead,
                                  TSMHead3D, TSMReidSimpleHead)
 
-__all__ = ['BaseHead', 'I3DHead', 'topk_accuracy', 'MSCLWithAugPosHeadV2',
+__all__ = ['LFB', 'ACRNHead', 'FBOHead', 'FBONonLocal', 'LFBInferHead',
+           'NonLocalLayer', 'sample_lfb', 'BaseHead', 'I3DHead', 'topk_accuracy', 'MSCLWithAugPosHeadV2',
            'MoCoHead', 'MSCLWithAugMxHead', 'MoDistPredHead',
            'MoDistMSEPredHead', 'FGMoDistPredHead', 'MoDistPredDTHead',
            'MTMoDistPredHead', 'MoDistv2PosHead', 'MSCLWithAugPosHead',

@@ -106,3 +106,32 @@ class SeededDropout:
             shape, generator=self.dropout_generator(x.device),
             device=x.device, dtype=torch.float32))
         return torch.where(u >= p, x / (1 - p), torch.zeros_like(x))
+
+
+class RateDropout(SeededDropout, nn.Module):
+    """``SeededDropout`` as a module of its own, with no parameters: the
+    detection heads' dropout sites (``BBoxHeadAVA``'s, FBO's three), each
+    with its own generator. A state put back before the first batch is
+    applied when the generator is made on the batch's device."""
+
+    def __init__(self, rate: float):
+        nn.Module.__init__(self)
+        self.dropout_ratio = rate
+        self._pending = None
+
+    def dropout_generator(self, device: torch.device) -> torch.Generator:
+        gen = super().dropout_generator(device)
+        if self._pending is not None:
+            gen.set_state(self._pending)
+            self._pending = None
+        return gen
+
+    def dropout_state(self) -> Optional[torch.Tensor]:
+        return self._pending if self._dropout_gen is None else \
+            self._dropout_gen.get_state()
+
+    def set_dropout_state(self, state) -> None:
+        self._dropout_gen, self._pending = None, state
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.dropout(x)

@@ -1,3 +1,4 @@
+from .audio_recognizer import AudioRecognizer
 from .base import (get_ssl_state_dict, graft, init_from_ssl_pretrain,
                    parse_losses)
 from .moco import MLP, MoCo, MoCoBase, MoCoV2, build_ema_fn
@@ -5,7 +6,7 @@ from .mscl import MSCL, MoDist, MSCLWithAug
 from .recognizer2d import Recognizer2D
 from .recognizer3d import Recognizer3D
 
-__all__ = ['parse_losses', 'get_ssl_state_dict', 'graft',
+__all__ = ['AudioRecognizer', 'parse_losses', 'get_ssl_state_dict', 'graft',
            'init_from_ssl_pretrain', 'MLP', 'MoCo', 'MoCoBase', 'MoCoV2',
            'build_ema_fn',
            'MSCL', 'MoDist', 'MSCLWithAug', 'Recognizer2D', 'Recognizer3D']

@@ -360,10 +360,11 @@ def run_both(name, root, ann, tmp, validate, x64, ncthw=False,
 
         def to_torch(batch, device):
             out = real_to(batch, device)
+            key = 'audios' if 'audios' in out else 'imgs'
             if scale is not None:
-                out['imgs'] = out['imgs'] * scale
+                out[key] = out[key] * scale
             if port64:
-                out['imgs'] = out['imgs'].double()
+                out[key] = out[key].double()
             return out
         train_loop.to_torch = to_torch
         if port64:
